@@ -1,0 +1,263 @@
+"""File codec CLI of the port: `.fpsc` bitstream file -> wav, on the card.
+
+    python -m fpsc_tpu_torch.codec.cli decode IN.fpsc OUT_DIR \
+        train.transfer_model=<label> codec.codebook_path=cb.npz \
+        train.vocoder_model=<label_s> [key=value ...] [--device=cpu]
+
+Port of fpsc_tpu/codec/cli.py:54-117, 256-415 (decode only): unpack
+the fixed-layout symbols -> closed-loop feature decode -> ceps2lpc ->
+frame-rate prologue -> the CUDA LPCNet sampler.  Utterances are
+bucketed by frame count and each bucket runs as one batch.
+
+Not decoded yet, each refused with a ValueError: entropy-coded
+containers (codec.entropy_coding=true), packetized streams with or
+without FEC (and so packet-loss concealment), rate presets other than
+`full`, and bunch=2/4 vocoders.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+import wave
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from fpsc_tpu_torch.codec import bitstream as bs
+from fpsc_tpu_torch.codec import container
+from fpsc_tpu_torch.codec.codec import decode
+from fpsc_tpu_torch.config.config import Config, apply_overrides
+from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
+from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
+                                                   FramePredictorConfig)
+from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+from fpsc_tpu_torch.ops import lpcnet_sampler
+from fpsc_tpu_torch.train import checkpoint as ckpt
+from fpsc_tpu_torch.utils.device import resolve_device
+
+# (frames, batch) -> (frames, batch, 160) uniforms in [0, 1)
+UniformSource = Callable[[int, int], np.ndarray]
+
+
+def codebook_sizes(codebooks) -> dict:
+    return {
+        "scl": int(codebooks.scl.shape[0]),
+        "scl_bl": int(codebooks.scl_bl.shape[0])
+        if codebooks.scl_bl is not None else 0,
+        "vq": [int(cb.shape[0]) for cb in codebooks.vq],
+        "vq_bl": [int(cb.shape[0]) for cb in codebooks.vq_bl]
+        if codebooks.vq_bl is not None else [],
+    }
+
+
+def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
+    """[predictor, codebooks, sizes(, vocoder)] from the checkpoint and
+    codebook paths in cfg; weights are seeded random where cfg names
+    no checkpoint."""
+    dev = resolve_device(device)
+    if cfg.codec.preset != "full":
+        raise ValueError(f"rate preset {cfg.codec.preset!r}: the port "
+                         "decodes the 'full' preset only")
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    predictor = FramePredictor(FramePredictorConfig(
+        in_features=cfg.predictor.in_features,
+        gru_units1=cfg.predictor.gru_units1,
+        gru_units2=cfg.predictor.gru_units2,
+        fc_units=cfg.predictor.fc_units,
+        mask_units=cfg.predictor.mask_units), generator=gen)
+    if cfg.train.transfer_model:
+        payload = ckpt.load(ckpt.checkpoint_path(
+            cfg.train.save_dir, cfg.train.transfer_model,
+            cfg.train.transfer_epoch))
+        ckpt.restore(predictor, payload, "predictor")
+    codebooks = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
+    out = [predictor.to(dev), codebooks, codebook_sizes(codebooks)]
+    if need_vocoder:
+        out.append(_load_vocoder(cfg, dev))
+    return out
+
+
+def _load_vocoder(cfg: Config, device) -> LPCNet:
+    if cfg.lpcnet.bunch != 1:
+        raise ValueError(f"lpcnet.bunch={cfg.lpcnet.bunch}: the port's "
+                         "sampler runs bunch=1 vocoders only")
+    vocoder = LPCNet(LPCNetConfig(
+        gru_a_units=cfg.lpcnet.gru_a_units,
+        gru_b_units=cfg.lpcnet.gru_b_units,
+        embed_dim=cfg.lpcnet.embed_dim,
+        cond_units=cfg.lpcnet.cond_units),
+        generator=torch.Generator().manual_seed(cfg.train.seed + 2))
+    if cfg.train.vocoder_model:
+        payload = ckpt.load(ckpt.checkpoint_path(
+            cfg.train.save_dir, cfg.train.vocoder_model,
+            cfg.train.vocoder_epoch))
+        ckpt.restore(vocoder, payload, "vocoder (bunch=1)")
+    return vocoder.to(device)
+
+
+def save_wav(path: str, x: np.ndarray, sr: int = C.SAMPLE_RATE) -> None:
+    """Peak-normalised 16-bit PCM mono wav (fpsc_tpu/train/synthesis.py:30)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    x = np.asarray(x, np.float64)
+    x = x / max(np.abs(x).max(), 1e-9)
+    pcm = (x * 32767.0).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
+def _refuse_unsupported(meta: Dict) -> None:
+    if meta["packet_frames"] or meta["fec"]:
+        raise ValueError("packetized .fpsc streams (codec.packet_ms, "
+                         "codec.fec) are not decoded by the port yet")
+    if meta["entropy"]:
+        raise ValueError("entropy-coded .fpsc streams "
+                         "(codec.entropy_coding=true) are not decoded by "
+                         "the port yet; encode with "
+                         "codec.entropy_coding=false")
+    if meta["preset"] != "full":
+        raise ValueError(f"rate preset {meta['preset']!r}: the port "
+                         "decodes the 'full' preset only")
+
+
+class _Phases:
+    """Wall time per decode phase, the device synchronised at each
+    boundary; only when the caller passed a dict to fill."""
+
+    def __init__(self, out: Optional[Dict[str, float]], device):
+        self.out, self.device = out, device
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = self.out.get(name, 0.0) + (now - self.t)
+        self.t = now
+
+
+@torch.no_grad()
+def decode_file(cfg: Config, in_path: str, out_dir: str,
+                artifacts=None, vocoder: Optional[LPCNet] = None,
+                device=None, uniforms: Optional[UniformSource] = None,
+                timings: Optional[Dict[str, float]] = None) -> List[dict]:
+    """Decode every utterance of a fixed-layout .fpsc container to
+    out_dir/<name>.wav; returns [{name, coded, lpc, wav}] in container
+    order.
+
+    Runs on the card unless device="cpu".  Each bucket's uniforms come
+    from a torch.Generator seeded with 0 (the JAX decoder uses
+    PRNGKey(0) per bucket), or from `uniforms(frames, batch)`.  The
+    sampler works in bf16 on the card and in f32 on the CPU, as the
+    JAX decoder's Pallas and XLA samplers do.  `timings`, when given,
+    collects the wall seconds of each phase.
+    """
+    dev = resolve_device(device)
+    sampler_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    phases = _Phases(timings, dev)
+    if artifacts is None:
+        *artifacts, vocoder = load_artifacts(cfg, need_vocoder=True,
+                                             device=dev)
+    predictor, codebooks, sizes = artifacts
+    box = container.read_fpsc(in_path)
+    meta = box["meta"]
+    _refuse_unsupported(meta)
+    container.check_geometry(meta, sizes)
+    scale = C.MAXI if cfg.data.normalize else 1.0
+    os.makedirs(out_dir, exist_ok=True)
+
+    unpacked, buckets, order = {}, {}, []
+    for name, payload in box["utterances"]:
+        got = bs.unpack_utterance(payload, sizes)
+        unpacked[name] = (got, len(payload))
+        buckets.setdefault(len(got["ind1"]), []).append(name)
+        order.append(name)
+    phases.mark("unpack")
+
+    out = {}
+    for n_frames, names in buckets.items():
+        def stack(f):
+            return torch.as_tensor(
+                np.stack([f(unpacked[n][0]) for n in names]), device=dev)
+
+        g0 = unpacked[names[0]][0]
+        coded = decode(predictor, codebooks,
+                       stack(lambda g: g["ind1"]), stack(lambda g: g["ind2"]),
+                       {k: stack(lambda g, k=k: g["indices"][k]).long()
+                        for k in g0["indices"]},
+                       stack(lambda g: g["pitch"]) / scale)
+        phases.mark("feature_decode")
+        coded_un = coded * scale
+        periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)
+        _, lpc, _ = ceps2lpc(coded_un.reshape(-1, 20)[:, :18])
+        lpc = lpc.reshape(coded_un.shape[0], -1, 16)
+        phases.mark("ceps2lpc")
+        if uniforms is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            u = torch.rand((n_frames, len(names), C.FRAME_SIZE),
+                           generator=gen, device=dev)
+        else:
+            u = torch.as_tensor(np.asarray(uniforms(n_frames, len(names))),
+                                dtype=torch.float32, device=dev)
+        y = _synthesize(vocoder, coded, periods, lpc, coded_un[..., 19], u,
+                        sampler_dtype, phases)
+        coded, lpc, y = (x.cpu().numpy() for x in (coded, lpc, y))
+        for i, name in enumerate(names):
+            out[name] = {"name": name, "coded": coded[i], "lpc": lpc[i],
+                         "wav": y[i]}
+
+    results = []
+    for name in order:
+        r = out[name]
+        wav_path = os.path.join(out_dir, f"{name}.wav")
+        save_wav(wav_path, r["wav"])
+        print(f"{name}: {unpacked[name][1]} bytes -> "
+              f"{len(r['wav'])} samples -> {wav_path}")
+        results.append(r)
+    phases.mark("write")
+    return results
+
+
+def _synthesize(vocoder: LPCNet, coded, periods, lpc, corr, u,
+                dtype: torch.dtype, phases: _Phases) -> torch.Tensor:
+    """Vocoder on the NORMALISED coded features, with the raw-scale
+    correlation, unclipped.  A checkpoint whose GRU_A is block-sparse
+    gets the block-sparse Pallas kernel in the JAX decoder
+    (auto_block_pattern); the port runs the dense kernel on the same
+    weights, which computes the same function."""
+    ops, meta = lpcnet_sampler.prepare(vocoder, coded, periods, lpc, u,
+                                       corr=corr, dtype=dtype)
+    phases.mark("prologue")
+    y = lpcnet_sampler.sample(ops, meta)
+    phases.mark("sampler")
+    return y
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] != "decode":
+        print(__doc__)
+        return 2
+    rest = argv[1:]
+    device = None
+    for a in [a for a in rest if a.startswith("--device=")]:
+        device = a.split("=", 1)[1]
+        rest.remove(a)
+    paths = [a for a in rest if "=" not in a]
+    if len(paths) != 2:
+        print("decode IN.fpsc OUT_DIR [key=value] [--device=cpu]")
+        return 2
+    cfg = apply_overrides(Config(), [a for a in rest if "=" in a])
+    decode_file(cfg, paths[0], paths[1], device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,59 @@
+"""GRU cell with explicit parameters in the torch `[r|z|n]` layout.
+
+Port of fpsc_tpu/models/gru.py:53-70 (the gate math of the reference's
+nn.GRU, reference src/models/wavernn.py:37-38):
+
+    r = sigmoid(x Wir^T + bir + h Whr^T + bhr)
+    z = sigmoid(x Wiz^T + biz + h Whz^T + bhz)
+    n = tanh  (x Win^T + bin + r * (h Whn^T + bhn))
+    h' = (1 - z) n + z h
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from fpsc_tpu_torch.models.common import _uniform
+
+
+class GRU(nn.Module):
+    """wi (3H, I), wh (3H, H), bi (3H,), bh (3H,)."""
+
+    def __init__(self, in_features: int, units: int,
+                 generator: torch.Generator):
+        super().__init__()
+        k = 1.0 / math.sqrt(units)
+        self.wi = nn.Parameter(_uniform((3 * units, in_features), k,
+                                        generator))
+        self.wh = nn.Parameter(_uniform((3 * units, units), k, generator))
+        self.bi = nn.Parameter(_uniform((3 * units,), k, generator))
+        self.bh = nn.Parameter(_uniform((3 * units,), k, generator))
+
+    @property
+    def units(self) -> int:
+        return self.wh.shape[-1]
+
+
+def gate_update(pre_x: torch.Tensor, gh: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+    """New state from the input projection pre_x and the recurrent term
+    gh (both (B, 3H), bias included) and the old state h (B, H)."""
+    xr, xz, xn = pre_x.chunk(3, dim=-1)
+    hr, hz, hn = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def _gates(pre_x: torch.Tensor, h: torch.Tensor, wh: torch.Tensor,
+           bh: torch.Tensor) -> torch.Tensor:
+    """Combine a precomputed input projection with the recurrent term."""
+    return gate_update(pre_x, h @ wh.T + bh, h)
+
+
+def gru_step(gru: GRU, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One step. x: (B, I), h: (B, H) -> new h (B, H)."""
+    return _gates(x @ gru.wi.T + gru.bi, h, gru.wh, gru.bh)

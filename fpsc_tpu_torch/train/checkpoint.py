@@ -1,0 +1,152 @@
+"""Load checkpoints and codebooks written by the JAX package, without JAX.
+
+fpsc_tpu.train.checkpoint.save (checkpoint.py:25-35) pickles a dict of
+numpy NamedTuple trees: params, optimizer state, step, extra.  This
+loader reads it with a restricted unpickler: the fpsc_tpu parameter
+classes map to port-side NamedTuples with the same fields, every
+optax class (the optimizer state) maps to an inert stub, because the
+port does not depend on optax, and numpy's array reconstructors are
+allowed.  Any other class is refused with a ValueError.
+"""
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from fpsc_tpu_torch.models.frame_predictor import Codebooks
+from fpsc_tpu_torch.train import weights
+
+
+class DenseParams(NamedTuple):
+    w: Any
+    b: Any
+
+
+class EmbeddingParams(NamedTuple):
+    table: Any
+
+
+class GRUParams(NamedTuple):
+    wi: Any
+    wh: Any
+    bi: Any
+    bh: Any
+
+
+class LPCNetParams(NamedTuple):
+    period_emb: Any
+    conv1: Any
+    conv1_b: Any
+    conv2: Any
+    conv2_b: Any
+    fdense1: Any
+    fdense2: Any
+    sample_emb: Any
+    gru_a: Any
+    gru_b: Any
+    fc1: Any
+    fc2: Any
+
+
+class FramePredictorParams(NamedTuple):
+    rnn1: Any
+    rnn2: Any
+    fc: Any
+    mask_fwd: Any
+    mask_bwd: Any
+    mask_fc: Any
+
+
+_PARAM_CLASSES = {
+    ("fpsc_tpu.models.common", "DenseParams"): DenseParams,
+    ("fpsc_tpu.models.common", "EmbeddingParams"): EmbeddingParams,
+    ("fpsc_tpu.models.gru", "GRUParams"): GRUParams,
+    ("fpsc_tpu.models.lpcnet", "LPCNetParams"): LPCNetParams,
+    ("fpsc_tpu.models.frame_predictor", "FramePredictorParams"):
+        FramePredictorParams,
+}
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
+          ("numpy.core.multiarray", "_reconstruct"),
+          ("numpy._core.multiarray", "_reconstruct"),
+          ("numpy.core.multiarray", "scalar"),
+          ("numpy._core.multiarray", "scalar")}
+
+
+class _Inert(tuple):
+    """Stand-in for an optax state class: keeps its fields, does
+    nothing."""
+
+    def __new__(cls, *args, **kwargs):
+        return tuple.__new__(cls, args)
+
+    def __setstate__(self, state):
+        pass
+
+
+def _numpy_attr(module: str, name: str):
+    try:
+        return getattr(importlib.import_module(module), name)
+    except ImportError:
+        # numpy 1.x spells numpy._core as numpy.core, and 2.x the reverse
+        other = (module.replace("numpy._core", "numpy.core")
+                 if "_core" in module
+                 else module.replace("numpy.core", "numpy._core"))
+        return getattr(importlib.import_module(other), name)
+
+
+class _Unpickler(pickle.Unpickler):
+    _stubs: dict = {}
+
+    def find_class(self, module: str, name: str):
+        if (module, name) in _PARAM_CLASSES:
+            return _PARAM_CLASSES[(module, name)]
+        if module == "optax" or module.startswith("optax."):
+            key = f"{module}.{name}"
+            if key not in self._stubs:
+                self._stubs[key] = type(name, (_Inert,), {})
+            return self._stubs[key]
+        if (module, name) in _NUMPY:
+            return _numpy_attr(module, name)
+        raise ValueError(f"checkpoint refers to {module}.{name}, which the "
+                         f"port's checkpoint loader does not accept")
+
+
+def load(path: str) -> dict:
+    with open(path, "rb") as f:
+        return _Unpickler(f).load()
+
+
+def checkpoint_path(save_dir: str, label: str, epoch) -> str:
+    return os.path.join(save_dir, label, f"{label}_{epoch}.ckpt")
+
+
+def restore(module: nn.Module, payload: Any, what: str = "model"
+            ) -> nn.Module:
+    """Copy a checkpoint's params (or a params tree) into `module`,
+    validated against its parameter count and shapes."""
+    if isinstance(payload, dict) and "params" in payload:
+        payload = payload["params"]
+    return weights.load_into(module, payload, what)
+
+
+def load_codebooks(path: str, device=None) -> Codebooks:
+    """Codebooks from a .npz (fpsc_tpu.train.checkpoint.save_codebooks);
+    stages in the order of sorted(z.files), as the JAX loader orders
+    them."""
+    z = np.load(path)
+
+    def t(k):
+        return torch.as_tensor(z[k], dtype=torch.float32, device=device)
+
+    vq = tuple(t(k) for k in sorted(z.files)
+               if k.startswith("vq_") and not k.startswith("vq_bl_"))
+    vq_bl = tuple(t(k) for k in sorted(z.files) if k.startswith("vq_bl_"))
+    return Codebooks(scl=t("scl"), vq=vq,
+                     scl_bl=t("scl_bl") if "scl_bl" in z.files else None,
+                     vq_bl=vq_bl or None)

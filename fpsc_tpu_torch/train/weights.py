@@ -1,0 +1,127 @@
+"""Carry JAX parameter trees over to the port's modules, by field name.
+
+A tree here is a nest of NamedTuples whose leaves are arrays: the JAX
+LPCNetParams / FramePredictorParams / GRUParams / DenseParams /
+EmbeddingParams / Codebooks turned into numpy (for example with
+`jax.tree_util.tree_map(np.asarray, params)`), or the port-side
+containers a checkpoint unpickles into (train/checkpoint.py).  The
+port's modules name their parameters by the same field paths
+(`gru_a.wi`, `fc1.w`, `period_emb.table`), so the map is a name map.
+The one layout change: the frame net's convolutions are JAX WIO
+(k, in, out) and torch (out, in, k).
+"""
+from __future__ import annotations
+
+from typing import Any, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from fpsc_tpu_torch.models.frame_predictor import (Codebooks, FramePredictor,
+                                                   FramePredictorConfig)
+from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+
+_CONV = ("conv1", "conv2")
+
+
+def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(field path, leaf) pairs in field order; None fields hold no leaf
+    (the order of jax.tree_util.tree_flatten)."""
+    if tree is None:
+        return []
+    if hasattr(tree, "_fields"):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for name, value in items:
+        out += flatten(value, f"{prefix}.{name}" if prefix else name)
+    return out
+
+
+def _jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t.permute(2, 1, 0) if name in _CONV else t
+
+
+def load_into(module: nn.Module, tree: Any, what: str = "model"
+              ) -> nn.Module:
+    """Copy a parameter tree into `module` by field path, validated leaf
+    by leaf in field order (the checks and messages of the JAX
+    restore_params)."""
+    named = dict(module.named_parameters())
+    leaves = flatten(tree)
+    if len(named) != len(leaves):
+        raise ValueError(
+            f"checkpoint does not match the configured {what}: expected "
+            f"{len(named)} param arrays ({type(module).__name__}), "
+            f"checkpoint holds {len(leaves)}. For vocoders this "
+            f"usually means cfg.lpcnet.bunch (1/2/4) disagrees with the "
+            f"architecture the checkpoint was trained with.")
+    params = []
+    for i, (name, leaf) in enumerate(leaves):
+        if name not in named:
+            raise ValueError(
+                f"checkpoint does not match the configured {what}: leaf "
+                f"{i} is {name!r}, which {type(module).__name__} does not "
+                f"have.")
+        p = named[name]
+        params.append((name, p))
+        want = tuple(_jax_layout(name, p).shape)
+        if want != tuple(np.shape(leaf)):
+            raise ValueError(
+                f"checkpoint does not match the configured {what}: leaf "
+                f"{i} expects shape {want} but the checkpoint holds "
+                f"{tuple(np.shape(leaf))} — model size config "
+                f"(units/dims) disagrees with the checkpoint.")
+    with torch.no_grad():
+        for (name, p), (_, leaf) in zip(params, leaves):
+            src = torch.from_numpy(np.array(leaf, np.float32))
+            p.copy_(src.permute(2, 1, 0) if name in _CONV else src)
+    return module
+
+
+def _init_generator() -> torch.Generator:
+    """The initial draws of a module about to be overwritten by a tree."""
+    return torch.Generator().manual_seed(0)
+
+
+def lpcnet_config(tree: Any) -> LPCNetConfig:
+    """The LPCNetConfig whose shapes an LPCNetParams tree has."""
+    k, in_dim, cond = np.shape(tree.conv1)
+    levels, e_dim = np.shape(tree.sample_emb.table)
+    period = np.shape(tree.period_emb.table)[1]
+    return LPCNetConfig(
+        feat_dim=in_dim - period, period_embed=period, cond_units=cond,
+        embed_dim=e_dim, gru_a_units=np.shape(tree.gru_a.wh)[1],
+        gru_b_units=np.shape(tree.gru_b.wh)[1], levels=levels,
+        frame_kernel=k)
+
+
+def lpcnet_from_params(tree: Any, device=None) -> LPCNet:
+    model = LPCNet(lpcnet_config(tree), _init_generator())
+    return load_into(model, tree, "vocoder").to(device)
+
+
+def predictor_from_params(tree: Any, device=None) -> FramePredictor:
+    cfg = FramePredictorConfig(
+        in_features=np.shape(tree.rnn1.wi)[1],
+        gru_units1=np.shape(tree.rnn1.wh)[1],
+        gru_units2=np.shape(tree.rnn2.wh)[1],
+        fc_units=np.shape(tree.fc.w)[0],
+        mask_units=np.shape(tree.mask_fwd.wh)[1])
+    return load_into(FramePredictor(cfg, _init_generator()), tree,
+                     "predictor").to(device)
+
+
+def codebooks_from_tree(tree: Any, device=None) -> Codebooks:
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return Codebooks(
+        scl=t(tree.scl), vq=tuple(t(cb) for cb in tree.vq),
+        scl_bl=None if tree.scl_bl is None else t(tree.scl_bl),
+        vq_bl=None if tree.vq_bl is None else tuple(
+            t(cb) for cb in tree.vq_bl))

@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(`device="cpu"`, as the tests do).  Without a card and without that
+request they raise: nothing carries on silently on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

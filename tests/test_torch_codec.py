@@ -1,0 +1,273 @@
+"""The port's `.fpsc` decoder end to end against the JAX file codec.
+
+The JAX package writes every artifact, as a deployment would: codebooks
+(.npz), a predictor and a vocoder checkpoint (`checkpoint.save`, with
+an optax optimizer state), and a fixed-layout `.fpsc` of three
+utterances from `cli.encode_paths` (two of one length and one of
+another, so two buckets).  JAX's `cli.decode_file(use_pallas=False)` is
+the oracle; the port loads the same files through its own unpickler
+and decodes on the CPU with JAX's uniform stream.  Widths are the TINY
+ones of tests/test_file_codec.py.
+
+The predictor's output layer is scaled down so that the decoded
+cepstra stay at speech scale (a random full-scale head gives cepstra of
+up to 2 * MAXI = 48, which overflow the f32 power spectrum).
+
+Tolerances: coded features rtol 1e-4, atol 1e-5, as
+tests/test_file_codec.py:131 uses for the closed-loop decode.  LPC
+against JAX's ceps2lpc of the port's features at atol 1e-3: on these
+frames Levinson is ill-conditioned in f32 (given one f32
+autocorrelation, JAX's and the port's Levinson part by 3.5e-4, each
+2.8e-4 from a float64 one), so the LPC carries no more digits than
+that, and the audio is compared with the vocoder JAX's decode_file runs
+on the CPU, lpcnet.generate, on the port's features and LPC: the
+sampler's trajectory contract, with no item diverging within its first
+frame (160 samples).  The random vocoder's audio peaks above 5, not 1,
+and the f32 rounding of the LPC prediction drifts in proportion, so the
+contract's atol of 1e-5 is taken relative to the peak.
+"""
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import optax
+import torch
+
+from fpsc_tpu.codec import bitstream as jbs
+from fpsc_tpu.codec import cli as jcli
+from fpsc_tpu.codec import container as jcontainer
+from fpsc_tpu.config.config import Config as JConfig
+from fpsc_tpu.config.config import apply_overrides as japply
+from fpsc_tpu.dsp import ceps2lpc as jceps
+from fpsc_tpu.models import frame_predictor as jfp
+from fpsc_tpu.models import lpcnet as jlpcnet
+from fpsc_tpu.train import checkpoint as jckpt
+
+from fpsc_tpu_torch.codec import bitstream as tbs
+from fpsc_tpu_torch.codec import cli as tcli
+from fpsc_tpu_torch.codec import container as tcontainer
+from fpsc_tpu_torch.config.config import Config as TConfig
+from fpsc_tpu_torch.config.config import apply_overrides as tapply
+from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.ops import lpcnet_sampler as ts
+from fpsc_tpu_torch.train import checkpoint as tckpt
+
+from test_file_codec import TINY, _write_artifacts, _write_wav
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_uniforms(frames, batch):
+    """The stream of the JAX decoder's PRNGKey(0), (L, B, 160)."""
+    return np.array(jax.random.uniform(jax.random.PRNGKey(0),
+                                       (frames, batch, C.FRAME_SIZE)))
+
+
+@pytest.fixture(scope="module")
+def coded_stream(tmp_path_factory):
+    """JAX-written artifacts and .fpsc, the overrides naming them, and
+    JAX's decode of it."""
+    tmp = tmp_path_factory.mktemp("codec")
+    cb_path = _write_artifacts(tmp)
+    save_dir = str(tmp / "runs")
+    pred = jfp.init_frame_predictor(
+        jax.random.PRNGKey(11),
+        jfp.FramePredictorConfig(gru_units1=32, gru_units2=16))
+    pred = pred._replace(fc=pred.fc._replace(w=pred.fc.w * 0.05,
+                                             b=pred.fc.b * 0.05))
+    voc = jlpcnet.init_lpcnet(
+        jax.random.PRNGKey(12),
+        jlpcnet.LPCNetConfig(gru_a_units=32, gru_b_units=8, embed_dim=16,
+                             cond_units=16))
+    for label, params in (("pred", pred), ("voc", voc)):
+        jckpt.save(jckpt.checkpoint_path(save_dir, label, 1), params,
+                   opt_state=optax.adam(1e-3).init(params), step=3)
+    overrides = TINY + [
+        f"codec.codebook_path={cb_path}", "codec.entropy_coding=false",
+        f"train.save_dir={save_dir}", "train.transfer_model=pred",
+        "train.transfer_epoch=1", "train.vocoder_model=voc",
+        "train.vocoder_epoch=1"]
+    wavs = [_write_wav(tmp, "u1", seconds=0.3, seed=7),
+            _write_wav(tmp, "u2", seconds=0.3, seed=8),
+            _write_wav(tmp, "u3", seconds=0.4, seed=9)]
+    jcfg = japply(JConfig(), overrides)
+    *arts, jvoc = jcli.load_artifacts(jcfg, need_vocoder=True)
+    path = str(tmp / "s.fpsc")
+    jcli.encode_paths(jcfg, wavs, path, artifacts=arts)
+    want = jcli.decode_file(jcfg, path, str(tmp / "jax_wav"),
+                            use_pallas=False, artifacts=arts,
+                            vocoder_params=jvoc)
+    return dict(tmp=tmp, path=path, overrides=overrides, want=want,
+                vocoder=jvoc)
+
+
+def test_decode_file_matches_jax(coded_stream):
+    cfg = tapply(TConfig(), coded_stream["overrides"])
+    out_dir = coded_stream["tmp"] / "port_wav"
+    got = tcli.decode_file(cfg, coded_stream["path"], str(out_dir),
+                           device="cpu", uniforms=_jax_uniforms)
+    want = coded_stream["want"]
+    assert [g["name"] for g in got] == [w["name"] for w in want] \
+        == ["u1", "u2", "u3"]
+    buckets = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
+                                   atol=1e-5)
+        _, lpc, _ = jceps.ceps2lpc(jnp.asarray(g["coded"][:, :18] * C.MAXI))
+        np.testing.assert_allclose(g["lpc"], np.asarray(lpc), rtol=1e-4,
+                                   atol=1e-3)
+        assert g["wav"].shape == w["wav"].shape
+        assert (out_dir / f"{g['name']}.wav").exists()
+        buckets.setdefault(len(g["coded"]), []).append(g)
+    assert len(buckets) == 2
+    for items in buckets.values():
+        coded = np.stack([g["coded"] for g in items])
+        coded_un = coded * C.MAXI
+        periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).astype(np.int32)
+        ref = np.asarray(jlpcnet.generate(
+            coded_stream["vocoder"], jnp.asarray(coded),
+            jnp.asarray(periods),
+            jnp.asarray(np.stack([g["lpc"] for g in items])),
+            jax.random.PRNGKey(0), corr=jnp.asarray(coded_un[..., 19])))
+        flips, _ = ts.trajectory_flips(np.stack([g["wav"] for g in items]),
+                                       ref, atol=1e-5 * np.abs(ref).max())
+        assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
+
+
+def test_bitstream_and_container_match_jax(tmp_path):
+    """The port's copies write JAX's bytes and read them back."""
+    rng = np.random.RandomState(3)
+    sizes = {"scl": 256, "scl_bl": 16, "vq": [1024, 1024], "vq_bl": [512]}
+    frames = 40
+    ind1, ind2 = rng.rand(frames) > 0.5, rng.rand(frames) > 0.3
+    idx = {"scl": np.where(ind1, rng.randint(0, 256, frames), -1),
+           "scl_bl": np.where(ind1, -1, rng.randint(0, 16, frames)),
+           "vq": np.where(ind2[:, None], rng.randint(0, 1024, (frames, 2)),
+                          -1),
+           "vq_bl": np.where(ind2[:, None], -1,
+                             rng.randint(0, 512, (frames, 1)))}
+    pitch = np.stack([rng.uniform(-1.3, 3.7, frames),
+                      rng.uniform(-0.5, 0.5, frames)], 1).astype(np.float32)
+    payload = tbs.pack_utterance(ind1, ind2, idx, pitch, sizes)
+    assert payload == jbs.pack_utterance(ind1, ind2, idx, pitch, sizes)
+    got, want = (m.unpack_utterance(payload, sizes) for m in (tbs, jbs))
+    for k in ("ind1", "ind2", "pitch"):
+        np.testing.assert_array_equal(got[k], want[k])
+    for k in want["indices"]:
+        np.testing.assert_array_equal(got["indices"][k], want["indices"][k])
+
+    utts = [("a", payload), ("b", payload[:7])]
+    for i, kw in enumerate([dict(entropy=False),
+                            dict(entropy=True, preset="lean", l1=0.1)]):
+        tp, jp = str(tmp_path / f"t{i}.fpsc"), str(tmp_path / f"j{i}.fpsc")
+        tcontainer.write_fpsc(tp, utts, sizes, **kw)
+        jcontainer.write_fpsc(jp, utts, sizes, **kw)
+        with open(tp, "rb") as f, open(jp, "rb") as g:
+            assert f.read() == g.read()
+        assert tcontainer.read_fpsc(jp) == jcontainer.read_fpsc(jp)
+
+
+def _tiny_cfg(tmp_path, extra=()):
+    cb_path = _write_artifacts(tmp_path)
+    return tapply(TConfig(), TINY + [f"codec.codebook_path={cb_path}",
+                                     *extra])
+
+
+def _port_stream(path, sizes, frames=3, **kw):
+    """A container of one utterance of random symbols, written by the
+    port."""
+    rng = np.random.RandomState(4)
+    ind1, ind2 = rng.rand(frames) > 0.5, rng.rand(frames) > 0.5
+    idx = {"scl": rng.randint(0, sizes["scl"], frames),
+           "scl_bl": rng.randint(0, sizes["scl_bl"], frames),
+           "vq": np.stack([rng.randint(0, e, frames) for e in sizes["vq"]],
+                          1),
+           "vq_bl": np.stack([rng.randint(0, e, frames)
+                              for e in sizes["vq_bl"]], 1)}
+    pitch = np.stack([rng.uniform(-1.3, 3.7, frames),
+                      rng.uniform(-0.5, 0.5, frames)], 1)
+    payload = tbs.pack_utterance(ind1, ind2, idx, pitch, sizes)
+    if kw.get("packet_frames"):
+        payload = [payload]
+        kw["frame_counts"] = {"x": frames}
+    tcontainer.write_fpsc(path, [("x", payload)], sizes, **kw)
+    return path
+
+
+TINY_SIZES = {"scl": 16, "scl_bl": 4, "vq": [32, 16], "vq_bl": [8]}
+
+
+def test_cli_main_decodes_on_cpu(tmp_path):
+    cfg_args = TINY + [f"codec.codebook_path={_write_artifacts(tmp_path)}"]
+    path = _port_stream(str(tmp_path / "x.fpsc"), TINY_SIZES,
+                        entropy=False)
+    out = tmp_path / "wav"
+    assert tcli.main(["decode", path, str(out), *cfg_args,
+                      "--device=cpu"]) == 0
+    assert (out / "x.wav").exists()
+    assert tcli.main(["encode", path]) == 2
+
+
+@pytest.mark.parametrize("container_kw,cfg_extra,match", [
+    (dict(entropy=True), (), "entropy-coded"),
+    (dict(entropy=True, packet_frames=5), (), "packetized"),
+    (dict(entropy=True, packet_frames=5, fec=True), (), "packetized"),
+    (dict(entropy=False, preset="lean"), (), "rate preset 'lean'"),
+    (dict(entropy=False), ("codec.preset=lean",), "rate preset 'lean'"),
+    (dict(entropy=False), ("lpcnet.bunch=2",), "bunch=2"),
+])
+def test_decode_refuses_what_it_does_not_decode(tmp_path, container_kw,
+                                                cfg_extra, match):
+    cfg = _tiny_cfg(tmp_path, cfg_extra)
+    path = _port_stream(str(tmp_path / "x.fpsc"), TINY_SIZES, **container_kw)
+    with pytest.raises(ValueError, match=match):
+        tcli.decode_file(cfg, path, str(tmp_path / "wav"), device="cpu")
+
+
+class Foreign:
+    pass
+
+
+@pytest.mark.parametrize("payload", [{"params": Foreign()}, os.system])
+def test_checkpoint_loader_refuses_foreign_classes(tmp_path, payload):
+    path = tmp_path / "x.ckpt"
+    path.write_bytes(pickle.dumps(payload))
+    with pytest.raises(ValueError, match="does not accept"):
+        tckpt.load(str(path))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = """
+import importlib, pkgutil, sys
+import fpsc_tpu_torch
+for m in pkgutil.walk_packages(fpsc_tpu_torch.__path__, "fpsc_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"
+             or n.startswith("fpsc_tpu."))
+assert not bad, bad
+print(len([n for n in sys.modules if n.startswith("fpsc_tpu_torch")]))
+"""
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert run.returncode == 0, run.stderr
+    assert int(run.stdout.split()[-1]) >= 20
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = _tiny_cfg(tmp_path)
+    path = _port_stream(str(tmp_path / "x.fpsc"), TINY_SIZES, entropy=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.decode_file(cfg, path, str(tmp_path / "wav"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.load_artifacts(cfg, need_vocoder=True)
