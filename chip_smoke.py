@@ -10,39 +10,53 @@ exit and no result line:
 1. toolchain: build every kernel under fpsc_tpu_torch/csrc/ with nvcc,
    one process per source, all started together, and print versions;
 2. numerics: TF32 off for matmuls and for cuDNN (frame_net's conv1d);
-3. kernel vs plain, short window: the LPCNet sampler kernel against
-   sample_plain on the card at full width (GRU_A 384, GRU_B 16, E 128,
-   cond 128), B=8, 2 frames, in f32 and in bf16.  Every decision of
-   the kernel (embedding indices and drawn code, from its trace) and
-   its output must pass the replay (lpcnet_sampler.replay_plain and
-   replay_faults), and the free-running outputs must meet the
-   trajectory contract of tests/test_pallas_sampler.py (prefix rtol
-   1e-4, atol 1e-5 before each item's first flip; in f32 at least B-2
-   items flip-free); a flip is a move of 1e-4 or more (MU_FLIP_TOL).
-   The kernel run on wrong operands (no GRU_A recurrent product, the
-   LPC history reversed) must fail the replay;
-4. main path: 8 utterances of 2 s (200 frames) of random symbols at the
-   reference codebook geometry, written as a fixed-layout .fpsc with
-   the port's pack_utterance / write_fpsc, then decoded to wav by
-   fpsc_tpu_torch.codec.cli.decode_file with seeded random full-width
-   predictor and vocoder weights, the predictor's head scaled so the
-   cepstra lie in the range of speech.  The sampler's launch count must
-   rise; every frame's LPC synthesis filter must be stable (reflection
-   coefficients inside (-1, 1)); the audio must be finite, not silent,
-   and peak below PEAK_LIMIT.
-   Then decode_file on the card against decode_file on the CPU on a
-   small input (2 x 20 frames): the same coded features and LPC;
-5. kernel vs plain at the main path's shape: the operands of the main
-   path's sampler call, rebuilt from its decoded features, in bf16 (as
-   the main path runs) and in f32.  Every one of the 256,000 samples
-   of each must pass the replay; the bf16 kernel is timed with CUDA events
-   against the free-running plain version (timed once), whose output
-   must track each item up to its first flip (atol 1e-5 of the peak);
-   the bound of the work from its shapes.
+3. kernel vs plain, short window: each form of the LPCNet sampler
+   kernel (bunch=1 dense, bunch=2 dense, bunch=2 block-sparse, bunch=1
+   block-sparse) against sample_plain on the card at full width (GRU_A
+   384, E 128, cond 128; GRU_B 16 at bunch=1, 32 at bunch=2; GRU_A
+   sparsified to 0.2 in (64, 64) blocks), B=8, 2 frames, in f32 and in
+   bf16.  Every decision of the kernel (embedding indices and drawn
+   codes, from its trace) and its output must pass the replay
+   (lpcnet_sampler.replay_plain and replay_faults), and the free-running
+   outputs must meet the trajectory contract of
+   tests/test_pallas_sampler.py (prefix rtol 1e-4, atol 1e-5 before
+   each item's first flip; in f32 at least B-2 items flip-free); a flip
+   is a move of 1e-4 or more (MU_FLIP_TOL).  The kernel run on wrong
+   operands must fail the replay: no GRU_A recurrent product, the LPC
+   history reversed; at bunch=2 head 2 zeroed, and e_p2 and e_p1
+   swapped; in the sparse forms one live block dropped from the
+   pattern;
+4. the flagship main path (scripts/validate_flagship.py's deployment):
+   8 utterances of 2 s (200 frames) of random symbols at the reference
+   codebook geometry, range-coded with seeded random priors by the
+   port's pack_utterance_rc and written by write_fpsc(entropy=True),
+   then decoded to wav by fpsc_tpu_torch.codec.cli.decode_file with
+   seeded random full-width weights: predictor 384/128, its head scaled
+   so the cepstra lie in the range of speech; vocoder bunch=2, GRU_B
+   32, GRU_A block-sparse at 0.2 in (64, 64) blocks.  The bunch=2
+   sparse kernel must be launched, auto_block_pattern must pick 22 live
+   blocks of 108, the range decoder must give back the written
+   symbols, every frame's LPC synthesis filter must be stable
+   (reflection coefficients inside (-1, 1)), and the audio must be
+   finite, not silent, and peak below PEAK_LIMIT;
+5. kernel vs plain at the flagship's shape: the operands of its sampler
+   call, rebuilt from its decoded features, in bf16 (as the main path
+   runs) and in f32; every decision must pass the replay; the bf16
+   kernel is timed with CUDA events against the free-running plain
+   version (timed once), whose output must track each item up to its
+   first flip; the bound of the work from its shapes; the other forms
+   timed on the same inputs;
+6. the slice-1 main path: as 4, a fixed-layout container, a bunch=1
+   dense vocoder with GRU_B 16, at SLICE1_FRAMES frames; then as 5 for
+   its shape;
+7. decode_file on the card against decode_file on the CPU on small
+   inputs (2 x 20 frames), for both configurations: the same coded
+   features and LPC.
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi prints them, and the result line.
 """
+import dataclasses
 import json
 import os
 import re
@@ -50,20 +64,30 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
 from fpsc_tpu_torch.codec import bitstream as bs
 from fpsc_tpu_torch.codec import cli, container
+from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
-from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.ops import build, lpcnet_sampler
 
 N_UTT, UTT_FRAMES = 8, 200
+SLICE1_FRAMES = 100
 CHECK_B, CHECK_FRAMES = 8, 2
+# The flagship deployment (scripts/validate_flagship.py:57-131): bunch=2,
+# GRU_B 32, GRU_A at 0.2 density in (64, 64) blocks, range-coded.
+FLAGSHIP = ["lpcnet.bunch=2", "lpcnet.gru_b_units=32",
+            "codec.entropy_coding=true"]
+SLICE1 = ["lpcnet.bunch=1", "lpcnet.gru_b_units=16",
+          "codec.entropy_coding=false"]
+DENSITY, SPARSE_BLOCK = 0.2, (64, 64)
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32
 # outside them, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -80,6 +104,10 @@ MU_FLIP_TOL = 1e-4
 # (|e| < 1), and a stable filter and de-emphasis amplify it by tens.
 HEAD_SCALE = 0.05
 PEAK_LIMIT = 100.0
+SOURCE = "fpsc_tpu_torch/csrc/lpcnet_sampler.cu"
+REPLACES = {"lpcnet_sample": "fpsc_tpu/ops/lpcnet_sampler.py:87",
+            "lpcnet_sample_bunch2_sparse":
+                "fpsc_tpu/ops/lpcnet_sampler.py:291"}
 
 
 def phase(name):
@@ -125,11 +153,68 @@ def numerics():
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
 
+def vocoder(bunch: int, sparse: bool, seed: int, dev):
+    """A full-width vocoder from a seeded generator: bunch=1 with GRU_B
+    16, bunch=2 with GRU_B 32; GRU_A sparsified at DENSITY in
+    SPARSE_BLOCK blocks when `sparse`."""
+    cfg = lpcnet.LPCNetConfig(gru_b_units=16 * bunch)
+    gen = torch.Generator().manual_seed(seed)
+    if bunch == 2:
+        model = lpcnet_bunched.BunchedLPCNet(cfg, gen)
+        if sparse:
+            lpcnet_bunched.sparsify_gru_a(model, DENSITY, SPARSE_BLOCK)
+    else:
+        model = lpcnet.LPCNet(cfg, gen)
+        if sparse:
+            lpcnet.sparsify_gru_a(model, DENSITY, SPARSE_BLOCK)
+    return model.to(dev)
+
+
+def _swap_excitations(ops, meta):
+    """GRU_A's weights on emb(e_p2) and emb(e_p1) swapped: the sampler
+    that feeds the two previous excitations in the wrong order."""
+    e = meta.e_dim
+    w = ops.wiemb_t.clone()
+    w[2 * e:3 * e], w[3 * e:4 * e] = (ops.wiemb_t[3 * e:4 * e],
+                                      ops.wiemb_t[2 * e:3 * e])
+    return ops._replace(wiemb_t=w), meta
+
+
+def _drop_block(ops, meta):
+    """The pattern without the last block of its fullest row block."""
+    pattern = list(meta.pattern)
+    row = max(range(len(pattern)), key=lambda r: len(pattern[r]))
+    pattern[row] = pattern[row][:-1]
+    return ops, dataclasses.replace(meta, pattern=tuple(pattern))
+
+
+def wrong_operands(meta):
+    """The kernel runs that must fail the replay, for the form of meta:
+    {what: (ops, meta) -> (wrong ops, wrong meta)}."""
+    wrong = {
+        "no GRU_A recurrent product": lambda o, m: (
+            o._replace(wh_a_t=torch.zeros_like(o.wh_a_t)), m),
+        "LPC history reversed": lambda o, m: (
+            o._replace(lpc_rev=o.lpc_rev.flip(-1).contiguous()), m)}
+    if meta.bunch == 2:
+        wrong["head 2 zeroed"] = lambda o, m: (
+            o._replace(fch_t=torch.zeros_like(o.fch_t)), m)
+        wrong["e_p2 and e_p1 swapped"] = _swap_excitations
+    if meta.pattern is not None and meta.dtype == torch.float32:
+        # one of the flagship's 22 live blocks moves the cdf by 2e-5 to
+        # 2e-3 of its total over two frames: past the f32 tolerance for
+        # every block, within bf16's for most
+        wrong["one live block dropped"] = _drop_block
+    return wrong
+
+
+FORMS = [(1, False), (2, False), (2, True), (1, True)]
+
+
 def short_window(dev):
-    """Kernel against plain version at full width, B=8, 2 frames."""
+    """Each kernel form against the plain version at full width, B=8,
+    2 frames."""
     phase("kernel vs plain, full width, B=8, 2 frames")
-    model = LPCNet(LPCNetConfig(),
-                   generator=torch.Generator().manual_seed(1)).to(dev)
     rng = np.random.RandomState(1)
     b, frames = CHECK_B, CHECK_FRAMES
 
@@ -140,32 +225,37 @@ def short_window(dev):
     periods = t(rng.randint(32, 256, (b, frames)), torch.int32)
     lpc = t(rng.randn(b, frames, 16) * 0.05)
     u = t(rng.uniform(size=(frames, b, C.FRAME_SIZE)))
-    for dtype in (torch.float32, torch.bfloat16):
-        ops, meta = lpcnet_sampler.prepare(model, feat, periods, lpc, u,
-                                           dtype=dtype)
-        got, trace = lpcnet_sampler.sample(ops, meta, trace=True)
-        torch.cuda.synchronize()
-        _, report = _replay(ops, meta, got, trace)
-        want = lpcnet_sampler.sample_plain(ops, meta)
-        min_clean = b - 2 if dtype == torch.float32 else 0
-        flips, err = lpcnet_sampler.trajectory_flips(
-            got.cpu().numpy(), want.cpu().numpy(), min_clean=min_clean,
-            flip_tol=MU_FLIP_TOL)
-        print(f"{dtype}: {report}; free-running first flips {flips}, max "
-              f"|kernel - plain| before them {err:.3g} (min_clean "
-              f"{min_clean}): ok")
-        for name, bad in (
-                ("no GRU_A recurrent product",
-                 ops._replace(wh_a_t=torch.zeros_like(ops.wh_a_t))),
-                ("LPC history reversed",
-                 ops._replace(lpc_rev=ops.lpc_rev.flip(-1).contiguous()))):
-            r = lpcnet_sampler.replay_plain(
-                ops, meta, *lpcnet_sampler.sample(bad, meta, trace=True))
-            faults = lpcnet_sampler.replay_faults(r, dtype)
-            if not faults:
-                raise RuntimeError(f"the replay passed the kernel run with "
-                                   f"{name}")
-            print(f"  kernel with {name}: rejected ({faults[0]})")
+    for bunch, sparse in FORMS:
+        model = vocoder(bunch, sparse, seed=1, dev=dev)
+        pattern = lpcnet_sampler.auto_block_pattern(model)
+        if (pattern is not None) != sparse:
+            raise RuntimeError(f"auto_block_pattern gave {pattern} for a "
+                               f"{'sparse' if sparse else 'dense'} GRU_A")
+        for dtype in (torch.float32, torch.bfloat16):
+            ops, meta = lpcnet_sampler.prepare(model, feat, periods, lpc, u,
+                                               dtype=dtype,
+                                               gru_a_pattern=pattern)
+            name = lpcnet_sampler.kernel_name(meta)
+            got, trace = lpcnet_sampler.sample(ops, meta, trace=True)
+            torch.cuda.synchronize()
+            _, report = _replay(ops, meta, got, trace)
+            want = lpcnet_sampler.sample_plain(ops, meta)
+            min_clean = b - 2 if dtype == torch.float32 else 0
+            flips, err = lpcnet_sampler.trajectory_flips(
+                got.cpu().numpy(), want.cpu().numpy(), min_clean=min_clean,
+                flip_tol=MU_FLIP_TOL)
+            print(f"{name} {dtype}: {report}; free-running first flips "
+                  f"{flips}, max |kernel - plain| before them {err:.3g} "
+                  f"(min_clean {min_clean}): ok")
+            for what, make in wrong_operands(meta).items():
+                r = lpcnet_sampler.replay_plain(
+                    ops, meta, *lpcnet_sampler.sample(*make(ops, meta),
+                                                      trace=True))
+                faults = lpcnet_sampler.replay_faults(r, dtype)
+                if not faults:
+                    raise RuntimeError(f"the replay passed the {name} "
+                                       f"kernel run with {what}")
+                print(f"  kernel with {what}: rejected ({faults[0]})")
 
 
 def _replay(ops, meta, got, trace):
@@ -175,20 +265,47 @@ def _replay(ops, meta, got, trace):
     faults = lpcnet_sampler.replay_faults(r, meta.dtype)
     text = (f"replay: {r.draw_mismatches} of {r.draws} draws made "
             f"otherwise, max margin {r.draw_margin:.3g} of the total; "
-            f"{r.index_mismatches} embedding indices taken otherwise, max "
-            f"margin {r.index_margin:.3g}; max |kernel - replay| "
-            f"{r.out_err:.3g} at peak {r.peak:.4g}; tolerance "
+            f"{r.index_mismatches} of {r.indices} embedding indices taken "
+            f"otherwise, max margin {r.index_margin:.3g}; max |kernel - "
+            f"replay| {r.out_err:.3g} at peak {r.peak:.4g}; tolerance "
             f"{lpcnet_sampler.REPLAY_TOLERANCE[meta.dtype]}, outputs "
             f"{lpcnet_sampler.REPLAY_OUT_RTOL} of the peak")
     if faults:
-        raise RuntimeError(f"{meta.dtype} kernel fails the replay: "
+        raise RuntimeError(f"{lpcnet_sampler.kernel_name(meta)} "
+                           f"{meta.dtype} kernel fails the replay: "
                            f"{'; '.join(faults)} ({text})")
     return r, text
 
 
-def _write_stream(work: str, cfg: Config, n_utt: int, frames: int):
-    """Random symbols at the reference codebook geometry -> (.fpsc path,
-    codebook .npz path)."""
+def _priors(rng, sizes):
+    """Seeded random entropy-model priors in the layout the range coder
+    seeds its tables from (fpsc_tpu's collect_priors)."""
+    def counts(*shape):
+        return rng.randint(0, 50, shape).astype(np.float64)
+
+    nb, off = rc._scl_split(sizes["scl"])
+    nb_bl, off_bl = rc._scl_split(sizes["scl_bl"])
+    priors = {"ind1": counts(2, rc._IND_RUN_CTX, 2),
+              "ind2": counts(2, rc._IND_RUN_CTX, 2),
+              "scl_bucket": counts(nb + 1, nb), "scl_offset": counts(nb, off),
+              "scl_bl_bucket": counts(nb_bl + 1, nb_bl),
+              "scl_bl_offset": counts(nb_bl, off_bl),
+              "pitch_abs": counts(256),
+              "pitch_delta": counts(rc._PITCH_V_CTX,
+                                    rc._PITCH_ESCAPE + 1),
+              "corr": counts(8, 8)}
+    for key in ("vq", "vq_bl"):
+        for s, e in enumerate(sizes[key]):
+            priors[f"{key}_{s}"] = counts(e) if s == 0 \
+                else counts(rc._VQ_CTX, e)
+    return priors
+
+
+def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
+                  tag: str):
+    """Random symbols at the reference codebook geometry, range-coded
+    with seeded priors when cfg.codec.entropy_coding, else fixed-layout
+    -> (.fpsc path, codebook .npz path, {name: written symbols})."""
     rng = np.random.RandomState(2)
     cc = cfg.codec
     sizes = {"scl": cc.scl_entries, "scl_bl": cc.scl_entries_bl,
@@ -199,10 +316,15 @@ def _write_stream(work: str, cfg: Config, n_utt: int, frames: int):
         books[f"vq_{s}"] = rng.randn(e, cc.code_dims) * 0.03 / (s + 1)
     for s, e in enumerate(cc.vq_entries_bl):
         books[f"vq_bl_{s}"] = rng.randn(e, cc.code_dims) * 0.02
-    cb_path = os.path.join(work, "codebooks.npz")
-    np.savez(cb_path, **{k: v.astype(np.float32) for k, v in books.items()})
+    books = {k: v.astype(np.float32) for k, v in books.items()}
+    entropy = cc.entropy_coding
+    priors = _priors(rng, sizes) if entropy else {}
+    cb_path = os.path.join(work, f"codebooks_{tag}.npz")
+    np.savez(cb_path, **books,
+             **{f"prior__{k}": v for k, v in priors.items()})
+    orders = rc.scalar_orders(types.SimpleNamespace(**books))
 
-    utts = []
+    utts, written = [], {}
     for i in range(n_utt):
         ind1 = rng.rand(frames) > 0.5
         ind2 = rng.rand(frames) > 0.5
@@ -215,56 +337,107 @@ def _write_stream(work: str, cfg: Config, n_utt: int, frames: int):
                    [rng.randint(0, e, frames) for e in sizes["vq_bl"]], 1))}
         pitch = np.stack([rng.uniform(-1.3, 3.7, frames),
                           rng.uniform(-0.5, 0.5, frames)], 1)
-        utts.append((f"utt{i}", bs.pack_utterance(ind1, ind2, idx, pitch,
-                                                  sizes)))
-    path = os.path.join(work, "smoke.fpsc")
-    container.write_fpsc(path, utts, sizes, entropy=False)
-    return path, cb_path
+        name = f"utt{i}"
+        if entropy:
+            pcodes = bs.quantize_pitch(pitch)
+            payload = rc.pack_utterance_rc(ind1, ind2, idx, pcodes, sizes,
+                                           priors=priors, orders=orders)
+            written[name] = (ind1, ind2, idx, bs.dequantize_pitch(pcodes))
+        else:
+            payload = bs.pack_utterance(ind1, ind2, idx, pitch, sizes)
+        utts.append((name, payload))
+    path = os.path.join(work, f"{tag}.fpsc")
+    container.write_fpsc(path, utts, sizes, entropy=entropy)
+    return path, cb_path, written
 
 
-def _artifacts(cfg: Config, dev):
+def _config(overrides, cb_path):
+    return apply_overrides(Config(), [*overrides,
+                                      f"codec.codebook_path={cb_path}"])
+
+
+def _artifacts(cfg: Config, dev, sparse: bool):
     """load_artifacts' seeded random weights, the predictor's head scaled
-    by HEAD_SCALE -> (artifacts, vocoder)."""
-    *artifacts, vocoder = cli.load_artifacts(cfg, need_vocoder=True,
-                                             device=dev)
+    by HEAD_SCALE, GRU_A sparsified at DENSITY in SPARSE_BLOCK blocks
+    when `sparse` -> (artifacts, vocoder)."""
+    *artifacts, model = cli.load_artifacts(cfg, need_vocoder=True,
+                                           device=dev)
     with torch.no_grad():
         artifacts[0].fc.w.mul_(HEAD_SCALE)
         artifacts[0].fc.b.mul_(HEAD_SCALE)
-    return artifacts, vocoder
+    if sparse:
+        lpcnet.sparsify_gru_a(getattr(model, "base", model), DENSITY,
+                              SPARSE_BLOCK)
+    return artifacts, model
 
 
-def main_path(dev, work: str):
-    phase(f"main path: decode_file, {N_UTT} x {UTT_FRAMES} frames, "
+def _check_symbols(stream, artifacts, written):
+    """The range decoder gives back the written symbols."""
+    _, _, sizes, priors, orders = artifacts
+    for name, payload in container.read_fpsc(stream)["utterances"]:
+        got = rc.unpack_utterance_rc(payload, sizes, priors=priors,
+                                     orders=orders)
+        ind1, ind2, idx, pitch = written[name]
+        same = (np.array_equal(got["ind1"], ind1)
+                and np.array_equal(got["ind2"], ind2)
+                and np.array_equal(got["pitch"], pitch)
+                and all(np.array_equal(got["indices"][k], idx[k])
+                        for k in idx))
+        if not same:
+            raise RuntimeError(f"{name}: the range decoder did not give "
+                               "back the written symbols")
+    print(f"range decoder: the symbols of all {len(written)} utterances "
+          "came back as written")
+
+
+def main_path(dev, work: str, overrides, frames: int, sparse: bool,
+              tag: str):
+    """decode_file on N_UTT x frames of random symbols at full width;
+    the launch counts are reset just before and read just after."""
+    phase(f"main path ({tag}): decode_file, {N_UTT} x {frames} frames, "
           "full width")
-    cfg = Config()
-    stream, cb_path = _write_stream(work, cfg, N_UTT, UTT_FRAMES)
-    apply_overrides(cfg, [f"codec.codebook_path={cb_path}",
-                          "codec.entropy_coding=false"])
-    artifacts, vocoder = _artifacts(cfg, dev)
+    cfg = _config(overrides, "")
+    stream, cb_path, written = _write_stream(work, cfg, N_UTT, frames, tag)
+    cfg = _config(overrides, cb_path)
+    artifacts, model = _artifacts(cfg, dev, sparse)
+    pattern = lpcnet_sampler.auto_block_pattern(model)
+    if sparse:
+        live = sum(len(c) for c in pattern[0])
+        total = len(pattern[0]) * (cfg.lpcnet.gru_a_units // pattern[1][1])
+        print(f"auto_block_pattern: {live} of {total} {pattern[1]} blocks "
+              "live")
+        if (live, total) != (22, 108):
+            raise RuntimeError("the flagship's GRU_A should have 22 of 108 "
+                               "blocks live")
+    elif pattern is not None:
+        raise RuntimeError("a dense GRU_A got a block pattern")
     torch.cuda.synchronize()
     timings = {}
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    results = cli.decode_file(cfg, stream, os.path.join(work, "wav"),
-                              artifacts=artifacts, vocoder=vocoder,
+    results = cli.decode_file(cfg, stream, os.path.join(work, f"wav_{tag}"),
+                              artifacts=artifacts, vocoder=model,
                               device=dev, timings=timings)
     wall = time.perf_counter() - t0
-    launches = build.launch_counts.get(lpcnet_sampler.KERNEL, 0)
-    if launches < 1:
-        raise RuntimeError("the main path did not launch the sampler kernel")
+    launches = dict(build.launch_counts)
+    name = lpcnet_sampler.KERNELS[(cfg.lpcnet.bunch, sparse)]
+    if launches.get(name, 0) < 1:
+        raise RuntimeError(f"the main path did not launch {name}")
+    if written:
+        _check_symbols(stream, artifacts, written)
     wav = np.stack([r["wav"] for r in results])
-    if wav.shape != (N_UTT, UTT_FRAMES * C.FRAME_SIZE):
+    if wav.shape != (N_UTT, frames * C.FRAME_SIZE):
         raise RuntimeError(f"audio of shape {wav.shape}")
     audio_s = wav.size / C.SAMPLE_RATE
     print("phase seconds: " + ", ".join(
         f"{k} {v:.4f}" for k, v in timings.items()))
     print(f"decode wall {wall:.3f} s for {audio_s:.1f} s of audio: "
-          f"aggregate real-time factor {audio_s / wall:.2f}x; sampler "
-          f"kernel launches {launches}")
+          f"aggregate real-time factor {audio_s / wall:.2f}x; kernel "
+          f"launches {launches}")
 
     ceps = np.stack([r["coded"] for r in results])[..., :18] * C.MAXI
-    _, _, rc = ceps2lpc(torch.as_tensor(ceps.reshape(-1, 18), device=dev))
-    rc_max = float(rc.abs().max())
+    _, _, refl = ceps2lpc(torch.as_tensor(ceps.reshape(-1, 18), device=dev))
+    rc_max = float(refl.abs().max())
     peak = float(np.abs(wav).max())
     print(f"cepstra std {ceps.std():.3g}, |c| max {np.abs(ceps).max():.3g}; "
           f"max |reflection coefficient| {rc_max:.6f}; audio std "
@@ -277,24 +450,26 @@ def main_path(dev, work: str):
     if not peak < PEAK_LIMIT:
         raise RuntimeError(f"the decoded audio peaks at {peak:.4g}, above "
                            f"{PEAK_LIMIT}")
-    return results, vocoder, launches
+    return dict(results=results, vocoder=model, pattern=pattern,
+                launches=launches.get(name, 0), name=name)
 
 
-def card_against_cpu(dev, work: str):
+def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
     """decode_file on the card against decode_file on the CPU (the plain
     f32 sampler) on a small input: the same coded features at rtol 1e-4,
     atol 1e-5 (tests/test_file_codec.py:131) and the same LPC at rtol
     1e-4, atol 1e-3 (tests/test_torch_codec.py), and finite audio;
     bf16 against f32 sampling flips within a few hundred samples."""
-    phase("decode_file on the card against the CPU, 2 x 20 frames")
-    cfg = Config()
-    stream, cb_path = _write_stream(work, cfg, 2, 20)
-    apply_overrides(cfg, [f"codec.codebook_path={cb_path}"])
+    phase(f"decode_file on the card against the CPU ({tag}), 2 x 20 frames")
+    stream, cb_path, _ = _write_stream(work, _config(overrides, ""), 2, 20,
+                                       f"small_{tag}")
+    cfg = _config(overrides, cb_path)
     runs = {}
     for name, d in (("card", dev), ("cpu", "cpu")):
-        artifacts, vocoder = _artifacts(cfg, d)
-        runs[name] = cli.decode_file(cfg, stream, os.path.join(work, name),
-                                     artifacts=artifacts, vocoder=vocoder,
+        artifacts, model = _artifacts(cfg, d, sparse)
+        runs[name] = cli.decode_file(cfg, stream,
+                                     os.path.join(work, f"{tag}_{name}"),
+                                     artifacts=artifacts, vocoder=model,
                                      device=d)
     for g, w in zip(runs["card"], runs["cpu"]):
         np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
@@ -319,23 +494,59 @@ def _time_kernel(ops, meta, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main_shape(dev, results, vocoder):
+def bound(ops, meta, out: torch.Tensor):
+    """The least time of the work on this card's published peaks:
+    (ms, "operations" or "bytes", MACs per item and GRU step).  Counts
+    each input once, each output once, and of a block-sparse GRU_A only
+    its live blocks."""
+    n_emb = 2 * meta.bunch + 1
+    ha, hb, e, lv = meta.ha, meta.hb, meta.e_dim, meta.levels
+    if meta.pattern is None:
+        live = 1.0
+        rec = 3 * ha * ha
+    else:
+        rb, cb = meta.block
+        n_live = sum(len(c) for c in meta.pattern)
+        live = n_live * rb * cb / (3 * ha * ha)
+        rec = n_live * rb * cb
+    macs = (3 * ha * n_emb * e + rec + 3 * hb * (ha + hb) + 2 * lv * hb
+            + (meta.bunch - 1) * 2 * lv * (hb + 2 * e))
+    steps = meta.batch * meta.frames * C.FRAME_SIZE // meta.bunch
+    flops = 2.0 * macs * steps
+    nbytes = sum(x.numel() * x.element_size() for x in ops) \
+        - (1.0 - live) * ops.wh_a_t.numel() * ops.wh_a_t.element_size() \
+        + out.numel() * out.element_size()
+    t_ops = flops / PEAK_FLOPS[meta.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"{macs} MACs per item and GRU step, {steps} steps, {flops:.4g} "
+          f"FLOP, {nbytes:.0f} bytes")
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", macs)
+
+
+def main_shape(dev, run, frames: int, other_forms=()):
     """The main path's sampler operands, rebuilt as decode_file builds
-    them, through kernel and plain version."""
-    phase(f"kernel vs plain at the main path's shape (B={N_UTT}, "
-          f"{UTT_FRAMES} frames)")
+    them, through kernel and plain version; `other_forms` (bunch,
+    sparse) are timed on the same features for comparison."""
+    results, model = run["results"], run["vocoder"]
+    phase(f"kernel vs plain at the main path's shape ({run['name']}, "
+          f"B={N_UTT}, {frames} frames)")
     coded = torch.as_tensor(np.stack([r["coded"] for r in results]),
                             device=dev)
     lpc = torch.as_tensor(np.stack([r["lpc"] for r in results]), device=dev)
     coded_un = coded * C.MAXI
     periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)
-    u = torch.rand((UTT_FRAMES, N_UTT, C.FRAME_SIZE),
+    u = torch.rand((frames, N_UTT, C.FRAME_SIZE),
                    generator=torch.Generator(device=dev).manual_seed(0),
                    device=dev)
+
+    def operands(m, pattern, dtype):
+        return lpcnet_sampler.prepare(m, coded, periods, lpc, u,
+                                      corr=coded_un[..., 19], dtype=dtype,
+                                      gru_a_pattern=pattern)
+
     for dtype in (torch.float32, torch.bfloat16):
-        ops, meta = lpcnet_sampler.prepare(vocoder, coded, periods, lpc, u,
-                                           corr=coded_un[..., 19],
-                                           dtype=dtype)
+        ops, meta = operands(model, run["pattern"], dtype)
         got, trace = lpcnet_sampler.sample(ops, meta, trace=True)
         torch.cuda.synchronize()
         r, report = _replay(ops, meta, got, trace)
@@ -351,21 +562,21 @@ def main_shape(dev, results, vocoder):
         atol=1e-5 * max(1.0, float(np.abs(want_np).max())))
     print(f"free-running first flips {flips}: ok")
     ms = _time_kernel(ops, meta)
-
-    macs = (3 * meta.ha * (3 * meta.e_dim + meta.ha) + 3 * meta.hb
-            * (meta.ha + meta.hb) + 2 * meta.levels * meta.hb)
-    steps = meta.batch * meta.frames * C.FRAME_SIZE
-    flops = 2.0 * macs * steps
-    nbytes = sum(x.numel() * x.element_size() for x in ops) \
-        + got.numel() * got.element_size()
-    t_ops = flops / PEAK_FLOPS[meta.dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms; "
-          f"{macs} MACs per item and sample, {flops:.4g} FLOP, "
-          f"{nbytes} bytes; bound {max(t_ops, t_bytes):.4f} ms")
-    return dict(max_abs_err=r.out_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    bound_ms, bound_by, _ = bound(ops, meta, got)
+    print(f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    for bunch, sparse in other_forms:
+        m = vocoder(bunch, sparse, seed=3, dev=dev)
+        o, mt = operands(m, lpcnet_sampler.auto_block_pattern(m),
+                         torch.bfloat16)
+        other_ms = _time_kernel(o, mt)
+        other_bound, _, _ = bound(o, mt, got)
+        print(f"{lpcnet_sampler.kernel_name(mt)} on the same features: "
+              f"kernel {other_ms:.3f} ms, bound {other_bound:.4f} ms")
+    return dict(name=run["name"], route="cuda", source=SOURCE,
+                replaces=REPLACES[run["name"]], launches=run["launches"],
+                max_abs_err=r.out_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def main() -> int:
@@ -377,15 +588,16 @@ def main() -> int:
     smi = toolchain()
     numerics()
     short_window(dev)
+    rows = []
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
-        results, vocoder, launches = main_path(dev, work)
-        card_against_cpu(dev, work)
-    row = main_shape(dev, results, vocoder)
-    print(json.dumps({"kernels": [dict(
-        name=lpcnet_sampler.KERNEL, route="cuda",
-        source="fpsc_tpu_torch/csrc/lpcnet_sampler.cu",
-        replaces="fpsc_tpu/ops/lpcnet_sampler.py:87", launches=launches,
-        library_ms=None, **row)]}))
+        run = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True, "flagship")
+        rows.append(main_shape(dev, run, UTT_FRAMES,
+                               other_forms=[(2, False), (1, True)]))
+        run = main_path(dev, work, SLICE1, SLICE1_FRAMES, False, "slice1")
+        rows.append(main_shape(dev, run, SLICE1_FRAMES))
+        card_against_cpu(dev, work, FLAGSHIP, True, "flagship")
+        card_against_cpu(dev, work, SLICE1, False, "slice1")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

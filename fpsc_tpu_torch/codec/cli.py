@@ -5,14 +5,16 @@
         train.vocoder_model=<label_s> [key=value ...] [--device=cpu]
 
 Port of fpsc_tpu/codec/cli.py:54-117, 256-415 (decode only): unpack
-the fixed-layout symbols -> closed-loop feature decode -> ceps2lpc ->
-frame-rate prologue -> the CUDA LPCNet sampler.  Utterances are
+the symbols (range-coded, the default, or fixed-layout) -> closed-loop
+feature decode -> ceps2lpc -> frame-rate prologue -> the CUDA LPCNet
+sampler, bunch=1 or bunch=2 (lpcnet.bunch=2, with for example
+lpcnet.gru_b_units=32), dense or with GRU_A's block-sparse product where
+the checkpoint's recurrent weights are block-sparse.  Utterances are
 bucketed by frame count and each bucket runs as one batch.
 
-Not decoded yet, each refused with a ValueError: entropy-coded
-containers (codec.entropy_coding=true), packetized streams with or
-without FEC (and so packet-loss concealment), rate presets other than
-`full`, and bunch=2/4 vocoders.
+Not decoded yet, each refused with a ValueError: packetized streams
+with or without FEC (and so packet-loss concealment), rate presets
+other than `full`, and bunch=4 vocoders.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from fpsc_tpu_torch.codec import bitstream as bs
 from fpsc_tpu_torch.codec import container
+from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.codec.codec import decode
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
@@ -34,6 +37,7 @@ from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
 from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.utils.device import resolve_device
@@ -54,9 +58,11 @@ def codebook_sizes(codebooks) -> dict:
 
 
 def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
-    """[predictor, codebooks, sizes(, vocoder)] from the checkpoint and
-    codebook paths in cfg; weights are seeded random where cfg names
-    no checkpoint."""
+    """[predictor, codebooks, sizes, priors, orders(, vocoder)] from the
+    checkpoint and codebook paths in cfg: the entropy-model priors
+    stored beside the codebooks (None when there are none) and the
+    value ranks of the scalar codebooks, which the range decoder needs.
+    Weights are seeded random where cfg names no checkpoint."""
     dev = resolve_device(device)
     if cfg.codec.preset != "full":
         raise ValueError(f"rate preset {cfg.codec.preset!r}: the port "
@@ -74,27 +80,33 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
             cfg.train.transfer_epoch))
         ckpt.restore(predictor, payload, "predictor")
     codebooks = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
-    out = [predictor.to(dev), codebooks, codebook_sizes(codebooks)]
+    out = [predictor.to(dev), codebooks, codebook_sizes(codebooks),
+           ckpt.load_priors(cfg.codec.codebook_path),
+           rc.scalar_orders(codebooks)]
     if need_vocoder:
         out.append(_load_vocoder(cfg, dev))
     return out
 
 
-def _load_vocoder(cfg: Config, device) -> LPCNet:
-    if cfg.lpcnet.bunch != 1:
-        raise ValueError(f"lpcnet.bunch={cfg.lpcnet.bunch}: the port's "
-                         "sampler runs bunch=1 vocoders only")
-    vocoder = LPCNet(LPCNetConfig(
+def _load_vocoder(cfg: Config, device):
+    """LPCNet for lpcnet.bunch=1, BunchedLPCNet for 2."""
+    bunch = cfg.lpcnet.bunch
+    if bunch not in (1, 2):
+        raise ValueError(f"lpcnet.bunch={bunch}: the port's sampler runs "
+                         "bunch=1 and bunch=2 vocoders only")
+    lcfg = LPCNetConfig(
         gru_a_units=cfg.lpcnet.gru_a_units,
         gru_b_units=cfg.lpcnet.gru_b_units,
         embed_dim=cfg.lpcnet.embed_dim,
-        cond_units=cfg.lpcnet.cond_units),
-        generator=torch.Generator().manual_seed(cfg.train.seed + 2))
+        cond_units=cfg.lpcnet.cond_units)
+    gen = torch.Generator().manual_seed(cfg.train.seed + 2)
+    vocoder = (BunchedLPCNet(lcfg, gen) if bunch == 2
+               else LPCNet(lcfg, gen))
     if cfg.train.vocoder_model:
         payload = ckpt.load(ckpt.checkpoint_path(
             cfg.train.save_dir, cfg.train.vocoder_model,
             cfg.train.vocoder_epoch))
-        ckpt.restore(vocoder, payload, "vocoder (bunch=1)")
+        ckpt.restore(vocoder, payload, f"vocoder (bunch={bunch})")
     return vocoder.to(device)
 
 
@@ -115,11 +127,6 @@ def _refuse_unsupported(meta: Dict) -> None:
     if meta["packet_frames"] or meta["fec"]:
         raise ValueError("packetized .fpsc streams (codec.packet_ms, "
                          "codec.fec) are not decoded by the port yet")
-    if meta["entropy"]:
-        raise ValueError("entropy-coded .fpsc streams "
-                         "(codec.entropy_coding=true) are not decoded by "
-                         "the port yet; encode with "
-                         "codec.entropy_coding=false")
     if meta["preset"] != "full":
         raise ValueError(f"rate preset {meta['preset']!r}: the port "
                          "decodes the 'full' preset only")
@@ -145,12 +152,13 @@ class _Phases:
 
 @torch.no_grad()
 def decode_file(cfg: Config, in_path: str, out_dir: str,
-                artifacts=None, vocoder: Optional[LPCNet] = None,
+                artifacts=None, vocoder=None,
                 device=None, uniforms: Optional[UniformSource] = None,
                 timings: Optional[Dict[str, float]] = None) -> List[dict]:
-    """Decode every utterance of a fixed-layout .fpsc container to
-    out_dir/<name>.wav; returns [{name, coded, lpc, wav}] in container
-    order.
+    """Decode every utterance of a .fpsc container, range-coded or
+    fixed-layout, to out_dir/<name>.wav; returns [{name, coded, lpc,
+    wav}] in container order.  `artifacts` and `vocoder` are what
+    load_artifacts(cfg, need_vocoder=True) returns.
 
     Runs on the card unless device="cpu".  Each bucket's uniforms come
     from a torch.Generator seeded with 0 (the JAX decoder uses
@@ -165,7 +173,7 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     if artifacts is None:
         *artifacts, vocoder = load_artifacts(cfg, need_vocoder=True,
                                              device=dev)
-    predictor, codebooks, sizes = artifacts
+    predictor, codebooks, sizes, priors, orders = artifacts
     box = container.read_fpsc(in_path)
     meta = box["meta"]
     _refuse_unsupported(meta)
@@ -175,7 +183,11 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
 
     unpacked, buckets, order = {}, {}, []
     for name, payload in box["utterances"]:
-        got = bs.unpack_utterance(payload, sizes)
+        if meta["entropy"]:
+            got = rc.unpack_utterance_rc(payload, sizes, priors=priors,
+                                         orders=orders)
+        else:
+            got = bs.unpack_utterance(payload, sizes)
         unpacked[name] = (got, len(payload))
         buckets.setdefault(len(got["ind1"]), []).append(name)
         order.append(name)
@@ -225,15 +237,15 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     return results
 
 
-def _synthesize(vocoder: LPCNet, coded, periods, lpc, corr, u,
+def _synthesize(vocoder, coded, periods, lpc, corr, u,
                 dtype: torch.dtype, phases: _Phases) -> torch.Tensor:
     """Vocoder on the NORMALISED coded features, with the raw-scale
-    correlation, unclipped.  A checkpoint whose GRU_A is block-sparse
-    gets the block-sparse Pallas kernel in the JAX decoder
-    (auto_block_pattern); the port runs the dense kernel on the same
-    weights, which computes the same function."""
-    ops, meta = lpcnet_sampler.prepare(vocoder, coded, periods, lpc, u,
-                                       corr=corr, dtype=dtype)
+    correlation, unclipped.  A vocoder whose GRU_A recurrent weights
+    are block-sparse runs the kernel's sparse form, as the JAX decoder
+    does (auto_block_pattern)."""
+    ops, meta = lpcnet_sampler.prepare(
+        vocoder, coded, periods, lpc, u, corr=corr, dtype=dtype,
+        gru_a_pattern=lpcnet_sampler.auto_block_pattern(vocoder))
     phases.mark("prologue")
     y = lpcnet_sampler.sample(ops, meta)
     phases.mark("sampler")

@@ -1,0 +1,570 @@
+"""Range (arithmetic) coder for entropy-coded codec bitstreams.
+
+A copy of the single-utterance path of fpsc_tpu/codec/range_coder.py
+(lines 16-137, 139-586 and 1055-1065; the PyTorch port keeps its own):
+a carry-less 32-bit range coder, the adaptive frequency models, the
+`_Transcoder` that drives both pack and unpack, `pack_utterance_rc`,
+`unpack_utterance_rc` and `scalar_orders`.  Host code in numpy; it gives
+the JAX module's bytes and symbols exactly.  Not copied: packets and
+FEC, the streaming coders, `collect_priors` and `entropy_pack`.
+
+`scalar_orders` ranks the scalar codebooks with numpy's argsort on their
+float32 values, as the JAX module does, never with torch.argsort: the
+two may order tied values differently, and one rank off desynchronises
+the whole stream.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+
+from fpsc_tpu_torch.codec.bitstream import dequantize_pitch
+from fpsc_tpu_torch.utils.device import host_array
+
+_TOP = 1 << 24
+_BOT = 1 << 16
+
+
+class FreqTable:
+    """Static cumulative-frequency model over `n` symbols."""
+
+    def __init__(self, counts: Sequence[float]):
+        c = np.asarray(counts, np.float64) + 1.0  # add-one smoothing
+        scaled = np.maximum(1, np.round(
+            c / c.sum() * (_BOT - len(c)))).astype(np.int64)
+        self.freq = scaled
+        self.cum = np.concatenate([[0], np.cumsum(scaled)])
+        self.total = int(self.cum[-1])
+
+    def find(self, value: int) -> int:
+        return int(np.searchsorted(self.cum, value, side="right") - 1)
+
+
+class RangeEncoder:
+    def __init__(self):
+        self.low = 0
+        self.range = 0xFFFFFFFF
+        self.out = bytearray()
+
+    def encode(self, table: FreqTable, sym: int):
+        r = self.range // table.total
+        self.low = (self.low + r * int(table.cum[sym])) & 0xFFFFFFFFFFFF
+        self.range = r * int(table.freq[sym])
+        self._normalize()
+
+    def encode_bit(self, table: FreqTable, bit: int):
+        self.encode(table, int(bit))
+
+    def _normalize(self):
+        while True:
+            if (self.low ^ (self.low + self.range)) < _TOP:
+                pass
+            elif self.range < _BOT:
+                self.range = (-self.low) & (_BOT - 1)
+                if self.range == 0:
+                    self.range = _BOT
+            else:
+                break
+            self.out.append((self.low >> 24) & 0xFF)
+            self.low = (self.low << 8) & 0xFFFFFFFF
+            self.range = (self.range << 8) & 0xFFFFFFFF
+
+    def finish(self) -> bytes:
+        # Minimal flush: ANY value v in [low, low+range) completes the
+        # stream, and the decoder zero-pads past the end of input, so
+        # emit only the non-zero prefix of the v with the most trailing
+        # zero BYTES (usually 2 bytes instead of the naive 4 — worth
+        # ~160 b/s at 100 ms packets, where the flush is per packet).
+        # Mirrored exactly in cpp/range_coder.cpp::Encoder::finish.
+        hi = self.low + self.range
+        v = self.low
+        for k in (4, 3, 2, 1):
+            step = 1 << (8 * k)
+            cand = -(-self.low // step) * step   # ceil to multiple
+            if cand < hi:
+                v = cand
+                break
+        else:
+            k = 0
+        v &= 0xFFFFFFFF
+        for _ in range(4 - k):
+            self.out.append((v >> 24) & 0xFF)
+            v = (v << 8) & 0xFFFFFFFF
+        self.low = v
+        return bytes(self.out)
+
+
+class RangeDecoder:
+    def __init__(self, data):
+        self.data = data
+        self.pos = 0
+        self.low = 0
+        self.range = 0xFFFFFFFF
+        self.code = 0
+        for _ in range(4):
+            self.code = ((self.code << 8) | self._byte()) & 0xFFFFFFFF
+
+    def _byte(self) -> int:
+        if self.pos < len(self.data):
+            b = self.data[self.pos]
+        else:
+            b = 0           # offline decode pads past the final flush
+        self.pos += 1
+        return b
+
+    def decode(self, table: FreqTable) -> int:
+        r = self.range // table.total
+        value = min((self.code - self.low) // r, table.total - 1)
+        sym = table.find(value)
+        self.low = (self.low + r * int(table.cum[sym])) & 0xFFFFFFFFFFFF
+        self.range = r * int(table.freq[sym])
+        self._normalize()
+        return sym
+
+    def _normalize(self):
+        while True:
+            if (self.low ^ (self.low + self.range)) < _TOP:
+                pass
+            elif self.range < _BOT:
+                self.range = (-self.low) & (_BOT - 1)
+                if self.range == 0:
+                    self.range = _BOT
+            else:
+                break
+            self.code = ((self.code << 8) | self._byte()) & 0xFFFFFFFF
+            self.low = (self.low << 8) & 0xFFFFFFFF
+            self.range = (self.range << 8) & 0xFFFFFFFF
+
+
+class AdaptiveFreqTable:
+    """Adaptive frequency model: counts update after every coded
+    symbol (identically on both sides, so no tables are transmitted).
+    Rescales by halving when the total passes `limit` to track
+    non-stationary streams."""
+
+    def __init__(self, n: int, increment: int = 24, limit: int = 1 << 12):
+        self.counts = np.ones(n, np.int64)
+        self.increment = increment
+        self.limit = limit
+        self._rebuild()
+
+    def _rebuild(self):
+        self.freq = self.counts
+        self.cum = np.concatenate([[0], np.cumsum(self.counts)])
+        self.total = int(self.cum[-1])
+
+    def find(self, value: int) -> int:
+        return int(np.searchsorted(self.cum, value, side="right") - 1)
+
+    def update(self, sym: int):
+        self.counts[sym] += self.increment
+        if self.counts.sum() > self.limit:
+            self.counts = np.maximum(1, self.counts >> 1)
+        self._rebuild()
+
+
+# --------------------------------------------------------------------------
+# Self-contained entropy-coded utterance format (pitch included)
+# --------------------------------------------------------------------------
+#
+# Round-1's fixed-layout bitstream spent 11 bits/frame (1100 b/s, ~45%
+# of the stream) on the pitch side-channel.  Here every stream is
+# range-coded with ADAPTIVE models (both sides update identically, so
+# no side information is transmitted):
+#
+# * the period code as a delta with escape (voiced pitch moves by 0..2
+#   codes per 10 ms), the 3-bit corr code conditioned on its previous
+#   symbol,
+# * the two indicator bits conditioned on (previous value, run-length
+#   bucket) — long same-value runs sharpen the prediction beyond the
+#   order-1 model,
+# * the scalar gain indices factorised in VALUE-rank space as
+#   (bucket | previous bucket) + (offset | bucket) — order-1 chain
+#   power with tables small enough to generalise held-out (the gain
+#   track is smooth; a full (ctx, n) table and a plain rank-delta
+#   both measured worse LOO, see VALIDATION.md round 3),
+# * VQ stage s >= 1 conditioned on a coarse _VQ_CTX-bucket hash of the
+#   stage s-1 index (the residual stages are statistically coupled;
+#   the reference only *prints* per-stage usage entropies,
+#   generate_qtz_features.py:94-101),
+# * optional shared PRIORS: per-stream training-set usage counts that
+#   travel with the codebook artifacts (like the codebooks themselves,
+#   they are part of the model, not the payload), so the adaptive
+#   tables do not start uniform on 1024-symbol alphabets.  Collect
+#   with `collect_priors`; pass the same dict to pack and unpack.
+#
+# Static usage-derived tables can still override any index model via
+# `static_models`.
+#
+# Measured NEGATIVE (removed): conditioning VQ stage 0 on the
+# previous FRAME's stage-0 bucket (temporal context, 5 ctx) —
+# LOO −0.5 b/s, adaptive-only +2.3 b/s on the 16-utt lab set.  The
+# VQ codes the closed-loop predictor's RESIDUAL, which the predictor
+# has already whitened in time; there is almost no frame-to-frame
+# mutual information left for the entropy model to exploit.
+
+_PITCH_DELTA_RANGE = 32            # deltas in [-32, 31]; else escape
+_PITCH_ESCAPE = 2 * _PITCH_DELTA_RANGE            # symbol 64
+
+_VQ_CTX = 4          # stage-conditioning buckets (index >> (bits-2))
+_IND_RUN_CTX = 6     # run buckets: 0 (t=0) then bit_length(min(run,16))
+_PITCH_V_CTX = 3     # voicing buckets (prev corr code) for pitch delta
+_SCL_NB = 8          # rank-space bucket count for the scalar chain
+
+
+def _scl_split(n: int):
+    """Factorise an n-entry scalar book (rank space) into
+    (n_buckets, offset_size): rank = bucket * off + offset.  The
+    bucket stream is coded with an order-1 chain (prev bucket or
+    start), the offset conditioned on its own bucket — order-1
+    modelling power with tiny tables that still generalise held-out
+    (a full (ctx, n) table overfits the priors; a plain rank-delta
+    under-models the conditional — both measured, see VALIDATION.md).
+    Bucket counts were swept on the lab streams (LOO): nb=4 for
+    books of <= 16 entries, nb=8 above (16 buckets overfits both;
+    a full prev-symbol order-1 chain for n=16 measured worse)."""
+    n = int(n)
+    nb = 4 if n <= 16 else _SCL_NB
+    while nb > 1 and n % nb:
+        nb //= 2
+    nb = min(nb, n)
+    return nb, max(1, n // nb)
+
+
+def _vq_ctx(prev_index: int, prev_size: int) -> int:
+    """Coarse bucket of the previous stage's index (top 2 bits)."""
+    shift = max(0, (int(prev_size) - 1).bit_length() - 2)
+    return min(_VQ_CTX - 1, int(prev_index) >> shift)
+
+
+def _voicing_bucket(corr_code: int) -> int:
+    """3-bit corr code -> {unvoiced, mixed, voiced}.  Voiced pitch
+    moves by 0..2 codes per frame; unvoiced pitch jumps — separate
+    delta models keep the voiced one sharp."""
+    return 0 if corr_code <= 2 else (1 if corr_code <= 5 else 2)
+
+
+def _run_bucket(run: int) -> int:
+    """0 for the first frame, else bit_length(min(run, 16)) in 1..5."""
+    return 0 if run == 0 else min(int(run), 16).bit_length()
+
+
+def _prior_table(n: int, prior, prior_mass: int = 2048,
+                 limit: int = 1 << 12):
+    """AdaptiveFreqTable seeded from training counts (or uniform)."""
+    t = AdaptiveFreqTable(n, limit=limit)
+    if prior is not None:
+        p = np.asarray(prior, np.float64)
+        assert p.shape == (n,), (p.shape, n)
+        scaled = np.floor(p / max(p.sum(), 1.0) * prior_mass).astype(
+            np.int64)
+        t.counts = 1 + scaled
+        t._rebuild()
+    return t
+
+
+def _utterance_models(sizes: Dict, static_models: Dict = None,
+                      priors: Dict = None) -> Dict:
+    priors = priors or {}
+
+    def seeded(key, n, *ctx):
+        """Nested list of prior-seeded adaptive tables; priors[key]
+        (if present) is indexed by the context tuple."""
+        p = priors.get(key)
+        if not ctx:
+            return _prior_table(n, p)
+        return [seeded_sub(key, n, p[c] if p is not None else None,
+                           ctx[1:]) for c in range(ctx[0])]
+
+    def seeded_sub(key, n, p, ctx):
+        if not ctx:
+            return _prior_table(n, p)
+        return [seeded_sub(key, n, p[c] if p is not None else None,
+                           ctx[1:]) for c in range(ctx[0])]
+
+    m = {
+        "ind1": seeded("ind1", 2, 2, _IND_RUN_CTX),
+        "ind2": seeded("ind2", 2, 2, _IND_RUN_CTX),
+        "scl_bucket": seeded("scl_bucket", _scl_split(sizes["scl"])[0],
+                             _scl_split(sizes["scl"])[0] + 1),
+        "scl_offset": seeded("scl_offset", _scl_split(sizes["scl"])[1],
+                             _scl_split(sizes["scl"])[0]),
+        "pitch_abs": seeded("pitch_abs", 256),
+        "pitch_delta": seeded("pitch_delta", _PITCH_ESCAPE + 1,
+                              _PITCH_V_CTX),
+        "corr": seeded("corr", 8, 8),
+    }
+    if sizes.get("scl_bl"):
+        nb, off = _scl_split(sizes["scl_bl"])
+        m["scl_bl_bucket"] = seeded("scl_bl_bucket", nb, nb + 1)
+        m["scl_bl_offset"] = seeded("scl_bl_offset", off, nb)
+
+    def vq_models(key, entries):
+        for s, e in enumerate(entries):
+            if s == 0:
+                m[f"{key}_0"] = _prior_table(e, priors.get(f"{key}_0"))
+            else:
+                ctx_prior = priors.get(f"{key}_{s}")
+                m[f"{key}_{s}"] = [
+                    _prior_table(
+                        e, None if ctx_prior is None else ctx_prior[c])
+                    for c in range(_VQ_CTX)]
+
+    vq_models("vq", sizes["vq"])
+    vq_models("vq_bl", sizes.get("vq_bl", []))
+    if static_models:
+        m.update(static_models)
+    return m
+
+
+def _code_adaptive(coder, table, sym: int, decode: bool) -> int:
+    if decode:
+        sym = coder.decode(table)
+    else:
+        coder.encode(table, int(sym))
+    if isinstance(table, AdaptiveFreqTable):
+        table.update(int(sym))
+    return int(sym)
+
+
+class _Transcoder:
+    """One walker drives BOTH pack and unpack so the two sides cannot
+    drift: in encode mode symbols come from the caller's arrays; in
+    decode mode they come from the range decoder and are written back
+    into the same array layout."""
+
+    def __init__(self, sizes: Dict, static_models: Dict = None,
+                 priors: Dict = None, decode: bool = False,
+                 data: bytes = None, length: int = 0,
+                 orders: Dict = None):
+        self.sizes = sizes
+        self.models = _utterance_models(sizes, static_models, priors)
+        self.decode = decode
+        self.coder = RangeDecoder(data) if decode else RangeEncoder()
+        self.length = length
+        orders = orders or {}
+        self.scl_rank = orders.get("scl")
+        self.scl_bl_rank = orders.get("scl_bl")
+        # a rank permutation from the WRONG codebook geometry (e.g.
+        # full-book orders applied to an ultra-preset coarse book)
+        # emits ranks past the bucket tables — corrupt streams in
+        # Python, out-of-bounds writes in the C++ backend.  Fail loud.
+        for name, rank in (("scl", self.scl_rank),
+                           ("scl_bl", self.scl_bl_rank)):
+            n = int(sizes.get(name, 0) or 0)
+            if rank is not None and n and len(rank) != n:
+                raise ValueError(
+                    f"orders[{name!r}] has {len(rank)} ranks but the "
+                    f"{name} codebook has {n} entries — derive orders "
+                    "from the SAME (preset) books as sizes "
+                    "(rc.scalar_orders(preset_codebooks(...)))")
+        self.scl_inv = (None if self.scl_rank is None
+                        else np.argsort(self.scl_rank))
+        self.scl_bl_inv = (None if self.scl_bl_rank is None
+                           else np.argsort(self.scl_bl_rank))
+        n_vq = len(sizes["vq"])
+        n_vq_bl = len(sizes.get("vq_bl", []))
+        if decode:
+            self.ind1 = np.zeros(length, bool)
+            self.ind2 = np.zeros(length, bool)
+            self.iscl = np.full(length, -1, np.int32)
+            self.iscl_bl = np.full(length, -1, np.int32)
+            self.ivq = np.full((length, max(n_vq, 1)), -1, np.int32)
+            self.ivq_bl = np.full((length, max(n_vq_bl, 1)), -1,
+                                  np.int32)
+            self.pcodes = np.zeros((length, 2), np.int64)
+        self._init_state()
+
+    def _sym(self, table, value) -> int:
+        return _code_adaptive(self.coder, table, value, self.decode)
+
+    def _chain_sym(self, key, value_rank, prev_bucket: int, nb: int,
+                   off: int) -> int:
+        """Code/decode a scalar symbol in rank space as
+        (bucket | prev bucket) + (offset | bucket) — see _scl_split.
+        prev_bucket == nb means "no previous symbol".  Returns the
+        coded rank."""
+        m = self.models
+        btab = m[f"{key}_bucket"]
+        if isinstance(btab, list):
+            btab = btab[prev_bucket]
+        if self.decode:
+            b = self._sym(btab, None)
+            o = 0
+            if off > 1:
+                otab = m[f"{key}_offset"]
+                o = self._sym(otab[b] if isinstance(otab, list)
+                              else otab, None)
+            return b * off + o
+        r = int(value_rank)
+        b, o = divmod(r, off)
+        self._sym(btab, b)
+        if off > 1:
+            otab = m[f"{key}_offset"]
+            self._sym(otab[b] if isinstance(otab, list) else otab, o)
+        return r
+
+    def _init_state(self):
+        nb_scl, off_scl = _scl_split(self.sizes["scl"])
+        nb_bl, off_bl = _scl_split(self.sizes.get("scl_bl", 0) or 1)
+        # cross-frame model-context state; a plain dict so streaming
+        # decoders can snapshot/restore it around speculative frames
+        self._st = {"prev_p": 0, "prev_c": 0, "prev_i1": 0,
+                    "prev_i2": 0, "run_i1": 0, "run_i2": 0,
+                    "pb_scl": nb_scl, "pb_bl": nb_bl}
+        self._split = (nb_scl, off_scl, nb_bl, off_bl)
+
+    def step(self, t: int):
+        """Transcode ONE frame (all of its symbol streams), advancing
+        the cross-frame context state.  Frame t's arrays must already
+        exist (encode: caller-filled; decode: writable placeholders)."""
+        models, sizes, st = self.models, self.sizes, self._st
+        nb_scl, off_scl, nb_bl, off_bl = self._split
+
+        def pick(m, ctx):
+            # static_models may override a context list with one table
+            return m[ctx] if isinstance(m, list) else m
+
+        i1 = self._sym(models["ind1"][st["prev_i1"]]
+                       [_run_bucket(st["run_i1"])],
+                       None if self.decode else self.ind1[t])
+        i2 = self._sym(models["ind2"][st["prev_i2"]]
+                       [_run_bucket(st["run_i2"])],
+                       None if self.decode else self.ind2[t])
+        st["run_i1"] = st["run_i1"] + 1 if (
+            t > 0 and i1 == st["prev_i1"]) else 1
+        st["run_i2"] = st["run_i2"] + 1 if (
+            t > 0 and i2 == st["prev_i2"]) else 1
+        if self.decode:
+            self.ind1[t], self.ind2[t] = bool(i1), bool(i2)
+        st["prev_i1"], st["prev_i2"] = i1, i2
+
+        # pitch period: delta with escape
+        if t == 0:
+            p = self._sym(models["pitch_abs"],
+                          None if self.decode
+                          else int(self.pcodes[t][0]))
+        elif self.decode:
+            sym = self._sym(
+                pick(models["pitch_delta"],
+                     _voicing_bucket(st["prev_c"])), None)
+            if sym == _PITCH_ESCAPE:
+                p = self._sym(models["pitch_abs"], None)
+            else:
+                p = st["prev_p"] + sym - _PITCH_DELTA_RANGE
+        else:
+            p = int(self.pcodes[t][0])
+            d = p - st["prev_p"]
+            delta_table = pick(models["pitch_delta"],
+                               _voicing_bucket(st["prev_c"]))
+            if -_PITCH_DELTA_RANGE <= d < _PITCH_DELTA_RANGE:
+                self._sym(delta_table, d + _PITCH_DELTA_RANGE)
+            else:
+                self._sym(delta_table, _PITCH_ESCAPE)
+                self._sym(models["pitch_abs"], p)
+        if self.decode:
+            self.pcodes[t][0] = p
+        st["prev_p"] = p
+
+        c = self._sym(models["corr"][st["prev_c"]],
+                      None if self.decode else int(self.pcodes[t][1]))
+        if self.decode:
+            self.pcodes[t][1] = c
+        st["prev_c"] = c
+
+        if i1:
+            r = None if self.decode else (
+                int(self.iscl[t]) if self.scl_rank is None
+                else int(self.scl_rank[int(self.iscl[t])]))
+            r = self._chain_sym("scl", r, st["pb_scl"], nb_scl, off_scl)
+            if self.decode:
+                self.iscl[t] = (r if self.scl_inv is None
+                                else int(self.scl_inv[r]))
+            st["pb_scl"] = r // off_scl
+        elif "scl_bl_bucket" in models:
+            r = None if self.decode else (
+                int(self.iscl_bl[t]) if self.scl_bl_rank is None
+                else int(self.scl_bl_rank[int(self.iscl_bl[t])]))
+            r = self._chain_sym("scl_bl", r, st["pb_bl"], nb_bl, off_bl)
+            if self.decode:
+                self.iscl_bl[t] = (r if self.scl_bl_inv is None
+                                   else int(self.scl_bl_inv[r]))
+            st["pb_bl"] = r // off_bl
+
+        def vq_stream(key, n_stages, arr, entries):
+            prev_idx = 0
+            for s in range(n_stages):
+                model = models[f"{key}_{s}"]
+                if s > 0:
+                    model = model[_vq_ctx(prev_idx, entries[s - 1])]
+                v = self._sym(model,
+                              None if self.decode else int(arr[t][s]))
+                if self.decode:
+                    arr[t][s] = v
+                prev_idx = v
+
+        if i2:
+            vq_stream("vq", len(sizes["vq"]), self.ivq, sizes["vq"])
+        else:
+            vq_stream("vq_bl", len(sizes.get("vq_bl", [])),
+                      self.ivq_bl, sizes.get("vq_bl", []))
+
+    def run(self):
+        for t in range(self.length):
+            self.step(t)
+        return self
+
+
+def pack_utterance_rc(ind1, ind2, indices: Dict, pcodes,
+                      sizes: Dict, static_models: Dict = None,
+                      priors: Dict = None, orders: Dict = None) -> bytes:
+    """Entropy-coded counterpart of bitstream.pack_utterance.
+
+    pcodes: (L, 2) int codes from bitstream.quantize_pitch (RAW-scale
+    pitch).  Returns a self-contained payload: 2-byte length header +
+    range-coded body; the decoder rebuilds the identical adaptive
+    models, so nothing else is transmitted.  `priors` (optional) must
+    be the same dict on both sides — see collect_priors.  `orders`
+    (optional, also model-side): value-rank permutations of the scalar
+    codebooks ({"scl": rank, "scl_bl": rank}, see scalar_orders) so the
+    scalar delta models run in VALUE-rank space, not index space."""
+    tc = _Transcoder(sizes, static_models, priors, decode=False,
+                     length=len(np.asarray(ind1)), orders=orders)
+    tc.ind1 = np.asarray(ind1).astype(int)
+    tc.ind2 = np.asarray(ind2).astype(int)
+    tc.iscl = np.asarray(indices["scl"])
+    tc.iscl_bl = np.asarray(indices["scl_bl"])
+    tc.ivq = np.atleast_2d(np.asarray(indices["vq"]))
+    tc.ivq_bl = np.atleast_2d(np.asarray(indices["vq_bl"]))
+    tc.pcodes = np.asarray(pcodes)
+    tc.run()
+    body = tc.coder.finish()
+    return int(tc.length).to_bytes(2, "big") + body
+
+
+def unpack_utterance_rc(data: bytes, sizes: Dict,
+                        static_models: Dict = None,
+                        priors: Dict = None,
+                        orders: Dict = None) -> Dict:
+    """Inverse of pack_utterance_rc; returns the bitstream.
+    unpack_utterance dict layout (ind1, ind2, indices, pitch)."""
+    length = int.from_bytes(data[:2], "big")
+    tc = _Transcoder(sizes, static_models, priors, decode=True,
+                     data=data[2:], length=length, orders=orders).run()
+    return {"ind1": tc.ind1, "ind2": tc.ind2,
+            "indices": {"scl": tc.iscl, "scl_bl": tc.iscl_bl,
+                        "vq": tc.ivq, "vq_bl": tc.ivq_bl},
+            "pitch": dequantize_pitch(tc.pcodes)}
+
+
+def scalar_orders(codebooks) -> Dict:
+    """Value-rank permutations of the scalar codebooks for the scalar
+    delta models (rank[i] = position of codeword i in value order).
+    Derived from the codebook artifacts, so both codec sides compute
+    the identical dict."""
+    orders = {"scl": np.argsort(np.argsort(host_array(codebooks.scl)))}
+    if getattr(codebooks, "scl_bl", None) is not None:
+        orders["scl_bl"] = np.argsort(np.argsort(
+            host_array(codebooks.scl_bl)))
+    return orders

@@ -8,7 +8,7 @@ Replaces the reference's sacred Experiment + flat cfg dict
 (train_frame.py:188-210, train_cb.py:54-96).  One dataclass tree, no
 hardcoded absolute paths; entries accept `section.key=value` overrides:
 
-    python -m fpsc_tpu_torch.codec.cli decode IN.fpsc OUT_DIR codec.entropy_coding=false
+    python -m fpsc_tpu_torch.codec.cli decode IN.fpsc OUT_DIR lpcnet.bunch=2 lpcnet.gru_b_units=32
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """LPCNet-class vocoder: frame conditioning net + the sampling tail.
 
-Port of fpsc_tpu/models/lpcnet.py:50-107, 312-337.  The sample-rate
-network runs in the fused sampler (ops/lpcnet_sampler.py); this module
-holds its parameters, the frame-rate conditioning net and the shared
-sampling arithmetic.
+Port of fpsc_tpu/models/lpcnet.py:50-107, 312-337, 473-518.  The
+sample-rate network runs in the fused sampler (ops/lpcnet_sampler.py);
+this module holds its parameters, the frame-rate conditioning net, the
+shared sampling arithmetic and the block sparsification of GRU_A's
+recurrent weights.
 
 Parameter names are the fields of the JAX LPCNetParams (`gru_a.wi`,
 `fc1.w`, `period_emb.table`, `conv1`, ...).  The two convolutions are
@@ -33,6 +34,9 @@ class LPCNetConfig:
     gru_b_units: int = 16
     levels: int = 256
     frame_kernel: int = 3
+    # mu-law embeddings into GRU_A: 3 for plain LPCNet, 2 * bunch + 1
+    # for a bunched one (models/lpcnet_bunched.py)
+    gru_a_embeds: int = 3
 
 
 class LPCNet(nn.Module):
@@ -54,7 +58,8 @@ class LPCNet(nn.Module):
         self.fdense1 = Dense(c, c, g)
         self.fdense2 = Dense(c, c, g)
         self.sample_emb = Embedding(cfg.levels, cfg.embed_dim, g)
-        self.gru_a = GRU(3 * cfg.embed_dim + c, cfg.gru_a_units, g)
+        self.gru_a = GRU(cfg.gru_a_embeds * cfg.embed_dim + c,
+                         cfg.gru_a_units, g)
         self.gru_b = GRU(cfg.gru_a_units + c, cfg.gru_b_units, g)
         self.fc1 = Dense(cfg.gru_b_units, cfg.levels, g)
         self.fc2 = Dense(cfg.gru_b_units, cfg.levels, g)
@@ -118,3 +123,49 @@ def draw_excitation(logits: torch.Tensor, temp: torch.Tensor,
     cdf = excitation_cdf(logits, temp, exp_dtype)
     idx = (cdf < u * cdf[:, -1:]).sum(-1)
     return u2l_table[idx]
+
+
+def _fit_block(n: int, size: int) -> int:
+    """The largest power-of-two fraction of `size` that divides n."""
+    size = min(size, n)
+    while n % size:
+        size //= 2
+    return size
+
+
+@torch.no_grad()
+def gru_a_block_mask(wh: torch.Tensor, density: float,
+                     block=(16, 32)) -> torch.Tensor:
+    """Magnitude block mask of GRU_A's (3H, H) recurrent matrix: the
+    diagonal block of each gate's (H, H) part always, and the blocks of
+    largest energy up to round(density * blocks) in all; block
+    dimensions shrink to divisors that fit, with at least two column
+    blocks.  0/1 in wh's dtype (fpsc_tpu/models/lpcnet.py:473-510)."""
+    three_h, h = wh.shape
+    bm = _fit_block(three_h, block[0])
+    bn = _fit_block(h, block[1])
+    while h // bn < 2 and bn > 8:
+        bn //= 2
+    n_bm, n_bn = three_h // bm, h // bn
+    energy = (wh.reshape(n_bm, bm, n_bn, bn) ** 2).sum((1, 3))
+    row_in_gate = torch.arange(n_bm, device=wh.device) % (n_bm // 3)
+    diag_col = (row_in_gate * bm) // bn
+    is_diag = torch.arange(n_bn, device=wh.device)[None, :] \
+        == diag_col[:, None]
+    keep_n = max(1, int(round(density * n_bm * n_bn)))
+    ranked = torch.where(is_diag, torch.full_like(energy, float("inf")),
+                         energy)
+    thresh = torch.sort(ranked.reshape(-1), descending=True).values[
+        keep_n - 1]
+    keep = (ranked >= thresh) | is_diag
+    return keep[:, None, :, None].expand(n_bm, bm, n_bn, bn).reshape(
+        three_h, h).to(wh.dtype)
+
+
+@torch.no_grad()
+def sparsify_gru_a(model: LPCNet, density: float,
+                   block=(16, 32)) -> LPCNet:
+    """Apply gru_a_block_mask to GRU_A's recurrent weights, in place;
+    returns the model (fpsc_tpu/models/lpcnet.py:513-518)."""
+    model.gru_a.wh.mul_(gru_a_block_mask(model.gru_a.wh, density, block))
+    return model

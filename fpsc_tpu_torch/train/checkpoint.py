@@ -54,6 +54,12 @@ class LPCNetParams(NamedTuple):
     fc2: Any
 
 
+class BunchedParams(NamedTuple):
+    base: Any
+    fc3: Any
+    fc4: Any
+
+
 class FramePredictorParams(NamedTuple):
     rnn1: Any
     rnn2: Any
@@ -68,6 +74,7 @@ _PARAM_CLASSES = {
     ("fpsc_tpu.models.common", "EmbeddingParams"): EmbeddingParams,
     ("fpsc_tpu.models.gru", "GRUParams"): GRUParams,
     ("fpsc_tpu.models.lpcnet", "LPCNetParams"): LPCNetParams,
+    ("fpsc_tpu.models.lpcnet_bunched", "BunchedParams"): BunchedParams,
     ("fpsc_tpu.models.frame_predictor", "FramePredictorParams"):
         FramePredictorParams,
 }
@@ -150,3 +157,13 @@ def load_codebooks(path: str, device=None) -> Codebooks:
     return Codebooks(scl=t("scl"), vq=vq,
                      scl_bl=t("scl_bl") if "scl_bl" in z.files else None,
                      vq_bl=vq_bl or None)
+
+
+def load_priors(path: str):
+    """The entropy-model priors stored beside the codebooks
+    (fpsc_tpu.train.checkpoint.save_priors: `prior__<stream>` keys of
+    the codebook .npz), or None when there are none."""
+    z = np.load(path)
+    priors = {k[len("prior__"):]: z[k] for k in z.files
+              if k.startswith("prior__")}
+    return priors or None

@@ -1,12 +1,13 @@
 """Carry JAX parameter trees over to the port's modules, by field name.
 
 A tree here is a nest of NamedTuples whose leaves are arrays: the JAX
-LPCNetParams / FramePredictorParams / GRUParams / DenseParams /
-EmbeddingParams / Codebooks turned into numpy (for example with
+LPCNetParams / BunchedParams / FramePredictorParams / GRUParams /
+DenseParams / EmbeddingParams / Codebooks turned into numpy (for example with
 `jax.tree_util.tree_map(np.asarray, params)`), or the port-side
 containers a checkpoint unpickles into (train/checkpoint.py).  The
 port's modules name their parameters by the same field paths
-(`gru_a.wi`, `fc1.w`, `period_emb.table`), so the map is a name map.
+(`gru_a.wi`, `fc1.w`, `period_emb.table`, `base.gru_a.wh`, `fc3.w`), so
+the map is a name map.
 The one layout change: the frame net's convolutions are JAX WIO
 (k, in, out) and torch (out, in, k).
 """
@@ -21,6 +22,7 @@ from torch import nn
 from fpsc_tpu_torch.models.frame_predictor import (Codebooks, FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
 
 _CONV = ("conv1", "conv2")
 
@@ -42,8 +44,12 @@ def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def _is_conv(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in _CONV
+
+
 def _jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
-    return t.permute(2, 1, 0) if name in _CONV else t
+    return t.permute(2, 1, 0) if _is_conv(name) else t
 
 
 def load_into(module: nn.Module, tree: Any, what: str = "model"
@@ -79,7 +85,7 @@ def load_into(module: nn.Module, tree: Any, what: str = "model"
     with torch.no_grad():
         for (name, p), (_, leaf) in zip(params, leaves):
             src = torch.from_numpy(np.array(leaf, np.float32))
-            p.copy_(src.permute(2, 1, 0) if name in _CONV else src)
+            p.copy_(src.permute(2, 1, 0) if _is_conv(name) else src)
     return module
 
 
@@ -89,7 +95,8 @@ def _init_generator() -> torch.Generator:
 
 
 def lpcnet_config(tree: Any) -> LPCNetConfig:
-    """The LPCNetConfig whose shapes an LPCNetParams tree has."""
+    """The LPCNetConfig whose shapes an LPCNetParams tree has (the base
+    of a bunched tree too: its GRU_A input is 5E + cond)."""
     k, in_dim, cond = np.shape(tree.conv1)
     levels, e_dim = np.shape(tree.sample_emb.table)
     period = np.shape(tree.period_emb.table)[1]
@@ -97,12 +104,19 @@ def lpcnet_config(tree: Any) -> LPCNetConfig:
         feat_dim=in_dim - period, period_embed=period, cond_units=cond,
         embed_dim=e_dim, gru_a_units=np.shape(tree.gru_a.wh)[1],
         gru_b_units=np.shape(tree.gru_b.wh)[1], levels=levels,
-        frame_kernel=k)
+        frame_kernel=k,
+        gru_a_embeds=(np.shape(tree.gru_a.wi)[1] - cond) // e_dim)
 
 
 def lpcnet_from_params(tree: Any, device=None) -> LPCNet:
     model = LPCNet(lpcnet_config(tree), _init_generator())
     return load_into(model, tree, "vocoder").to(device)
+
+
+def bunched_from_params(tree: Any, device=None) -> BunchedLPCNet:
+    """A JAX BunchedParams tree (bunch=2) as a BunchedLPCNet."""
+    model = BunchedLPCNet(lpcnet_config(tree.base), _init_generator())
+    return load_into(model, tree, "vocoder (bunch=2)").to(device)
 
 
 def predictor_from_params(tree: Any, device=None) -> FramePredictor:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def host_array(x) -> np.ndarray:
+    """x as a numpy array on the host: a tensor on any device, or an
+    array."""
+    return np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)

@@ -7,7 +7,9 @@ This file imports no JAX, so that it runs on a CUDA host without it:
 
 Weights come from a seeded torch.Generator, inputs from a seeded numpy
 RandomState, at the small geometry of tests/test_pallas_sampler.py
-(GRU_A 48, GRU_B 16, E 16, cond 24, B=8, 2 frames).
+(GRU_A 48, GRU_B 16, E 16, cond 24, B=8, 2 frames).  The bunched and
+block-sparse forms sparsify GRU_A at 0.5 in (16, 16) blocks: the 9
+forced diagonal blocks and 5 more of 27.
 """
 import dataclasses
 
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from fpsc_tpu_torch.dsp import constants as C
-from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
+from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig, sparsify_gru_a
+from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
 from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
 
@@ -40,8 +43,21 @@ WRONG = {
 }
 
 
-def _operands(dtype, b=8, frames=2, device="cpu", seed=0):
-    model = LPCNet(SMALL, generator=torch.Generator().manual_seed(seed))
+SPARSE_BLOCK = (16, 16)
+# (bunch, block-sparse GRU_A) of the kernel forms beyond bunch=1 dense
+FORMS = {"bunch2": (2, False), "bunch2_sparse": (2, True),
+         "sparse": (1, True)}
+
+
+def _operands(dtype, b=8, frames=2, device="cpu", seed=0, bunch=1,
+              sparse=False):
+    gen = torch.Generator().manual_seed(seed)
+    model = BunchedLPCNet(SMALL, gen) if bunch == 2 else LPCNet(SMALL, gen)
+    pattern = None
+    if sparse:
+        sparsify_gru_a(getattr(model, "base", model), 0.5, SPARSE_BLOCK)
+        pattern = ts.auto_block_pattern(model, SPARSE_BLOCK)
+        assert sum(len(c) for c in pattern[0]) == 14
     rng = np.random.RandomState(seed)
 
     def t(x, dt=torch.float32):
@@ -51,7 +67,37 @@ def _operands(dtype, b=8, frames=2, device="cpu", seed=0):
                       t(rng.randint(32, 256, (b, frames)), torch.int32),
                       t(rng.randn(b, frames, 16) * 0.05),
                       t(rng.uniform(size=(frames, b, C.FRAME_SIZE))),
-                      dtype=dtype)
+                      dtype=dtype, gru_a_pattern=pattern)
+
+
+def _swap_excitations(o, m):
+    e = m.e_dim
+    w = o.wiemb_t.clone()
+    w[2 * e:3 * e], w[3 * e:4 * e] = o.wiemb_t[3 * e:4 * e], \
+        o.wiemb_t[2 * e:3 * e]
+    return o._replace(wiemb_t=w), m
+
+
+def _drop_block(o, m):
+    """The pattern without the last block of its fullest row block."""
+    pattern = list(m.pattern)
+    row = max(range(len(pattern)), key=lambda r: len(pattern[r]))
+    pattern[row] = pattern[row][:-1]
+    return o, dataclasses.replace(m, pattern=tuple(pattern))
+
+
+# Wrong samplers of the bunched and sparse forms: (form, what, how,
+# dtype).  One dropped block is found in f32 only: in bf16 it moves the
+# cdf by less than the bf16 tolerance allows for rounding.
+WRONG_FORMS = [
+    ("bunch2", "head 2 zeroed", lambda o, m: (
+        o._replace(fch_t=torch.zeros_like(o.fch_t)), m), torch.bfloat16),
+    ("bunch2", "e_p2 and e_p1 swapped", _swap_excitations, torch.bfloat16),
+    ("bunch2_sparse", "e_p2 and e_p1 swapped", _swap_excitations,
+     torch.bfloat16),
+    ("bunch2_sparse", "one live block dropped", _drop_block, torch.float32),
+    ("sparse", "one live block dropped", _drop_block, torch.float32),
+]
 
 
 def test_wrapper_on_cpu_runs_plain_version():
@@ -76,6 +122,36 @@ def test_wrapper_checks_operands():
         ts.prepare(model, torch.zeros(8, 2, 20),
                    torch.zeros(8, 2, dtype=torch.int32),
                    torch.zeros(8, 2, 16), torch.zeros(8, 2, C.FRAME_SIZE))
+
+
+def test_wrapper_checks_bunched_and_sparse_operands():
+    ops, meta = _operands(torch.float32, bunch=2, sparse=True)
+    assert (meta.bunch, meta.block) == (2, SPARSE_BLOCK)
+    assert ts.kernel_name(meta) == "lpcnet_sample_bunch2_sparse"
+    with pytest.raises(ValueError, match="fch_t: shape"):
+        ts.sample(ops._replace(fch_t=ops.fch_t[:-1].contiguous()), meta)
+    with pytest.raises(ValueError, match="wiemb_t: shape"):
+        ts.sample(ops, dataclasses.replace(meta, bunch=1))
+    with pytest.raises(ValueError, match="pattern does not fit"):
+        ts.sample(ops, dataclasses.replace(meta,
+                                           pattern=meta.pattern[:-1]))
+    with pytest.raises(ValueError, match="does not tile"):
+        ts.sample(ops, dataclasses.replace(meta, block=(10, 16)))
+    with pytest.raises(ValueError, match="bunch 1 or 2"):
+        ts.sample(ops, dataclasses.replace(meta, bunch=4))
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_wrapper_on_cpu_runs_plain_version_of_each_form(form):
+    bunch, sparse = FORMS[form]
+    ops, meta = _operands(torch.float32, bunch=bunch, sparse=sparse)
+    build.reset_launch_counts()
+    got, trace = ts.sample(ops, meta, trace=True)
+    want, want_trace = ts.sample_plain(ops, meta, trace=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(trace.numpy(), want_trace.numpy())
+    assert trace.shape == (8, 2 * 160 // bunch, ts.trace_width(bunch))
+    assert sum(build.launch_counts.values()) == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -141,3 +217,38 @@ def test_kernel_on_wrong_operands_fails_the_replay(cuda_device, wrong):
     other = ts.sample(*WRONG[wrong](ops, meta), trace=True)
     assert ts.replay_faults(ts.replay_plain(ops, meta, *other),
                             torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", list(FORMS))
+def test_bunched_and_sparse_kernels_match_plain_version(cuda_device, form,
+                                                       dtype):
+    """As test_kernel_matches_plain_version, for the bunch=2 dense and
+    block-sparse forms and the bunch=1 block-sparse form."""
+    bunch, sparse = FORMS[form]
+    ops, meta = _operands(dtype, device=cuda_device, bunch=bunch,
+                          sparse=sparse)
+    build.reset_launch_counts()
+    got, trace = ts.sample(ops, meta, trace=True)
+    torch.cuda.synchronize()
+    assert build.launch_counts[ts.kernel_name(meta)] == 1
+    assert sum(build.launch_counts.values()) == 1
+    assert ts.replay_faults(ts.replay_plain(ops, meta, got, trace),
+                            dtype) == []
+    want = ts.sample_plain(ops, meta)
+    min_clean = 8 - 2 if dtype == torch.float32 else 0
+    ts.trajectory_flips(got.cpu().numpy(), want.cpu().numpy(),
+                        min_clean=min_clean, flip_tol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,what,wrong,dtype", WRONG_FORMS,
+                         ids=[f"{f}-{w}" for f, w, _, _ in WRONG_FORMS])
+def test_bunched_and_sparse_kernels_on_wrong_operands_fail_the_replay(
+        cuda_device, form, what, wrong, dtype):
+    bunch, sparse = FORMS[form]
+    ops, meta = _operands(dtype, device=cuda_device, bunch=bunch,
+                          sparse=sparse)
+    other = ts.sample(*wrong(ops, meta), trace=True)
+    assert ts.replay_faults(ts.replay_plain(ops, meta, *other), dtype)

@@ -25,6 +25,14 @@ sampler's trajectory contract, with no item diverging within its first
 frame (160 samples).  The random vocoder's audio peaks above 5, not 1,
 and the f32 rounding of the LPC prediction drifts in proportion, so the
 contract's atol of 1e-5 is taken relative to the peak.
+
+The flagship stream (`flagship_stream`) is what the JAX encoder writes
+at its default settings: range-coded (`codec.entropy_coding=true`),
+with entropy-model priors stored beside the codebooks, for a bunch=2
+vocoder whose GRU_A recurrent matrix is block-sparse (GRU_A 128, so
+that (64, 64) blocks leave auto_block_pattern a pattern; GRU_B 8).
+The port decodes it through the block-sparse bunch=2 sampler, JAX's
+CPU decoder through lpcnet_bunched.generate (dense), the same function.
 """
 import os
 import pickle
@@ -46,12 +54,15 @@ from fpsc_tpu.config.config import Config as JConfig
 from fpsc_tpu.config.config import apply_overrides as japply
 from fpsc_tpu.dsp import ceps2lpc as jceps
 from fpsc_tpu.models import frame_predictor as jfp
+from fpsc_tpu.codec import range_coder as jrc
 from fpsc_tpu.models import lpcnet as jlpcnet
+from fpsc_tpu.models import lpcnet_bunched as jlb
 from fpsc_tpu.train import checkpoint as jckpt
 
 from fpsc_tpu_torch.codec import bitstream as tbs
 from fpsc_tpu_torch.codec import cli as tcli
 from fpsc_tpu_torch.codec import container as tcontainer
+from fpsc_tpu_torch.codec import range_coder as trc
 from fpsc_tpu_torch.config.config import Config as TConfig
 from fpsc_tpu_torch.config.config import apply_overrides as tapply
 from fpsc_tpu_torch.dsp import constants as C
@@ -140,6 +151,104 @@ def test_decode_file_matches_jax(coded_stream):
         assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
 
 
+FLAGSHIP = ["lpcnet.bunch=2", "lpcnet.gru_a_units=128",
+            "lpcnet.gru_b_units=8", "lpcnet.embed_dim=16",
+            "lpcnet.cond_units=16", "codec.entropy_coding=true"]
+
+
+@pytest.fixture(scope="module")
+def flagship_stream(tmp_path_factory):
+    """A range-coded .fpsc from JAX's encode_paths with priors, a JAX
+    bunch=2 block-sparse vocoder checkpoint, and JAX's decode."""
+    tmp = tmp_path_factory.mktemp("flagship")
+    cb_path = _write_artifacts(tmp)
+    rng = np.random.RandomState(12)
+    sizes = {"scl": 16, "scl_bl": 4, "vq": [32, 16], "vq_bl": [8]}
+
+    def stream(frames):
+        ind1, ind2 = rng.rand(frames) > 0.5, rng.rand(frames) > 0.5
+        idx = {"scl": np.where(ind1, rng.randint(0, 16, frames), -1),
+               "scl_bl": np.where(ind1, -1, rng.randint(0, 4, frames)),
+               "vq": np.where(ind2[:, None], rng.randint(0, 16, (frames, 2)),
+                              -1),
+               "vq_bl": np.where(ind2[:, None], -1,
+                                 rng.randint(0, 8, (frames, 1)))}
+        pcodes = np.stack([rng.randint(0, 256, frames),
+                           rng.randint(0, 8, frames)], 1)
+        return ind1, ind2, idx, pcodes
+
+    books = jckpt.load_codebooks(cb_path)
+    jckpt.save_priors(cb_path, jrc.collect_priors(
+        [stream(60) for _ in range(3)], sizes,
+        orders=jrc.scalar_orders(books)))
+    save_dir = str(tmp / "runs")
+    pred = jfp.init_frame_predictor(
+        jax.random.PRNGKey(11),
+        jfp.FramePredictorConfig(gru_units1=32, gru_units2=16))
+    pred = pred._replace(fc=pred.fc._replace(w=pred.fc.w * 0.05,
+                                             b=pred.fc.b * 0.05))
+    voc = jlb.sparsify_gru_a(jlb.init_bunched(
+        jax.random.PRNGKey(13),
+        jlpcnet.LPCNetConfig(gru_a_units=128, gru_b_units=8, embed_dim=16,
+                             cond_units=16)), 0.2, block=(64, 64))
+    for label, params in (("pred", pred), ("voc", voc)):
+        jckpt.save(jckpt.checkpoint_path(save_dir, label, 1), params,
+                   opt_state=optax.adam(1e-3).init(params), step=3)
+    overrides = TINY + FLAGSHIP + [
+        f"codec.codebook_path={cb_path}", f"train.save_dir={save_dir}",
+        "train.transfer_model=pred", "train.transfer_epoch=1",
+        "train.vocoder_model=voc", "train.vocoder_epoch=1"]
+    wavs = [_write_wav(tmp, "f1", seconds=0.3, seed=7),
+            _write_wav(tmp, "f2", seconds=0.4, seed=8)]
+    jcfg = japply(JConfig(), overrides)
+    *arts, jvoc = jcli.load_artifacts(jcfg, need_vocoder=True)
+    assert arts[2] is not None          # the priors
+    path = str(tmp / "flagship.fpsc")
+    jcli.encode_paths(jcfg, wavs, path, artifacts=arts)
+    assert jcontainer.read_fpsc(path)["meta"]["entropy"]
+    want = jcli.decode_file(jcfg, path, str(tmp / "jax_wav"),
+                            use_pallas=False, artifacts=arts,
+                            vocoder_params=jvoc)
+    return dict(tmp=tmp, path=path, overrides=overrides, want=want,
+                vocoder=jvoc)
+
+
+def test_decode_file_matches_jax_on_the_flagship_stream(flagship_stream):
+    """A range-coded container at the JAX encoder's default settings,
+    decoded through a bunch=2 block-sparse vocoder carried over from a
+    JAX checkpoint: JAX's coded features and LPC, and audio under the
+    trajectory contract."""
+    cfg = tapply(TConfig(), flagship_stream["overrides"])
+    *artifacts, vocoder = tcli.load_artifacts(cfg, need_vocoder=True,
+                                              device="cpu")
+    assert artifacts[3] is not None
+    pattern = ts.auto_block_pattern(vocoder)
+    assert pattern is not None and pattern[1] == (64, 64)
+    got = tcli.decode_file(cfg, flagship_stream["path"],
+                           str(flagship_stream["tmp"] / "port_wav"),
+                           artifacts=artifacts, vocoder=vocoder,
+                           device="cpu", uniforms=_jax_uniforms)
+    want = flagship_stream["want"]
+    assert [g["name"] for g in got] == [w["name"] for w in want] \
+        == ["f1", "f2"]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
+                                   atol=1e-5)
+        _, lpc, _ = jceps.ceps2lpc(jnp.asarray(g["coded"][:, :18] * C.MAXI))
+        np.testing.assert_allclose(g["lpc"], np.asarray(lpc), rtol=1e-4,
+                                   atol=1e-3)
+        coded_un = g["coded"][None] * C.MAXI
+        periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).astype(np.int32)
+        ref = np.asarray(jlb.generate(
+            flagship_stream["vocoder"], jnp.asarray(g["coded"][None]),
+            jnp.asarray(periods), jnp.asarray(g["lpc"][None]),
+            jax.random.PRNGKey(0), corr=jnp.asarray(coded_un[..., 19])))
+        assert g["wav"].shape == w["wav"].shape == ref[0].shape
+        flips, _ = ts.trajectory_flips(g["wav"][None], ref,
+                                       atol=1e-5 * np.abs(ref).max())
+        assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
+
+
 def test_bitstream_and_container_match_jax(tmp_path):
     """The port's copies write JAX's bytes and read them back."""
     rng = np.random.RandomState(3)
@@ -203,6 +312,31 @@ def _port_stream(path, sizes, frames=3, **kw):
 TINY_SIZES = {"scl": 16, "scl_bl": 4, "vq": [32, 16], "vq_bl": [8]}
 
 
+def test_cli_main_decodes_a_range_coded_stream_at_bunch_2(tmp_path):
+    """The decode drive at the flagship's settings: a range-coded
+    container written by the port, lpcnet.bunch=2 on the command line."""
+    cb_path = _write_artifacts(tmp_path)
+    rng = np.random.RandomState(4)
+    frames = 3
+    ind1, ind2 = rng.rand(frames) > 0.5, rng.rand(frames) > 0.5
+    idx = {"scl": np.where(ind1, rng.randint(0, 16, frames), -1),
+           "scl_bl": np.where(ind1, -1, rng.randint(0, 4, frames)),
+           "vq": np.where(ind2[:, None], rng.randint(0, 16, (frames, 2)), -1),
+           "vq_bl": np.where(ind2[:, None], -1, rng.randint(0, 8, (frames, 1)))}
+    pcodes = np.stack([rng.randint(0, 256, frames),
+                       rng.randint(0, 8, frames)], 1)
+    orders = trc.scalar_orders(tckpt.load_codebooks(cb_path))
+    payload = trc.pack_utterance_rc(ind1, ind2, idx, pcodes, TINY_SIZES,
+                                    orders=orders)
+    path = str(tmp_path / "x.fpsc")
+    tcontainer.write_fpsc(path, [("x", payload)], TINY_SIZES, entropy=True)
+    out = tmp_path / "wav"
+    assert tcli.main(["decode", path, str(out), *TINY,
+                      f"codec.codebook_path={cb_path}", "lpcnet.bunch=2",
+                      "--device=cpu"]) == 0
+    assert (out / "x.wav").exists()
+
+
 def test_cli_main_decodes_on_cpu(tmp_path):
     cfg_args = TINY + [f"codec.codebook_path={_write_artifacts(tmp_path)}"]
     path = _port_stream(str(tmp_path / "x.fpsc"), TINY_SIZES,
@@ -215,12 +349,11 @@ def test_cli_main_decodes_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("container_kw,cfg_extra,match", [
-    (dict(entropy=True), (), "entropy-coded"),
     (dict(entropy=True, packet_frames=5), (), "packetized"),
     (dict(entropy=True, packet_frames=5, fec=True), (), "packetized"),
     (dict(entropy=False, preset="lean"), (), "rate preset 'lean'"),
     (dict(entropy=False), ("codec.preset=lean",), "rate preset 'lean'"),
-    (dict(entropy=False), ("lpcnet.bunch=2",), "bunch=2"),
+    (dict(entropy=False), ("lpcnet.bunch=4",), "bunch=4"),
 ])
 def test_decode_refuses_what_it_does_not_decode(tmp_path, container_kw,
                                                 cfg_extra, match):
@@ -249,6 +382,9 @@ import fpsc_tpu_torch
 for m in pkgutil.walk_packages(fpsc_tpu_torch.__path__, "fpsc_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for name in ("fpsc_tpu_torch.codec.range_coder",
+             "fpsc_tpu_torch.models.lpcnet_bunched"):
+    assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"
              or n.startswith("fpsc_tpu."))
@@ -259,7 +395,7 @@ print(len([n for n in sys.modules if n.startswith("fpsc_tpu_torch")]))
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert run.returncode == 0, run.stderr
-    assert int(run.stdout.split()[-1]) >= 20
+    assert int(run.stdout.split()[-1]) >= 22
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
