@@ -11,25 +11,32 @@ exit and no result line:
    one process per source, all started together, and print versions;
 2. numerics: TF32 off for matmuls and for cuDNN (frame_net's conv1d);
 3. kernel vs plain, short window: each form of the LPCNet sampler
-   kernel (bunch=1 dense, bunch=2 dense, bunch=2 block-sparse, bunch=1
-   block-sparse) against sample_plain on the card at full width (GRU_A
-   384, E 128, cond 128; GRU_B 16 at bunch=1, 32 at bunch=2; GRU_A
-   sparsified to 0.2 in (64, 64) blocks), B=8, 2 frames, in f32 and in
-   bf16.  Every decision of the kernel (embedding indices and drawn
-   codes, from its trace) and its output must pass the replay
+   kernel (FORMS: bunch=1 dense, bunch=2 dense, bunch=2 block-sparse,
+   bunch=1 block-sparse, bunch=4 dense and block-sparse, int8 weights at
+   bunch=1 sparse, bunch=2 sparse and bunch=4 dense, bunch=4 with the cdf
+   as a product) against sample_plain on the card at full width (GRU_A
+   384, E 128, cond 128; GRU_B 16 at bunch=1, 32 at bunch=2, 64 at
+   bunch=4; GRU_A sparsified to 0.2 in (64, 64) blocks), B=8, 2 frames,
+   in f32 and in bf16.  Every decision of the kernel (embedding indices
+   and drawn codes, from its trace) and its output must pass the replay
    (lpcnet_sampler.replay_plain and replay_faults), and the free-running
    outputs must meet the trajectory contract of
    tests/test_pallas_sampler.py (prefix rtol 1e-4, atol 1e-5 before
    each item's first flip; in f32 at least B-2 items flip-free); a flip
    is a move of 1e-4 or more (MU_FLIP_TOL).  The kernel run on wrong
-   operands must fail the replay: no GRU_A recurrent product, the LPC
-   history reversed; at bunch=2 head 2 zeroed, and e_p2 and e_p1
-   swapped; in the sparse forms one live block dropped from the
-   pattern;
+   operands must fail the replay (sampler_faults.wrong_operands): at
+   bunch=1 and 2 no GRU_A recurrent product, and the LPC history
+   reversed; at bunch=2 head 2 zeroed, and e_p2 and e_p1 swapped; at
+   bunch=4 the head embeddings of hist[15] and hist[14] swapped, the
+   position blocks 1 and 2 of the heads swapped, and the previous
+   excitations reversed; with int8 weights one weight's scales set to
+   1, and in f32 GRU_A's recurrent row scales reversed; in the sparse
+   forms in f32 one live block dropped from the pattern;
 4. the flagship main path (scripts/validate_flagship.py's deployment):
-   8 utterances of 2 s (200 frames) of random symbols at the reference
-   codebook geometry, range-coded with seeded random priors by the
-   port's pack_utterance_rc and written by write_fpsc(entropy=True),
+   8 utterances of 2 s (UTT_FRAMES, 200 frames) of random symbols
+   at the reference codebook geometry, range-coded with seeded random
+   priors by the port's pack_utterance_rc and written by
+   write_fpsc(entropy=True),
    then decoded to wav by fpsc_tpu_torch.codec.cli.decode_file with
    seeded random full-width weights: predictor 384/128, its head scaled
    so the cepstra lie in the range of speech; vocoder bunch=2, GRU_B
@@ -46,17 +53,30 @@ exit and no result line:
    version (timed once), whose output must track each item up to its
    first flip; the bound of the work from its shapes; the other forms
    timed on the same inputs;
-6. the slice-1 main path: as 4, a fixed-layout container, a bunch=1
+6. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
+   weights_int8=True) on the flagship's features and vocoder must launch
+   the bunch=2 sparse int8 form and give what sample(*prepare(...))
+   gives; then as 5, in bf16;
+7. the bunch=4 main path (bench.py's `bunch4` row, the configuration
+   scripts/validate_bunch4_recovery.py gates): as 4, 8 utterances of 2 s
+   (UTT_FRAMES), range-coded, with a bunch=4 vocoder at GRU_B 64, dense
+   GRU_A; then as 5, with the
+   bunch=4 block-sparse form and the bunch=4 int8 form timed on the same
+   features;
+8. the wide batch: as 7 for WIDE_UTT utterances of WIDE_FRAMES frames
+   in one bucket, which must launch the cdf_matmul form (JAX's default
+   above 128 items); then as 5 in bf16, with the scan form forced
+   (cdf_matmul=False) timed on the same operands;
+9. the slice-1 main path: as 4, a fixed-layout container, a bunch=1
    dense vocoder with GRU_B 16, at SLICE1_FRAMES frames; then as 5 for
    its shape;
-7. decode_file on the card against decode_file on the CPU on small
-   inputs (2 x 20 frames), for both configurations: the same coded
-   features and LPC.
+10. decode_file on the card against decode_file on the CPU on small
+   inputs (2 x 20 frames), for the flagship, bunch=4 and slice-1
+   configurations: the same coded features and LPC.
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi prints them, and the result line.
 """
-import dataclasses
 import json
 import os
 import re
@@ -76,15 +96,23 @@ from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
-from fpsc_tpu_torch.ops import build, lpcnet_sampler
+from fpsc_tpu_torch.ops import build, lpcnet_sampler, sampler_faults
 
 N_UTT, UTT_FRAMES = 8, 200
+# slice 1's path, cut in depth (200 frames in its own slice) to keep the
+# script inside half its limit
 SLICE1_FRAMES = 100
+# one bucket wide enough for the cdf_matmul default (more than 128)
+WIDE_UTT, WIDE_FRAMES = 256, 50
 CHECK_B, CHECK_FRAMES = 8, 2
 # The flagship deployment (scripts/validate_flagship.py:57-131): bunch=2,
 # GRU_B 32, GRU_A at 0.2 density in (64, 64) blocks, range-coded.
 FLAGSHIP = ["lpcnet.bunch=2", "lpcnet.gru_b_units=32",
             "codec.entropy_coding=true"]
+# bench.py:211-233's bunch4 rows, at the GRU_B 64 of
+# scripts/validate_bunch4_recovery.py:81-88, range-coded.
+BUNCH4 = ["lpcnet.bunch=4", "lpcnet.gru_b_units=64",
+          "codec.entropy_coding=true"]
 SLICE1 = ["lpcnet.bunch=1", "lpcnet.gru_b_units=16",
           "codec.entropy_coding=false"]
 DENSITY, SPARSE_BLOCK = 0.2, (64, 64)
@@ -105,13 +133,22 @@ MU_FLIP_TOL = 1e-4
 HEAD_SCALE = 0.05
 PEAK_LIMIT = 100.0
 SOURCE = "fpsc_tpu_torch/csrc/lpcnet_sampler.cu"
-REPLACES = {"lpcnet_sample": "fpsc_tpu/ops/lpcnet_sampler.py:87",
-            "lpcnet_sample_bunch2_sparse":
-                "fpsc_tpu/ops/lpcnet_sampler.py:291"}
+JAX_SAMPLER = "fpsc_tpu/ops/lpcnet_sampler.py"
+# The TPU kernel's lines each measured form replaces: _kernel, step2,
+# step4, wdot and the cdf_matmul draw.
+REPLACES = {"lpcnet_sample": f"{JAX_SAMPLER}:87",
+            "lpcnet_sample_bunch2_sparse": f"{JAX_SAMPLER}:291",
+            "lpcnet_sample_bunch2_sparse_int8": f"{JAX_SAMPLER}:142",
+            "lpcnet_sample_bunch4": f"{JAX_SAMPLER}:334",
+            "lpcnet_sample_bunch4_cdf_mm": f"{JAX_SAMPLER}:241"}
+
+
+T_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def toolchain():
@@ -154,61 +191,24 @@ def numerics():
 
 
 def vocoder(bunch: int, sparse: bool, seed: int, dev):
-    """A full-width vocoder from a seeded generator: bunch=1 with GRU_B
-    16, bunch=2 with GRU_B 32; GRU_A sparsified at DENSITY in
-    SPARSE_BLOCK blocks when `sparse`."""
+    """A full-width vocoder from a seeded generator, GRU_B 16 * bunch
+    (16, 32, 64); GRU_A sparsified at DENSITY in SPARSE_BLOCK blocks
+    when `sparse`."""
     cfg = lpcnet.LPCNetConfig(gru_b_units=16 * bunch)
-    gen = torch.Generator().manual_seed(seed)
-    if bunch == 2:
-        model = lpcnet_bunched.BunchedLPCNet(cfg, gen)
-        if sparse:
-            lpcnet_bunched.sparsify_gru_a(model, DENSITY, SPARSE_BLOCK)
-    else:
-        model = lpcnet.LPCNet(cfg, gen)
-        if sparse:
-            lpcnet.sparsify_gru_a(model, DENSITY, SPARSE_BLOCK)
+    model = lpcnet_bunched.VOCODERS[bunch](cfg,
+                                           torch.Generator().manual_seed(seed))
+    if sparse:
+        lpcnet.sparsify_gru_a(getattr(model, "base", model), DENSITY,
+                              SPARSE_BLOCK)
     return model.to(dev)
 
 
-def _swap_excitations(ops, meta):
-    """GRU_A's weights on emb(e_p2) and emb(e_p1) swapped: the sampler
-    that feeds the two previous excitations in the wrong order."""
-    e = meta.e_dim
-    w = ops.wiemb_t.clone()
-    w[2 * e:3 * e], w[3 * e:4 * e] = (ops.wiemb_t[3 * e:4 * e],
-                                      ops.wiemb_t[2 * e:3 * e])
-    return ops._replace(wiemb_t=w), meta
-
-
-def _drop_block(ops, meta):
-    """The pattern without the last block of its fullest row block."""
-    pattern = list(meta.pattern)
-    row = max(range(len(pattern)), key=lambda r: len(pattern[r]))
-    pattern[row] = pattern[row][:-1]
-    return ops, dataclasses.replace(meta, pattern=tuple(pattern))
-
-
-def wrong_operands(meta):
-    """The kernel runs that must fail the replay, for the form of meta:
-    {what: (ops, meta) -> (wrong ops, wrong meta)}."""
-    wrong = {
-        "no GRU_A recurrent product": lambda o, m: (
-            o._replace(wh_a_t=torch.zeros_like(o.wh_a_t)), m),
-        "LPC history reversed": lambda o, m: (
-            o._replace(lpc_rev=o.lpc_rev.flip(-1).contiguous()), m)}
-    if meta.bunch == 2:
-        wrong["head 2 zeroed"] = lambda o, m: (
-            o._replace(fch_t=torch.zeros_like(o.fch_t)), m)
-        wrong["e_p2 and e_p1 swapped"] = _swap_excitations
-    if meta.pattern is not None and meta.dtype == torch.float32:
-        # one of the flagship's 22 live blocks moves the cdf by 2e-5 to
-        # 2e-3 of its total over two frames: past the f32 tolerance for
-        # every block, within bf16's for most
-        wrong["one live block dropped"] = _drop_block
-    return wrong
-
-
-FORMS = [(1, False), (2, False), (2, True), (1, True)]
+# (bunch, sparse GRU_A, int8 weights, cdf as a product)
+FORMS = [(1, False, False, False), (2, False, False, False),
+         (2, True, False, False), (1, True, False, False),
+         (4, False, False, False), (4, True, False, False),
+         (1, True, True, False), (2, True, True, False),
+         (4, False, True, False), (4, False, False, True)]
 
 
 def short_window(dev):
@@ -225,16 +225,16 @@ def short_window(dev):
     periods = t(rng.randint(32, 256, (b, frames)), torch.int32)
     lpc = t(rng.randn(b, frames, 16) * 0.05)
     u = t(rng.uniform(size=(frames, b, C.FRAME_SIZE)))
-    for bunch, sparse in FORMS:
+    for bunch, sparse, w8, cdf_mm in FORMS:
         model = vocoder(bunch, sparse, seed=1, dev=dev)
         pattern = lpcnet_sampler.auto_block_pattern(model)
         if (pattern is not None) != sparse:
             raise RuntimeError(f"auto_block_pattern gave {pattern} for a "
                                f"{'sparse' if sparse else 'dense'} GRU_A")
         for dtype in (torch.float32, torch.bfloat16):
-            ops, meta = lpcnet_sampler.prepare(model, feat, periods, lpc, u,
-                                               dtype=dtype,
-                                               gru_a_pattern=pattern)
+            ops, meta = lpcnet_sampler.prepare(
+                model, feat, periods, lpc, u, dtype=dtype,
+                gru_a_pattern=pattern, weights_int8=w8, cdf_matmul=cdf_mm)
             name = lpcnet_sampler.kernel_name(meta)
             got, trace = lpcnet_sampler.sample(ops, meta, trace=True)
             torch.cuda.synchronize()
@@ -247,7 +247,7 @@ def short_window(dev):
             print(f"{name} {dtype}: {report}; free-running first flips "
                   f"{flips}, max |kernel - plain| before them {err:.3g} "
                   f"(min_clean {min_clean}): ok")
-            for what, make in wrong_operands(meta).items():
+            for what, make in sampler_faults.wrong_operands(meta).items():
                 r = lpcnet_sampler.replay_plain(
                     ops, meta, *lpcnet_sampler.sample(*make(ops, meta),
                                                       trace=True))
@@ -391,13 +391,13 @@ def _check_symbols(stream, artifacts, written):
 
 
 def main_path(dev, work: str, overrides, frames: int, sparse: bool,
-              tag: str):
-    """decode_file on N_UTT x frames of random symbols at full width;
+              tag: str, n_utt: int = N_UTT):
+    """decode_file on n_utt x frames of random symbols at full width;
     the launch counts are reset just before and read just after."""
-    phase(f"main path ({tag}): decode_file, {N_UTT} x {frames} frames, "
+    phase(f"main path ({tag}): decode_file, {n_utt} x {frames} frames, "
           "full width")
     cfg = _config(overrides, "")
-    stream, cb_path, written = _write_stream(work, cfg, N_UTT, frames, tag)
+    stream, cb_path, written = _write_stream(work, cfg, n_utt, frames, tag)
     cfg = _config(overrides, cb_path)
     artifacts, model = _artifacts(cfg, dev, sparse)
     pattern = lpcnet_sampler.auto_block_pattern(model)
@@ -420,13 +420,17 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
                               device=dev, timings=timings)
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
-    name = lpcnet_sampler.KERNELS[(cfg.lpcnet.bunch, sparse)]
+    # the form JAX's decoder takes: the cdf as a product above 128 items
+    name = lpcnet_sampler.KERNELS[(
+        cfg.lpcnet.bunch, sparse, False,
+        n_utt > lpcnet_sampler.CDF_MATMUL_ABOVE)]
     if launches.get(name, 0) < 1:
-        raise RuntimeError(f"the main path did not launch {name}")
+        raise RuntimeError(f"the main path did not launch {name}: "
+                           f"{launches}")
     if written:
         _check_symbols(stream, artifacts, written)
     wav = np.stack([r["wav"] for r in results])
-    if wav.shape != (N_UTT, frames * C.FRAME_SIZE):
+    if wav.shape != (n_utt, frames * C.FRAME_SIZE):
         raise RuntimeError(f"audio of shape {wav.shape}")
     audio_s = wav.size / C.SAMPLE_RATE
     print("phase seconds: " + ", ".join(
@@ -497,8 +501,12 @@ def _time_kernel(ops, meta, reps: int = 3) -> float:
 def bound(ops, meta, out: torch.Tensor):
     """The least time of the work on this card's published peaks:
     (ms, "operations" or "bytes", MACs per item and GRU step).  Counts
-    each input once, each output once, and of a block-sparse GRU_A only
-    its live blocks."""
+    each input once, each output once, of a block-sparse GRU_A only its
+    live blocks, and the products' MACs at the peak of meta.dtype (int8
+    weights meet activations of meta.dtype).  Each draw's prefix sum
+    over the levels is levels - 1 f32 adds, whether the kernel takes it
+    as a scan or as the product with a triangle of ones: the same
+    function, so both forms get the same bound."""
     n_emb = 2 * meta.bunch + 1
     ha, hb, e, lv = meta.ha, meta.hb, meta.e_dim, meta.levels
     if meta.pattern is None:
@@ -509,49 +517,70 @@ def bound(ops, meta, out: torch.Tensor):
         n_live = sum(len(c) for c in meta.pattern)
         live = n_live * rb * cb / (3 * ha * ha)
         rec = n_live * rb * cb
+    head_e = lpcnet_sampler.HEAD_EMBEDS[meta.bunch]
     macs = (3 * ha * n_emb * e + rec + 3 * hb * (ha + hb) + 2 * lv * hb
-            + (meta.bunch - 1) * 2 * lv * (hb + 2 * e))
+            + (meta.bunch - 1) * 2 * lv * (hb + head_e * e))
     steps = meta.batch * meta.frames * C.FRAME_SIZE // meta.bunch
     flops = 2.0 * macs * steps
+    adds = (lv - 1.0) * meta.batch * meta.frames * C.FRAME_SIZE
     nbytes = sum(x.numel() * x.element_size() for x in ops) \
         - (1.0 - live) * ops.wh_a_t.numel() * ops.wh_a_t.element_size() \
         + out.numel() * out.element_size()
-    t_ops = flops / PEAK_FLOPS[meta.dtype] * 1e3
+    t_mac = flops / PEAK_FLOPS[meta.dtype] * 1e3
+    t_add = adds / PEAK_FLOPS[torch.float32] * 1e3
+    # bf16 products and f32 adds run on different units
+    t_ops = t_mac + t_add if meta.dtype == torch.float32 \
+        else max(t_mac, t_add)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     print(f"{macs} MACs per item and GRU step, {steps} steps, {flops:.4g} "
-          f"FLOP, {nbytes:.0f} bytes")
+          f"FLOP, {adds:.4g} prefix-sum adds, {nbytes:.0f} bytes")
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", macs)
 
 
-def main_shape(dev, run, frames: int, other_forms=()):
-    """The main path's sampler operands, rebuilt as decode_file builds
-    them, through kernel and plain version; `other_forms` (bunch,
-    sparse) are timed on the same features for comparison."""
-    results, model = run["results"], run["vocoder"]
-    phase(f"kernel vs plain at the main path's shape ({run['name']}, "
-          f"B={N_UTT}, {frames} frames)")
+def _features(dev, results, frames: int):
+    """The main path's sampler inputs, rebuilt from its decoded features
+    as decode_file builds them: (coded, periods, lpc, raw corr, u)."""
     coded = torch.as_tensor(np.stack([r["coded"] for r in results]),
                             device=dev)
     lpc = torch.as_tensor(np.stack([r["lpc"] for r in results]), device=dev)
     coded_un = coded * C.MAXI
     periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)
-    u = torch.rand((frames, N_UTT, C.FRAME_SIZE),
+    u = torch.rand((frames, len(results), C.FRAME_SIZE),
                    generator=torch.Generator(device=dev).manual_seed(0),
                    device=dev)
+    return coded, periods, lpc, coded_un[..., 19], u
 
-    def operands(m, pattern, dtype):
-        return lpcnet_sampler.prepare(m, coded, periods, lpc, u,
-                                      corr=coded_un[..., 19], dtype=dtype,
-                                      gru_a_pattern=pattern)
 
-    for dtype in (torch.float32, torch.bfloat16):
-        ops, meta = operands(model, run["pattern"], dtype)
+def main_shape(dev, run, frames: int, other_forms=(),
+               dtypes=(torch.float32, torch.bfloat16), **options):
+    """The main path's sampler operands, rebuilt as decode_file builds
+    them (with `options` for prepare), through kernel and plain version;
+    the last of `dtypes` is the one timed.  `other_forms` (bunch, sparse,
+    int8, cdf as a product) are timed on the same features: the main
+    path's vocoder where bunch and sparsity are its own, else a seeded
+    one."""
+    results, model = run["results"], run["vocoder"]
+    n = len(results)
+    phase(f"kernel vs plain at the main path's shape ({run['name']}, "
+          f"B={n}, {frames} frames)")
+    coded, periods, lpc, corr, u = _features(dev, results, frames)
+
+    def operands(m, pattern, dtype, **kw):
+        return lpcnet_sampler.prepare(m, coded, periods, lpc, u, corr=corr,
+                                      dtype=dtype, gru_a_pattern=pattern,
+                                      **kw)
+
+    for dtype in dtypes:
+        ops, meta = operands(model, run["pattern"], dtype, **options)
+        if lpcnet_sampler.kernel_name(meta) != run["name"]:
+            raise RuntimeError(f"{lpcnet_sampler.kernel_name(meta)} is not "
+                               f"the main path's form {run['name']}")
         got, trace = lpcnet_sampler.sample(ops, meta, trace=True)
         torch.cuda.synchronize()
         r, report = _replay(ops, meta, got, trace)
         print(f"{dtype}: {report}")
-    # ops, meta, got and r are bf16's, the main path's dtype, from here on
+    # ops, meta, got and r are the last dtype's, the main path's, from here
     t0 = time.perf_counter()
     want = lpcnet_sampler.sample_plain(ops, meta)
     torch.cuda.synchronize()
@@ -565,18 +594,57 @@ def main_shape(dev, run, frames: int, other_forms=()):
     bound_ms, bound_by, _ = bound(ops, meta, got)
     print(f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms; bound "
           f"{bound_ms:.4f} ms ({bound_by})")
-    for bunch, sparse in other_forms:
-        m = vocoder(bunch, sparse, seed=3, dev=dev)
+    for bunch, sparse, w8, cdf_mm in other_forms:
+        own = (bunch == meta.bunch and sparse == (meta.pattern is not None))
+        m = model if own else vocoder(bunch, sparse, seed=3, dev=dev)
         o, mt = operands(m, lpcnet_sampler.auto_block_pattern(m),
-                         torch.bfloat16)
+                         meta.dtype, weights_int8=w8, cdf_matmul=cdf_mm)
         other_ms = _time_kernel(o, mt)
         other_bound, _, _ = bound(o, mt, got)
-        print(f"{lpcnet_sampler.kernel_name(mt)} on the same features: "
-              f"kernel {other_ms:.3f} ms, bound {other_bound:.4f} ms")
+        print(f"{lpcnet_sampler.kernel_name(mt)} on the same features"
+              f"{' and weights' if own else ''}: kernel {other_ms:.3f} ms, "
+              f"bound {other_bound:.4f} ms")
     return dict(name=run["name"], route="cuda", source=SOURCE,
                 replaces=REPLACES[run["name"]], launches=run["launches"],
                 max_abs_err=r.out_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def int8_path(dev, flagship, frames: int):
+    """lpcnet_sampler.generate(weights_int8=True), pallas_generate's
+    counterpart, on the flagship's decoded features and vocoder; the
+    launch counts are reset just before and read just after; then its
+    shape as main_shape, in bf16."""
+    n = len(flagship["results"])
+    phase(f"int8 weights: generate(weights_int8=True) at the flagship's "
+          f"shape, B={n}, {frames} frames")
+    model, pattern = flagship["vocoder"], flagship["pattern"]
+    coded, periods, lpc, corr, u = _features(dev, flagship["results"],
+                                             frames)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    y = lpcnet_sampler.generate(model, coded, periods, lpc, u, corr=corr,
+                                gru_a_pattern=pattern, weights_int8=True)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    name = lpcnet_sampler.KERNELS[(2, True, True, False)]
+    if launches.get(name, 0) < 1:
+        raise RuntimeError(f"generate(weights_int8=True) did not launch "
+                           f"{name}: {launches}")
+    again = lpcnet_sampler.sample(*lpcnet_sampler.prepare(
+        model, coded, periods, lpc, u, corr=corr, gru_a_pattern=pattern,
+        weights_int8=True))
+    if not torch.equal(y, again):
+        raise RuntimeError("generate() differs from sample(*prepare())")
+    if tuple(y.shape) != (n, frames * C.FRAME_SIZE) or \
+            not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"int8 audio of shape {tuple(y.shape)}, or not "
+                           "finite")
+    print(f"launches {launches}; audio peak {float(y.abs().max()):.4g}; "
+          "generate() gives sample(*prepare()) bit for bit")
+    run = dict(flagship, name=name, launches=launches[name])
+    return main_shape(dev, run, frames, dtypes=(torch.bfloat16,),
+                      weights_int8=True)
 
 
 def main() -> int:
@@ -592,11 +660,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
         run = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True, "flagship")
         rows.append(main_shape(dev, run, UTT_FRAMES,
-                               other_forms=[(2, False), (1, True)]))
+                               other_forms=[(2, False, False, False),
+                                            (1, True, False, False)]))
+        rows.append(int8_path(dev, run, UTT_FRAMES))
+        run = main_path(dev, work, BUNCH4, UTT_FRAMES, False, "bunch4")
+        rows.append(main_shape(dev, run, UTT_FRAMES,
+                               other_forms=[(4, True, False, False),
+                                            (4, False, True, False)]))
+        run = main_path(dev, work, BUNCH4, WIDE_FRAMES, False, "wide",
+                        n_utt=WIDE_UTT)
+        rows.append(main_shape(dev, run, WIDE_FRAMES,
+                               dtypes=(torch.bfloat16,),
+                               other_forms=[(4, False, False, False)]))
         run = main_path(dev, work, SLICE1, SLICE1_FRAMES, False, "slice1")
         rows.append(main_shape(dev, run, SLICE1_FRAMES))
         card_against_cpu(dev, work, FLAGSHIP, True, "flagship")
+        card_against_cpu(dev, work, BUNCH4, False, "bunch4")
         card_against_cpu(dev, work, SLICE1, False, "slice1")
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

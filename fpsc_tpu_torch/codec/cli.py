@@ -7,14 +7,16 @@
 Port of fpsc_tpu/codec/cli.py:54-117, 256-415 (decode only): unpack
 the symbols (range-coded, the default, or fixed-layout) -> closed-loop
 feature decode -> ceps2lpc -> frame-rate prologue -> the CUDA LPCNet
-sampler, bunch=1 or bunch=2 (lpcnet.bunch=2, with for example
-lpcnet.gru_b_units=32), dense or with GRU_A's block-sparse product where
-the checkpoint's recurrent weights are block-sparse.  Utterances are
-bucketed by frame count and each bucket runs as one batch.
+sampler, bunch=1, 2 or 4 (lpcnet.bunch=2 with for example
+lpcnet.gru_b_units=32; lpcnet.bunch=4 with lpcnet.gru_b_units=64), dense
+or with GRU_A's block-sparse product where the checkpoint's recurrent
+weights are block-sparse.  Utterances are bucketed by frame count and
+each bucket runs as one batch; a bucket of more than 128 utterances
+takes the sampler's cdf_matmul form, as the JAX decoder does.
 
 Not decoded yet, each refused with a ValueError: packetized streams
-with or without FEC (and so packet-loss concealment), rate presets
-other than `full`, and bunch=4 vocoders.
+with or without FEC (and so packet-loss concealment) and rate presets
+other than `full`.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
                                                    FramePredictorConfig)
-from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
-from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
+from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
+from fpsc_tpu_torch.models.lpcnet_bunched import VOCODERS
 from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.utils.device import resolve_device
@@ -89,19 +91,19 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
 
 
 def _load_vocoder(cfg: Config, device):
-    """LPCNet for lpcnet.bunch=1, BunchedLPCNet for 2."""
+    """LPCNet for lpcnet.bunch=1, BunchedLPCNet for 2, Bunched4LPCNet
+    for 4."""
     bunch = cfg.lpcnet.bunch
-    if bunch not in (1, 2):
-        raise ValueError(f"lpcnet.bunch={bunch}: the port's sampler runs "
-                         "bunch=1 and bunch=2 vocoders only")
+    if bunch not in VOCODERS:
+        raise ValueError(f"lpcnet.bunch={bunch}: the sampler runs "
+                         "bunch=1, bunch=2 and bunch=4 vocoders only")
     lcfg = LPCNetConfig(
         gru_a_units=cfg.lpcnet.gru_a_units,
         gru_b_units=cfg.lpcnet.gru_b_units,
         embed_dim=cfg.lpcnet.embed_dim,
         cond_units=cfg.lpcnet.cond_units)
     gen = torch.Generator().manual_seed(cfg.train.seed + 2)
-    vocoder = (BunchedLPCNet(lcfg, gen) if bunch == 2
-               else LPCNet(lcfg, gen))
+    vocoder = VOCODERS[bunch](lcfg, gen)
     if cfg.train.vocoder_model:
         payload = ckpt.load(ckpt.checkpoint_path(
             cfg.train.save_dir, cfg.train.vocoder_model,
@@ -241,8 +243,9 @@ def _synthesize(vocoder, coded, periods, lpc, corr, u,
                 dtype: torch.dtype, phases: _Phases) -> torch.Tensor:
     """Vocoder on the NORMALISED coded features, with the raw-scale
     correlation, unclipped.  A vocoder whose GRU_A recurrent weights
-    are block-sparse runs the kernel's sparse form, as the JAX decoder
-    does (auto_block_pattern)."""
+    are block-sparse runs the kernel's sparse form (auto_block_pattern),
+    and a bucket of more than 128 utterances its cdf product (prepare's
+    default), as the JAX decoder does."""
     ops, meta = lpcnet_sampler.prepare(
         vocoder, coded, periods, lpc, u, corr=corr, dtype=dtype,
         gru_a_pattern=lpcnet_sampler.auto_block_pattern(vocoder))

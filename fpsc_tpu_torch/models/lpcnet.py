@@ -89,7 +89,8 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def excitation_cdf(logits: torch.Tensor, temp: torch.Tensor,
-                   exp_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   exp_dtype: torch.dtype = torch.float32,
+                   matmul: bool = False) -> torch.Tensor:
     """(B, 256) logits and (B, 1) temperature -> (B, 256) unnormalised
     inclusive cdf; its last element is the total.
 
@@ -98,17 +99,22 @@ def excitation_cdf(logits: torch.Tensor, temp: torch.Tensor,
     inclusive Hillis-Steele log-step prefix sum, in the order of the
     JAX draw_excitation so that the f32 cdf is comparable bit for bit.
     exp_dtype=bfloat16 rounds exp's argument and result to bf16, the
-    cast points of the bf16 kernel.
+    cast points of the bf16 kernel.  matmul=True takes the prefix sum as
+    the f32 product with a triangle of ones, the sampler kernel's
+    cdf_matmul form (fpsc_tpu/ops/lpcnet_sampler.py:241-243): the same
+    sums in another order.
     """
     p = round_to(torch.exp(round_to(logits * temp, exp_dtype)), exp_dtype)
     z = p.sum(-1, keepdim=True)
     cdf = torch.clamp(p - 0.002 * z, min=0.0)
     n_lvl = cdf.shape[-1]
+    if matmul:
+        # cdf[k] = sum_j TRI[k, j] p[j], TRI lower-triangular ones
+        return cdf @ torch.triu(torch.ones((n_lvl, n_lvl), device=cdf.device))
     k = 1
     while k < n_lvl:
-        shifted = torch.zeros_like(cdf)
-        shifted[:, k:] = cdf[:, :-k]
-        cdf = cdf + shifted
+        # cdf[l] += cdf[l - k], zero below k
+        cdf = cdf + F.pad(cdf[:, :-k], (k, 0))
         k *= 2
     return cdf
 

@@ -1,45 +1,64 @@
 """Fused LPCNet sampler: frame-rate prologue, CUDA kernel, plain version.
 
-Port of fpsc_tpu/ops/lpcnet_sampler.py, bunch=1 and bunch=2, with a
-dense or a static block-sparse GRU_A recurrent matrix:
+Port of fpsc_tpu/ops/lpcnet_sampler.py in all its forms: bunch=1, 2 or
+4; a dense or a static block-sparse GRU_A recurrent matrix; bf16 (or
+f32) weights or int8 weights with per-output-row scales; the sampling
+cdf as a log-step scan or as a product with a triangle of ones:
 
 * `prepare` (pallas_prepare, 503-656): the conditioning network, the
   folded GRU input matmuls, the sharpening temperature, the weight
-  casts, and for a bunched model the head-2 dual FC `fch = [fc3; fc4]`.
-  Returns (operands, meta).
+  casts or int8 quantisation, and for a bunched model the head operand
+  `fch`.  Returns (operands, meta).
+* `quantize_rows_int8` / `dequantize_rows_int8` (417-434): symmetric
+  per-row int8, JAX's q and s bit for bit.
 * `derive_block_pattern` / `auto_block_pattern` (437-473): the live
   (rb, cb) blocks of GRU_A's recurrent matrix; a pattern goes into
   `prepare(gru_a_pattern=...)` and selects the kernel's sparse form.
 * `sample` (pallas_sample, 659-706): checks the operands and launches
   the hand-written CUDA kernel csrc/lpcnet_sampler.cu on a CUDA
   tensor; on a CPU tensor it runs `sample_plain`.  It never falls back
-  from the card to the CPU.
+  from the card to the CPU.  `generate` (pallas_generate, 709-761) is
+  `sample(*prepare(...))`.
 * `sample_plain`: the same arithmetic in plain PyTorch, a Python loop
-  over GRU steps vectorised over the batch.  The CPU tests run it, and
-  the card check holds the kernel against it: `replay_plain` drives it
-  with the kernel's decisions and checks every one of them.
+  over GRU steps vectorised over the batch (on the card, one frame of
+  it recorded as a CUDA graph and replayed frame by frame).  The CPU
+  tests run it, and the card check holds the kernel against it:
+  `replay_plain` drives it with the kernel's decisions and checks every
+  one of them.
 
 A bunch=2 step (`step2`, 291-332) runs the GRU chain once and draws two
 samples: head 1 is the dual FC on h_b, head 2 the dual FC `fch` on
 [h_b, emb(x1), emb(pred2)], where x1 is the first drawn sample and
 pred2 the LPC prediction after it.  GRU_A takes the embeddings of
-[hist[14], hist[15], e_p2, e_p1, pred1].  The sparse recurrent product
-(`recurrent_a`, 193-217) sums, per row block, the products of its live
-column blocks in pattern order.
+[hist[14], hist[15], e_p2, e_p1, pred1].  A bunch=4 step (`step4`,
+334-382) draws four: GRU_A takes [hist[12..15], e_hist[0..3], pred];
+sub-sample s = 1..3 recomputes pred after the history took x_{s-1} and
+runs head s on [h_b, emb(hist[15]), emb(hist[14]), emb(pred)] with rows
+(s-1)*512 ... of `fch`, whose blocks interleave the positions:
+[fc3_1; fc4_1; fc3_2; fc4_2; fc3_3; fc4_3].  The sparse recurrent
+product (`recurrent_a`, 193-217) sums, per row block, the products of
+its live column blocks in pattern order.
 
 Cast points follow the TPU kernel (bf16 build): cond_a/cond_b and the
-weights are bf16; the matmul operands e_cat, h_a, h_b and the head-2
-input are rounded to bf16 and the products accumulate in f32; biases
+weights are bf16; the matmul operands e_cat, h_a, h_b and the head
+inputs are rounded to bf16 and the products accumulate in f32; biases
 stay f32; exp takes the bf16-rounded logits*temp and its result is
 rounded to bf16.  dtype=float32 keeps everything in f32 for parity
-checks.  The uniforms come in explicitly as (L, B, 160) f32, the layout
-of the JAX samplers (a bunch=2 step takes u[2t] and u[2t+1]), so tests
-can feed JAX's random stream; the output is (B, L*160).
+checks.  With int8 weights (`wdot`, 142-148) each product is the f32
+sum of i8 weight times activation, multiplied by its output row's f32
+scale (in the sparse product after the column-block sum), then the bias
+is added; an embedding row is q * s in f32, then rounded to `dtype`.
+The cdf_matmul form (241-243) takes the prefix sum as TRI @ p in f32;
+by default it is on for more than 128 items (613).  The uniforms come in
+explicitly as (L, B, 160) f32, the layout of the JAX samplers (a bunched
+step takes u[bunch*t + s]), so tests can feed JAX's random stream; the
+output is (B, L*160).
 
 Internal operand layouts are the card's, not the TPU's feature-major
-ones: per-frame streams are (B, L, F), and the GRU_A and head-2 weights
+ones: per-frame streams are (B, L, F), and the GRU_A and head weights
 are stored k-major (transposed) so that one thread per output reads
-them coalesced.
+them coalesced.  int8 weights are quantised per output row in JAX's
+(R, C) layout first, and transposed after.
 """
 from __future__ import annotations
 
@@ -58,12 +77,26 @@ from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.utils.device import host_array
 
 SOURCE = "lpcnet_sampler.cu"
-# Launch counter names, one per form of the kernel: (bunch, sparse GRU_A).
-KERNELS = {(1, False): "lpcnet_sample",
-           (2, False): "lpcnet_sample_bunch2",
-           (1, True): "lpcnet_sample_sparse",
-           (2, True): "lpcnet_sample_bunch2_sparse"}
-KERNEL = KERNELS[(1, False)]
+# Embeddings into each further sub-sample's head: bunch=2 [x1, pred2],
+# bunch=4 [hist[15], hist[14], pred].
+HEAD_EMBEDS = {1: 0, 2: 2, 4: 3}
+# Above this many items the cdf is a product by default (pallas_prepare,
+# fpsc_tpu/ops/lpcnet_sampler.py:613).
+CDF_MATMUL_ABOVE = 128
+
+
+def _form_name(bunch: int, sparse: bool, w8: bool, cdf_mm: bool) -> str:
+    return ("lpcnet_sample" + (f"_bunch{bunch}" if bunch > 1 else "")
+            + ("_sparse" if sparse else "") + ("_int8" if w8 else "")
+            + ("_cdf_mm" if cdf_mm else ""))
+
+
+# Launch counter names, one per form of the kernel: (bunch, sparse GRU_A,
+# int8 weights, cdf as a product).
+KERNELS = {(b, s, w, c): _form_name(b, s, w, c) for b in HEAD_EMBEDS
+           for s in (False, True) for w in (False, True)
+           for c in (False, True)}
+KERNEL = KERNELS[(1, False, False, False)]
 
 Pattern = Tuple[Tuple[int, ...], ...]
 
@@ -77,34 +110,72 @@ class SamplerMeta:
     batch: int
     frames: int
     deemphasis: float
-    dtype: torch.dtype
+    dtype: torch.dtype       # the activations' precision (f32 or bf16)
     bunch: int = 1
     # live column blocks of each row block of GRU_A's (3Ha, Ha)
     # recurrent matrix, and the (rb, cb) block; None: dense
     pattern: Optional[Pattern] = None
     block: Optional[Tuple[int, int]] = None
+    w8: bool = False         # int8 weights with per-row f32 scales
+    cdf_mm: bool = False     # the cdf as TRI @ p, not the log-step scan
 
 
 class SamplerOperands(NamedTuple):
+    """W below is the weights' type: int8 with `w8`, else `dtype`."""
     cond_a: torch.Tensor     # (B, L, 3Ha) dtype, GRU_A input bias folded
     cond_b: torch.Tensor     # (B, L, 3Hb) dtype, GRU_B input bias folded
     lpc_rev: torch.Tensor    # (B, L, 16)  f32, reversed coefficients
     temp: torch.Tensor       # (B, L)      f32, sharpening temperature
     u: torch.Tensor          # (L, B, 160) f32 uniforms
-    emb: torch.Tensor        # (levels, E) dtype, mu-law embedding
-    wiemb_t: torch.Tensor    # (nE, 3Ha)   dtype, GRU_A embedding weights^T,
+    emb: torch.Tensor        # (levels, E) W, mu-law embedding
+    wiemb_t: torch.Tensor    # (nE, 3Ha)   W, GRU_A embedding weights^T,
                              #             n = 2 * bunch + 1 embeddings
-    wh_a_t: torch.Tensor     # (Ha, 3Ha)   dtype, GRU_A recurrent weights^T
+    wh_a_t: torch.Tensor     # (Ha, 3Ha)   W, GRU_A recurrent weights^T
     bh_a: torch.Tensor       # (3Ha,)      f32
-    wi_b: torch.Tensor       # (3Hb, Ha)   dtype, GRU_B weights on h_a
-    wh_b: torch.Tensor       # (3Hb, Hb)   dtype
+    wi_b: torch.Tensor       # (3Hb, Ha)   W, GRU_B weights on h_a
+    wh_b: torch.Tensor       # (3Hb, Hb)   W
     bh_b: torch.Tensor       # (3Hb,)      f32
-    fc_w: torch.Tensor       # (2*levels, Hb) dtype, [fc1; fc2]
+    fc_w: torch.Tensor       # (2*levels, Hb) W, [fc1; fc2]
     fc_b: torch.Tensor       # (2*levels,) f32
     u2l: torch.Tensor        # (levels,)   f32 mu-law code -> linear
-    fch_t: torch.Tensor      # (Hb+2E, 2*levels) dtype, [fc3; fc4]^T;
-                             #             (0, 2*levels) for bunch=1
-    fch_b: torch.Tensor      # (2*levels,) f32; (0,) for bunch=1
+    fch_t: torch.Tensor      # (Hb+kE, 2*levels*(bunch-1)) W, the heads of
+                             #             the further sub-samples, k-major
+                             #             (k = HEAD_EMBEDS[bunch]); bunch=2
+                             #             [fc3; fc4]^T, bunch=4 the three
+                             #             [fc3_s; fc4_s] blocks side by
+                             #             side; (0, 2*levels) for bunch=1
+    fch_b: torch.Tensor      # (2*levels*(bunch-1),) f32
+    # int8 only, else (0,): f32 scales of the output rows of each weight
+    # in JAX's (R, C) layout (for the embedding, of its E dimensions)
+    s_emb: torch.Tensor      # (E,)
+    s_wiemb: torch.Tensor    # (3Ha,)
+    s_wh_a: torch.Tensor     # (3Ha,)
+    s_wi_b: torch.Tensor     # (3Hb,)
+    s_wh_b: torch.Tensor     # (3Hb,)
+    s_fc: torch.Tensor       # (2*levels,)
+    s_fch: torch.Tensor      # (2*levels*(bunch-1),)
+
+
+SCALES = ("s_emb", "s_wiemb", "s_wh_a", "s_wi_b", "s_wh_b", "s_fc",
+          "s_fch")
+
+
+def quantize_rows_int8(w: torch.Tensor):
+    """Symmetric per-output-row int8 quantisation of a (R, C) weight ->
+    (q int8 (R, C), scale f32 (R, 1)) with w ~= q * scale, JAX's
+    quantize_rows_int8 (fpsc_tpu/ops/lpcnet_sampler.py:417-429) bit for
+    bit: s = max|row| / 127 in f32 (1 / 127 for a zero row), q =
+    round(w / s) half to even, clipped to [-127, 127]."""
+    w = w.float()
+    a = w.abs().amax(dim=1, keepdim=True)
+    s = torch.where(a > 0, a, torch.ones_like(a)) / 127.0
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_rows_int8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The exact float view of quantize_rows_int8's output."""
+    return q.float() * s
 
 
 def u2l_table(levels: int, device) -> torch.Tensor:
@@ -164,14 +235,18 @@ def prepare(model, feat: torch.Tensor, periods: torch.Tensor,
             lpc: torch.Tensor, uniforms: torch.Tensor,
             corr: Optional[torch.Tensor] = None,
             deemphasis: float = 0.85, dtype: torch.dtype = torch.bfloat16,
-            gru_a_pattern=None):
-    """Frame-rate prologue.  model an LPCNet (bunch=1) or a
-    BunchedLPCNet (bunch=2); feat (B, L, 20) MAXI-normalised, periods
-    (B, L) int, lpc (B, L, 16), uniforms (L, B, 160) f32, corr (B, L)
-    raw-scale pitch correlation (default: feat[..., 19] * MAXI clipped
-    to [-0.5, 0.5]); gru_a_pattern (pattern, (rb, cb)) from
-    auto_block_pattern / derive_block_pattern, or None for the dense
-    recurrent product.  Returns (SamplerOperands, SamplerMeta)."""
+            gru_a_pattern=None, weights_int8: bool = False,
+            cdf_matmul: Optional[bool] = None):
+    """Frame-rate prologue.  model an LPCNet (bunch=1), a BunchedLPCNet
+    (bunch=2) or a Bunched4LPCNet (bunch=4); feat (B, L, 20)
+    MAXI-normalised, periods (B, L) int, lpc (B, L, 16), uniforms
+    (L, B, 160) f32, corr (B, L) raw-scale pitch correlation (default:
+    feat[..., 19] * MAXI clipped to [-0.5, 0.5]); gru_a_pattern
+    (pattern, (rb, cb)) from auto_block_pattern / derive_block_pattern,
+    or None for the dense recurrent product; weights_int8 stores every
+    sample-rate weight as int8 with per-output-row scales; cdf_matmul
+    takes the cdf as a product, None: for more than CDF_MATMUL_ABOVE
+    items.  Returns (SamplerOperands, SamplerMeta)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"sampler dtype must be float32 or bfloat16, "
                          f"not {dtype}")
@@ -182,9 +257,11 @@ def prepare(model, feat: torch.Tensor, periods: torch.Tensor,
                          f"{tuple(uniforms.shape)}")
     bunched = hasattr(model, "base")
     base = model.base if bunched else model
-    bunch = 2 if bunched else 1
-    n_emb = 2 * bunch + 1
     levels, e_dim = base.sample_emb.table.shape
+    # bunch=4 stacks three position heads row-wise (pallas_prepare 529)
+    bunch = ((4 if model.fc3.w.shape[0] == 3 * levels else 2) if bunched
+             else 1)
+    n_emb = 2 * bunch + 1
     ha, hb = base.gru_a.units, base.gru_b.units
     if gru_a_pattern is not None:
         _check_pattern(gru_a_pattern, ha)
@@ -198,51 +275,77 @@ def prepare(model, feat: torch.Tensor, periods: torch.Tensor,
     # no upper clamp: reference src/train.py:81
     temp = 1.0 + torch.clamp(1.5 * corr - 0.5, min=0.0)
 
-    def w(x):
-        return x.to(dtype).contiguous()
-
     f32 = torch.float32
     dev = feat.device
-    if bunched:
-        fch_t = w(torch.cat([model.fc3.w, model.fc4.w], dim=0).T)
-        fch_b = torch.cat([model.fc3.b, model.fc4.b]).to(f32).contiguous()
+
+    def f(x):
+        return x.to(f32).contiguous()
+
+    def weight(w_rc, transpose):
+        """A weight given in JAX's (R, C) layout -> (operand, scales):
+        quantised per row R before it is transposed, so that the scales
+        belong to the output rows."""
+        if weights_int8:
+            q, scale = quantize_rows_int8(w_rc)
+            return ((q.T if transpose else q).contiguous(),
+                    scale[:, 0].contiguous())
+        return ((w_rc.T if transpose else w_rc).to(dtype).contiguous(),
+                torch.empty((0,), dtype=f32, device=dev))
+
+    if bunch == 2:
+        fch_w = torch.cat([model.fc3.w, model.fc4.w], dim=0)
+        fch_b = torch.cat([model.fc3.b, model.fc4.b])
+    elif bunch == 4:
+        # interleave per position: block s-1 = [fc3_s; fc4_s] (631-638)
+        rows = [slice(s * levels, (s + 1) * levels) for s in range(3)]
+        fch_w = torch.cat([w for r in rows
+                           for w in (model.fc3.w[r], model.fc4.w[r])])
+        fch_b = torch.cat([v for r in rows
+                           for v in (model.fc3.b[r], model.fc4.b[r])])
+    emb, s_emb = weight(base.sample_emb.table.T, True)
+    wiemb_t, s_wiemb = weight(wi_a[:, :n_emb * e_dim], True)
+    wh_a_t, s_wh_a = weight(base.gru_a.wh, True)
+    wi_b_op, s_wi_b = weight(wi_b[:, :ha], False)
+    wh_b, s_wh_b = weight(base.gru_b.wh, False)
+    fc_w, s_fc = weight(torch.cat([base.fc1.w, base.fc2.w], dim=0), False)
+    if bunch > 1:
+        fch_t, s_fch = weight(fch_w, True)
     else:
-        fch_t = torch.empty((0, 2 * levels), dtype=dtype, device=dev)
-        fch_b = torch.empty((0,), dtype=f32, device=dev)
+        fch_t = torch.empty((0, 2 * levels), dtype=emb.dtype, device=dev)
+        fch_b = s_fch = torch.empty((0,), dtype=f32, device=dev)
     ops = SamplerOperands(
-        cond_a=w(cond_a), cond_b=w(cond_b),
-        lpc_rev=lpc.flip(-1).to(f32).contiguous(),
-        temp=temp.to(f32).contiguous(),
-        u=uniforms.to(f32).contiguous(),
-        emb=w(base.sample_emb.table),
-        wiemb_t=w(wi_a[:, :n_emb * e_dim].T),
-        wh_a_t=w(base.gru_a.wh.T),
-        bh_a=base.gru_a.bh.to(f32).contiguous(),
-        wi_b=w(wi_b[:, :ha]),
-        wh_b=w(base.gru_b.wh),
-        bh_b=base.gru_b.bh.to(f32).contiguous(),
-        fc_w=w(torch.cat([base.fc1.w, base.fc2.w], dim=0)),
-        fc_b=torch.cat([base.fc1.b, base.fc2.b]).to(f32).contiguous(),
-        u2l=u2l_table(levels, dev), fch_t=fch_t, fch_b=fch_b)
+        cond_a=cond_a.to(dtype).contiguous(),
+        cond_b=cond_b.to(dtype).contiguous(),
+        lpc_rev=f(lpc.flip(-1)), temp=f(temp), u=f(uniforms),
+        emb=emb, wiemb_t=wiemb_t, wh_a_t=wh_a_t, bh_a=f(base.gru_a.bh),
+        wi_b=wi_b_op, wh_b=wh_b, bh_b=f(base.gru_b.bh),
+        fc_w=fc_w, fc_b=f(torch.cat([base.fc1.b, base.fc2.b])),
+        u2l=u2l_table(levels, dev), fch_t=fch_t, fch_b=f(fch_b),
+        s_emb=s_emb, s_wiemb=s_wiemb, s_wh_a=s_wh_a, s_wi_b=s_wi_b,
+        s_wh_b=s_wh_b, s_fc=s_fc, s_fch=s_fch)
     pattern, block = (gru_a_pattern if gru_a_pattern is not None
                       else (None, None))
-    meta = SamplerMeta(ha=ha, hb=hb, e_dim=e_dim, levels=levels, batch=b,
-                       frames=length, deemphasis=float(deemphasis),
-                       dtype=dtype, bunch=bunch, pattern=pattern,
-                       block=block)
+    meta = SamplerMeta(
+        ha=ha, hb=hb, e_dim=e_dim, levels=levels, batch=b, frames=length,
+        deemphasis=float(deemphasis), dtype=dtype, bunch=bunch,
+        pattern=pattern, block=block, w8=bool(weights_int8),
+        cdf_mm=(b > CDF_MATMUL_ABOVE if cdf_matmul is None
+                else bool(cdf_matmul)))
     return ops, meta
 
 
 def kernel_name(meta: SamplerMeta) -> str:
     """The launch counter of the kernel form that runs `meta`."""
-    return KERNELS[(meta.bunch, meta.pattern is not None)]
+    return KERNELS[(meta.bunch, meta.pattern is not None, meta.w8,
+                    meta.cdf_mm)]
 
 
 def trace_width(bunch: int) -> int:
     """Decisions per GRU step in a trace: the 2*bunch+1 GRU_A embedding
     indices and the first drawn code, then for each further sample of
-    the bunch its two head embedding indices and its drawn code."""
-    return 2 * bunch + 2 + 3 * (bunch - 1)
+    the bunch its head embedding indices (HEAD_EMBEDS[bunch]) and its
+    drawn code: 4 at bunch=1, 9 at bunch=2, 22 at bunch=4."""
+    return 2 * bunch + 2 + (bunch - 1) * (HEAD_EMBEDS[bunch] + 1)
 
 
 class Replay(NamedTuple):
@@ -294,26 +397,32 @@ def _recurrent_a(wh_a_t: torch.Tensor, meta: SamplerMeta):
 
 class _ReplayCheck:
     """Takes another sampler's decisions in place of the plain
-    version's, counting where and how far they differ."""
+    version's, counting where and how far they differ.  The counts are
+    updated in place, so that a CUDA graph of a frame carries them."""
 
     def __init__(self, other_trace: torch.Tensor, levels: int):
-        self.other, self.levels = other_trace, levels
-        zero = torch.zeros((), device=other_trace.device)
-        self.draw_mis, self.draw_margin = zero.long(), zero
-        self.idx_mis, self.idx_margin = zero.long(), zero
+        self.other = other_trace
+        dev = other_trace.device
+        self.draw_mis, self.idx_mis = (
+            torch.zeros((), dtype=torch.long, device=dev) for _ in "di")
+        self.draw_margin, self.idx_margin = (
+            torch.zeros((), device=dev) for _ in "di")
+        # the linear interval that rounds to each mu-law index
+        code = torch.arange(levels, device=dev)
+        self.lo = torch.where(code > 0, u2l(code - 0.5) / 32768.0,
+                              -float("inf"))
+        self.hi = torch.where(code < levels - 1, u2l(code + 0.5) / 32768.0,
+                              float("inf"))
 
     def index(self, x, idx, other):
         """x (B, k) mu-law inputs, idx their indices, other the other
         sampler's indices."""
         other = other.long()
-        lo = torch.where(other > 0, u2l(other - 0.5) / 32768.0,
-                         -float("inf"))
-        hi = torch.where(other < self.levels - 1,
-                         u2l(other + 0.5) / 32768.0, float("inf"))
+        lo, hi = self.lo[other], self.hi[other]
         self.idx_mis += (other != idx).sum()
-        self.idx_margin = torch.maximum(self.idx_margin, (
+        torch.maximum(self.idx_margin, (
             torch.clamp(lo - x, min=0.0)
-            + torch.clamp(x - hi, min=0.0)).max())
+            + torch.clamp(x - hi, min=0.0)).max(), out=self.idx_margin)
         return other
 
     def draw(self, cdf, thresh, code, other):
@@ -322,91 +431,163 @@ class _ReplayCheck:
             1, (other - 1).clamp(min=0)[:, None])[:, 0], 0.0)
         hi = cdf.gather(1, other[:, None])[:, 0]
         self.draw_mis += (other != code).sum()
-        self.draw_margin = torch.maximum(self.draw_margin, (
+        torch.maximum(self.draw_margin, (
             (torch.clamp(lo - thresh, min=0.0)
-             + torch.clamp(thresh - hi, min=0.0)) / cdf[:, -1]).max())
+             + torch.clamp(thresh - hi, min=0.0)) / cdf[:, -1]).max(),
+            out=self.draw_margin)
         return other
+
+
+def _run_frames(frame, frame_inputs, out, tr, frames: int, dev,
+                graph: bool = True) -> None:
+    """frame(*frame_inputs(f), out[:, f], tr[:, f]) for every frame f.
+
+    On the card, with `graph`, frame 0 runs as it is (which also warms
+    the libraries up), and the later frames replay a CUDA graph of one
+    frame, their streams copied into its inputs and its outputs copied
+    out: the same kernels on the same values, launched once a frame in
+    place of some hundred times a step, which bound the plain loop by
+    the host."""
+    def outs(f):
+        return [out[:, f], None if tr is None else tr[:, f]]
+
+    def copy(dst, src):
+        for d, s in zip(dst, src):
+            if d is not None:
+                d.copy_(s)
+
+    if dev.type != "cuda" or not graph or frames == 1:
+        for f in range(frames):
+            frame(*frame_inputs(f), *outs(f))
+        return
+    static_in = [None if x is None else x.clone() for x in frame_inputs(0)]
+    static_out = [None if x is None else x.clone() for x in outs(0)]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        frame(*static_in, *static_out)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    copy(outs(0), static_out)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        frame(*static_in, *static_out)
+    for f in range(1, frames):
+        copy(static_in, frame_inputs(f))
+        g.replay()
+        copy(outs(f), static_out)
 
 
 @torch.no_grad()
 def _plain(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False,
-           replay=None):
+           replay=None, graph: bool = True):
     dt, b, bunch, lv = meta.dtype, meta.batch, meta.bunch, meta.levels
-    n_emb = 2 * bunch + 1
+    n_emb, n_head = 2 * bunch + 1, HEAD_EMBEDS[bunch]
     steps = C.FRAME_SIZE // bunch
     width = trace_width(bunch)
     dev = ops.u.device
-    emb, wiemb_t = ops.emb.float(), ops.wiemb_t.float()
-    wi_b, wh_b, fc_w = ops.wi_b.float(), ops.wh_b.float(), ops.fc_w.float()
-    fch_t = ops.fch_t.float()
+    wiemb_t, fch_t = ops.wiemb_t.float(), ops.fch_t.float()
+    wi_b_t, wh_b_t = ops.wi_b.float().T, ops.wh_b.float().T
+    fc_w_t = ops.fc_w.float().T
     recurrent = _recurrent_a(ops.wh_a_t.float(), meta)
-    h_a = torch.zeros((b, meta.ha), device=dev)
-    h_b = torch.zeros((b, meta.hb), device=dev)
-    hist = torch.zeros((b, C.LPC_ORDER), device=dev)
-    e_prev = torch.zeros((b, bunch), device=dev)   # oldest first
-    prev_y = torch.zeros((b,), device=dev)
+    emb = ops.emb.float()
+    if meta.w8:
+        # an embedding row is q * s in f32, rounded to the activations'
+        # precision where it enters a product
+        emb = round_to(emb * ops.s_emb, dt)
+
+    def scaled(y, s):
+        """A product's output rows times their int8 scales."""
+        return y * s if meta.w8 else y
+
+    # the state carried from frame to frame, updated in place
+    state = [torch.zeros((b, meta.ha), device=dev),        # h_a
+             torch.zeros((b, meta.hb), device=dev),        # h_b
+             torch.zeros((b, C.LPC_ORDER), device=dev),    # history
+             torch.zeros((b, bunch), device=dev),          # e_prev, oldest 1st
+             torch.zeros((b,), device=dev)]                # prev_y
     out = torch.empty((b, meta.frames, C.FRAME_SIZE), device=dev)
-    if trace:
-        tr = torch.empty((b, meta.frames, steps, width), dtype=torch.int32,
-                         device=dev)
-    check = None
+    tr = torch.empty((b, meta.frames, steps, width), dtype=torch.int32,
+                     device=dev) if trace else None
+    check = other = None
     if replay is not None:
         other = replay[1].reshape(b, meta.frames, steps, width)
         check = _ReplayCheck(other, lv)
 
-    def indices(x, f, t, col):
+    def indices(x, other_t, col):
         idx = l2u_index(x * 32768.0)
         if check is not None:
-            idx = check.index(x, idx, other[:, f, t, col:col + x.shape[1]])
+            idx = check.index(x, idx, other_t[:, col:col + x.shape[1]])
         return idx
 
-    def draw(fcpre, temp, u_t, f, t, col):
+    def draw(fcpre, temp, u_t, other_t, col):
         logits = torch.tanh(fcpre[:, :lv]) + torch.tanh(fcpre[:, lv:])
-        cdf = excitation_cdf(logits, temp, exp_dtype=dt)
+        cdf = excitation_cdf(logits, temp, exp_dtype=dt, matmul=meta.cdf_mm)
         thresh = u_t * cdf[:, -1]
         code = (cdf < thresh[:, None]).sum(-1)
         if check is not None:
-            code = check.draw(cdf, thresh, code, other[:, f, t, col])
+            code = check.draw(cdf, thresh, code, other_t[:, col])
         return code
 
-    for f in range(meta.frames):
-        cond_a, cond_b = ops.cond_a[:, f].float(), ops.cond_b[:, f].float()
-        lpc, temp = ops.lpc_rev[:, f], ops.temp[:, f, None]
+    def frame_inputs(f):
+        """Frame f's streams: cond_a, cond_b, lpc, temp (B, 1), the
+        uniforms (B, 160), the other sampler's decisions or None."""
+        return [ops.cond_a[:, f].float(), ops.cond_b[:, f].float(),
+                ops.lpc_rev[:, f], ops.temp[:, f, None], ops.u[f],
+                None if other is None else other[:, f]]
+
+    def frame(cond_a, cond_b, lpc, temp, u_f, other_f, out_f, tr_f):
+        """One frame's GRU steps from `state`, into out_f (B, 160) and
+        tr_f (B, steps, width) or None; the state is updated in place."""
+        h_a, h_b, hist, e_prev, prev_y = state
         for t in range(steps):
+            other_t = None if other_f is None else other_f[:, t]
             pred = -(hist * lpc).sum(-1)
             idx = indices(torch.cat([hist[:, C.LPC_ORDER - bunch:], e_prev,
-                                     pred[:, None]], 1), f, t, 0)
+                                     pred[:, None]], 1), other_t, 0)
             e_cat = emb[idx].reshape(b, -1)
-            h_a = gate_update(e_cat @ wiemb_t + cond_a,
-                              recurrent(round_to(h_a, dt)) + ops.bh_a, h_a)
-            h_b = gate_update(round_to(h_a, dt) @ wi_b.T + cond_b,
-                              round_to(h_b, dt) @ wh_b.T + ops.bh_b, h_b)
+            h_a = gate_update(
+                scaled(e_cat @ wiemb_t, ops.s_wiemb) + cond_a,
+                scaled(recurrent(round_to(h_a, dt)), ops.s_wh_a) + ops.bh_a,
+                h_a)
+            h_b = gate_update(
+                scaled(round_to(h_a, dt) @ wi_b_t, ops.s_wi_b) + cond_b,
+                scaled(round_to(h_b, dt) @ wh_b_t, ops.s_wh_b) + ops.bh_b,
+                h_b)
             h_fc = round_to(h_b, dt)
-            fcpre = h_fc @ fc_w.T + ops.fc_b
+            fcpre = scaled(h_fc @ fc_w_t, ops.s_fc) + ops.fc_b
             decisions, es = [idx], []
             col = n_emb
             for s in range(bunch):
                 if s > 0:
-                    # head 2 on [h_b, emb(x1), emb(pred2)]
+                    # head s on [h_b, emb of the n_head - 1 newest
+                    # samples, newest first, emb(pred)], its row block
+                    # of fch
                     pred = -(hist * lpc).sum(-1)
-                    idx2 = indices(torch.stack([x, pred], 1), f, t, col)
-                    fcpre = torch.cat([h_fc, emb[idx2].reshape(b, -1)],
-                                      1) @ fch_t + ops.fch_b
+                    idx2 = indices(torch.cat([hist.flip(1)[:, :n_head - 1],
+                                              pred[:, None]], 1), other_t,
+                                   col)
+                    blk = slice((s - 1) * 2 * lv, s * 2 * lv)
+                    fcpre = scaled(
+                        torch.cat([h_fc, emb[idx2].reshape(b, -1)], 1)
+                        @ fch_t[:, blk], ops.s_fch[blk]) + ops.fch_b[blk]
                     decisions.append(idx2)
-                    col += 2
-                code = draw(fcpre, temp, ops.u[f, :, bunch * t + s], f, t,
-                            col)
+                    col += n_head
+                code = draw(fcpre, temp, u_f[:, bunch * t + s], other_t, col)
                 decisions.append(code[:, None])
                 col += 1
                 e = ops.u2l[code]
                 x = pred + e
                 hist = torch.cat([hist[:, 1:], x[:, None]], dim=1)
                 prev_y = x + meta.deemphasis * prev_y
-                out[:, f, bunch * t + s] = prev_y
+                out_f[:, bunch * t + s] = prev_y
                 es.append(e)
             e_prev = torch.stack(es, 1)
-            if trace:
-                tr[:, f, t] = torch.cat(decisions, 1).int()
+            if tr_f is not None:
+                tr_f[:, t] = torch.cat(decisions, 1).int()
+        for old, new in zip(state, (h_a, h_b, hist, e_prev, prev_y)):
+            old.copy_(new)
+
+    _run_frames(frame, frame_inputs, out, tr, meta.frames, dev, graph)
     out = out.reshape(b, -1)
     if check is not None:
         return Replay(out=out, out_err=float((replay[0] - out).abs().max()),
@@ -416,7 +597,7 @@ def _plain(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False,
                       index_mismatches=int(check.idx_mis),
                       index_margin=float(check.idx_margin),
                       indices=other[..., :n_emb].numel()
-                      + (bunch - 1) * 2 * other[..., 0].numel())
+                      + (bunch - 1) * n_head * other[..., 0].numel())
     return (out, tr.reshape(b, -1, width)) if trace else out
 
 
@@ -426,10 +607,11 @@ def sample_plain(ops: SamplerOperands, meta: SamplerMeta,
     with trace=True also its decisions, as the kernel gives them: a
     (B, L*160/bunch, trace_width(bunch)) int32 trace of, per GRU step,
     the mu-law indices of the GRU_A embeddings (bunch=1: previous
-    sample, previous excitation, prediction; bunch=2: the two previous
-    samples, the two previous excitations, the prediction) and the first
-    drawn code, and for bunch=2 then the indices of x1 and pred2 (the
-    head-2 embeddings) and the second drawn code.
+    sample, previous excitation, prediction; bunch=2 and 4: the bunch's
+    previous samples, its previous excitations, the prediction) and the
+    first drawn code, then for each further sub-sample the indices of
+    its head embeddings (bunch=2: x1, pred2; bunch=4: the newest sample,
+    the one before it, the prediction) and its drawn code.
 
     bf16 products are taken as f32 products of bf16-rounded values
     (`torch.matmul` on bf16 tensors would round its output to bf16,
@@ -494,33 +676,40 @@ def replay_faults(r: Replay, dtype: torch.dtype) -> list:
 
 
 def _check(ops: SamplerOperands, meta: SamplerMeta) -> None:
-    b, length = meta.batch, meta.frames
+    b, length, bunch = meta.batch, meta.frames, meta.bunch
     ha, hb, e, lv = meta.ha, meta.hb, meta.e_dim, meta.levels
-    if meta.bunch not in (1, 2):
-        raise ValueError(f"the sampler kernel runs bunch 1 or 2, not "
-                         f"{meta.bunch}")
+    if bunch not in HEAD_EMBEDS:
+        raise ValueError(f"the sampler kernel runs bunch 1, 2 or 4, not "
+                         f"{bunch}")
     if meta.pattern is not None:
         _check_pattern((meta.pattern, meta.block), ha)
-    head2 = meta.bunch == 2
+    heads = 2 * lv * (bunch - 1)
     shapes = {
         "cond_a": (b, length, 3 * ha), "cond_b": (b, length, 3 * hb),
         "lpc_rev": (b, length, C.LPC_ORDER), "temp": (b, length),
         "u": (length, b, C.FRAME_SIZE), "emb": (lv, e),
-        "wiemb_t": ((2 * meta.bunch + 1) * e, 3 * ha),
+        "wiemb_t": ((2 * bunch + 1) * e, 3 * ha),
         "wh_a_t": (ha, 3 * ha),
         "bh_a": (3 * ha,), "wi_b": (3 * hb, ha), "wh_b": (3 * hb, hb),
         "bh_b": (3 * hb,), "fc_w": (2 * lv, hb), "fc_b": (2 * lv,),
-        "u2l": (lv,), "fch_t": ((hb + 2 * e) * head2, 2 * lv),
-        "fch_b": (2 * lv * head2,)}
-    weights = {"cond_a", "cond_b", "emb", "wiemb_t", "wh_a_t", "wi_b",
-               "wh_b", "fc_w", "fch_t"}
+        "u2l": (lv,),
+        "fch_t": ((hb + HEAD_EMBEDS[bunch] * e) * (bunch > 1),
+                  max(heads, 2 * lv)),
+        "fch_b": (heads,)}
+    scales = dict(zip(SCALES, (e, 3 * ha, 3 * ha, 3 * hb, 3 * hb, 2 * lv,
+                               heads)))
+    shapes.update({k: (n * meta.w8,) for k, n in scales.items()})
+    weights = {"emb", "wiemb_t", "wh_a_t", "wi_b", "wh_b", "fc_w", "fch_t"}
+    w_dtype = torch.int8 if meta.w8 else meta.dtype
     dev = ops.u.device
     for name, want in shapes.items():
         x = getattr(ops, name)
         if tuple(x.shape) != want:
             raise ValueError(f"sampler operand {name}: shape "
                              f"{tuple(x.shape)}, expected {want}")
-        dtype = meta.dtype if name in weights else torch.float32
+        dtype = (w_dtype if name in weights
+                 else meta.dtype if name in ("cond_a", "cond_b")
+                 else torch.float32)
         if x.dtype != dtype:
             raise ValueError(f"sampler operand {name}: dtype {x.dtype}, "
                              f"expected {dtype}")
@@ -547,7 +736,8 @@ def _library():
     fn = lib.fpsc_lpcnet_sample
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] * 2 + [p] * 21
+        fn.argtypes = ([ctypes.c_int] * 4
+                       + [p] * (len(SamplerOperands._fields) + 4)
                        + [ctypes.c_int] * 8 + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
@@ -580,6 +770,7 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.count_launch(name)
         err = fn(int(meta.dtype == torch.bfloat16), meta.bunch,
+                 int(meta.w8), int(meta.cdf_mm),
                  *[x.data_ptr() for x in ops], *block_ptrs,
                  out.data_ptr(), tr.data_ptr() if trace else None,
                  meta.batch, meta.frames, meta.ha, meta.hb, meta.e_dim,
@@ -587,6 +778,23 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return (out, tr) if trace else out
+
+
+def generate(model, feat: torch.Tensor, periods: torch.Tensor,
+             lpc: torch.Tensor, uniforms: torch.Tensor,
+             corr: Optional[torch.Tensor] = None,
+             deemphasis: float = 0.85, dtype: torch.dtype = torch.bfloat16,
+             gru_a_pattern=None, weights_int8: bool = False,
+             cdf_matmul: Optional[bool] = None) -> torch.Tensor:
+    """The whole sampler, pallas_generate's counterpart
+    (fpsc_tpu/ops/lpcnet_sampler.py:709-761): sample(*prepare(...)) ->
+    (B, L*160) f32.  Takes an LPCNet, BunchedLPCNet or Bunched4LPCNet;
+    weights_int8 and cdf_matmul as in `prepare`, composing with every
+    bunch and with gru_a_pattern."""
+    return sample(*prepare(model, feat, periods, lpc, uniforms, corr=corr,
+                           deemphasis=deemphasis, dtype=dtype,
+                           gru_a_pattern=gru_a_pattern,
+                           weights_int8=weights_int8, cdf_matmul=cdf_matmul))
 
 
 def trajectory_flips(got: np.ndarray, want: np.ndarray,

@@ -60,6 +60,12 @@ class BunchedParams(NamedTuple):
     fc4: Any
 
 
+class Bunched4Params(NamedTuple):
+    base: Any
+    fc3: Any
+    fc4: Any
+
+
 class FramePredictorParams(NamedTuple):
     rnn1: Any
     rnn2: Any
@@ -75,6 +81,7 @@ _PARAM_CLASSES = {
     ("fpsc_tpu.models.gru", "GRUParams"): GRUParams,
     ("fpsc_tpu.models.lpcnet", "LPCNetParams"): LPCNetParams,
     ("fpsc_tpu.models.lpcnet_bunched", "BunchedParams"): BunchedParams,
+    ("fpsc_tpu.models.lpcnet_bunched", "Bunched4Params"): Bunched4Params,
     ("fpsc_tpu.models.frame_predictor", "FramePredictorParams"):
         FramePredictorParams,
 }

@@ -1,8 +1,9 @@
 """Carry JAX parameter trees over to the port's modules, by field name.
 
 A tree here is a nest of NamedTuples whose leaves are arrays: the JAX
-LPCNetParams / BunchedParams / FramePredictorParams / GRUParams /
-DenseParams / EmbeddingParams / Codebooks turned into numpy (for example with
+LPCNetParams / BunchedParams / Bunched4Params / FramePredictorParams /
+GRUParams / DenseParams / EmbeddingParams / Codebooks turned into numpy
+(for example with
 `jax.tree_util.tree_map(np.asarray, params)`), or the port-side
 containers a checkpoint unpickles into (train/checkpoint.py).  The
 port's modules name their parameters by the same field paths
@@ -22,7 +23,8 @@ from torch import nn
 from fpsc_tpu_torch.models.frame_predictor import (Codebooks, FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
-from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
+from fpsc_tpu_torch.models.lpcnet_bunched import (Bunched4LPCNet,
+                                                  BunchedLPCNet)
 
 _CONV = ("conv1", "conv2")
 
@@ -117,6 +119,12 @@ def bunched_from_params(tree: Any, device=None) -> BunchedLPCNet:
     """A JAX BunchedParams tree (bunch=2) as a BunchedLPCNet."""
     model = BunchedLPCNet(lpcnet_config(tree.base), _init_generator())
     return load_into(model, tree, "vocoder (bunch=2)").to(device)
+
+
+def bunched4_from_params(tree: Any, device=None) -> Bunched4LPCNet:
+    """A JAX Bunched4Params tree (bunch=4) as a Bunched4LPCNet."""
+    model = Bunched4LPCNet(lpcnet_config(tree.base), _init_generator())
+    return load_into(model, tree, "vocoder (bunch=4)").to(device)
 
 
 def predictor_from_params(tree: Any, device=None) -> FramePredictor:

@@ -6,6 +6,7 @@ request they raise: nothing carries on silently on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -27,3 +28,15 @@ def host_array(x) -> np.ndarray:
     """x as a numpy array on the host: a tensor on any device, or an
     array."""
     return np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """PyTorch's intra-op thread count set to n inside the block, and
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)

@@ -39,9 +39,19 @@ from fpsc_tpu_torch.models import lpcnet as tl
 from fpsc_tpu_torch.models import lpcnet_bunched as tlb
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
+from fpsc_tpu_torch.ops.sampler_faults import drop_block, reverse_excitations
 from fpsc_tpu_torch.train import weights
+from fpsc_tpu_torch.utils.device import torch_threads
 
-from test_torch_card import _drop_block, _swap_excitations
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
 
 B, FRAMES = 8, 2
 CFG = jl.LPCNetConfig(gru_a_units=32, gru_b_units=8, embed_dim=16,
@@ -275,11 +285,11 @@ def _head2_without_embeddings(o, m):
 # GRU_A's recurrent matrix is found in f32 only: in bf16 it moves the
 # cdf by less than the rounding the bf16 tolerance allows.
 WRONG = {
-    "e_p2 and e_p1 swapped": (_swap_excitations,
+    "e_p2 and e_p1 swapped": (reverse_excitations,
                               [torch.float32, torch.bfloat16]),
     "head 2 without the embeddings": (_head2_without_embeddings,
                                       [torch.float32, torch.bfloat16]),
-    "one live block dropped": (_drop_block, [torch.float32]),
+    "one live block dropped": (drop_block, [torch.float32]),
 }
 
 

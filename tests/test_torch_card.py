@@ -9,7 +9,10 @@ Weights come from a seeded torch.Generator, inputs from a seeded numpy
 RandomState, at the small geometry of tests/test_pallas_sampler.py
 (GRU_A 48, GRU_B 16, E 16, cond 24, B=8, 2 frames).  The bunched and
 block-sparse forms sparsify GRU_A at 0.5 in (16, 16) blocks: the 9
-forced diagonal blocks and 5 more of 27.
+forced diagonal blocks and 5 more of 27.  The faults of the bunch=4 and
+int8 forms are fpsc_tpu_torch.ops.sampler_faults', which chip_smoke.py
+runs too, so the card check and these tests hold the kernel to the same
+wrong samplers.
 """
 import dataclasses
 
@@ -19,12 +22,27 @@ import torch
 
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig, sparsify_gru_a
-from fpsc_tpu_torch.models.lpcnet_bunched import BunchedLPCNet
+from fpsc_tpu_torch.models.lpcnet_bunched import VOCODERS
 from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
+from fpsc_tpu_torch.ops.sampler_faults import (
+    drop_block, reverse_excitations, reverse_row_scales, scales_to_one,
+    swap_head_positions, swap_head_samples)
+from fpsc_tpu_torch.utils.device import torch_threads
 
 SMALL = LPCNetConfig(gru_a_units=48, gru_b_units=16, embed_dim=16,
                      cond_units=24)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
+
 DTYPES = [torch.float32, torch.bfloat16]
 
 # Samplers that are wrong in one part each, as operands or settings that
@@ -44,15 +62,22 @@ WRONG = {
 
 
 SPARSE_BLOCK = (16, 16)
-# (bunch, block-sparse GRU_A) of the kernel forms beyond bunch=1 dense
-FORMS = {"bunch2": (2, False), "bunch2_sparse": (2, True),
-         "sparse": (1, True)}
+# (bunch, block-sparse GRU_A, int8 weights, cdf as a product) of the
+# kernel forms beyond bunch=1 dense
+FORMS = {"bunch2": (2, False, False, False),
+         "bunch2_sparse": (2, True, False, False),
+         "sparse": (1, True, False, False),
+         "bunch4": (4, False, False, False),
+         "bunch4_sparse": (4, True, False, False),
+         "sparse_int8": (1, True, True, False),
+         "bunch2_sparse_int8": (2, True, True, False),
+         "bunch4_int8": (4, False, True, False),
+         "bunch4_cdf_mm": (4, False, False, True)}
 
 
 def _operands(dtype, b=8, frames=2, device="cpu", seed=0, bunch=1,
-              sparse=False):
-    gen = torch.Generator().manual_seed(seed)
-    model = BunchedLPCNet(SMALL, gen) if bunch == 2 else LPCNet(SMALL, gen)
+              sparse=False, w8=False, cdf_mm=False):
+    model = VOCODERS[bunch](SMALL, torch.Generator().manual_seed(seed))
     pattern = None
     if sparse:
         sparsify_gru_a(getattr(model, "base", model), 0.5, SPARSE_BLOCK)
@@ -67,23 +92,14 @@ def _operands(dtype, b=8, frames=2, device="cpu", seed=0, bunch=1,
                       t(rng.randint(32, 256, (b, frames)), torch.int32),
                       t(rng.randn(b, frames, 16) * 0.05),
                       t(rng.uniform(size=(frames, b, C.FRAME_SIZE))),
-                      dtype=dtype, gru_a_pattern=pattern)
+                      dtype=dtype, gru_a_pattern=pattern, weights_int8=w8,
+                      cdf_matmul=cdf_mm)
 
 
-def _swap_excitations(o, m):
-    e = m.e_dim
-    w = o.wiemb_t.clone()
-    w[2 * e:3 * e], w[3 * e:4 * e] = o.wiemb_t[3 * e:4 * e], \
-        o.wiemb_t[2 * e:3 * e]
-    return o._replace(wiemb_t=w), m
-
-
-def _drop_block(o, m):
-    """The pattern without the last block of its fullest row block."""
-    pattern = list(m.pattern)
-    row = max(range(len(pattern)), key=lambda r: len(pattern[r]))
-    pattern[row] = pattern[row][:-1]
-    return o, dataclasses.replace(m, pattern=tuple(pattern))
+def _form_operands(form, dtype, **kw):
+    bunch, sparse, w8, cdf_mm = FORMS[form]
+    return _operands(dtype, bunch=bunch, sparse=sparse, w8=w8,
+                     cdf_mm=cdf_mm, **kw)
 
 
 # Wrong samplers of the bunched and sparse forms: (form, what, how,
@@ -92,11 +108,27 @@ def _drop_block(o, m):
 WRONG_FORMS = [
     ("bunch2", "head 2 zeroed", lambda o, m: (
         o._replace(fch_t=torch.zeros_like(o.fch_t)), m), torch.bfloat16),
-    ("bunch2", "e_p2 and e_p1 swapped", _swap_excitations, torch.bfloat16),
-    ("bunch2_sparse", "e_p2 and e_p1 swapped", _swap_excitations,
+    ("bunch2", "e_p2 and e_p1 swapped", reverse_excitations,
      torch.bfloat16),
-    ("bunch2_sparse", "one live block dropped", _drop_block, torch.float32),
-    ("sparse", "one live block dropped", _drop_block, torch.float32),
+    ("bunch2_sparse", "e_p2 and e_p1 swapped", reverse_excitations,
+     torch.bfloat16),
+    ("bunch2_sparse", "one live block dropped", drop_block, torch.float32),
+    ("sparse", "one live block dropped", drop_block, torch.float32),
+    ("bunch4", "head embeddings of hist[15] and hist[14] swapped",
+     swap_head_samples, torch.bfloat16),
+    ("bunch4", "head positions 1 and 2 swapped", swap_head_positions,
+     torch.bfloat16),
+    ("bunch4", "previous excitations reversed", reverse_excitations,
+     torch.bfloat16),
+    ("bunch4_cdf_mm", "head positions 1 and 2 swapped",
+     swap_head_positions, torch.bfloat16),
+    ("bunch4_sparse", "one live block dropped", drop_block, torch.float32),
+    ("bunch4_int8", "GRU_B input scales set to 1", scales_to_one("wi_b"),
+     torch.bfloat16),
+    ("bunch2_sparse_int8", "head 2 scales set to 1", scales_to_one("fch"),
+     torch.bfloat16),
+    ("sparse_int8", "GRU_A recurrent row scales reversed",
+     reverse_row_scales, torch.float32),
 ]
 
 
@@ -137,14 +169,42 @@ def test_wrapper_checks_bunched_and_sparse_operands():
                                            pattern=meta.pattern[:-1]))
     with pytest.raises(ValueError, match="does not tile"):
         ts.sample(ops, dataclasses.replace(meta, block=(10, 16)))
-    with pytest.raises(ValueError, match="bunch 1 or 2"):
-        ts.sample(ops, dataclasses.replace(meta, bunch=4))
+    with pytest.raises(ValueError, match="bunch 1, 2 or 4"):
+        ts.sample(ops, dataclasses.replace(meta, bunch=3))
+
+
+def test_wrapper_checks_bunch4_and_int8_operands():
+    ops, meta = _form_operands("bunch4", torch.float32)
+    assert (meta.bunch, ts.trace_width(4)) == (4, 22)
+    assert ops.fch_t.shape == (16 + 3 * 16, 3 * 512)
+    with pytest.raises(ValueError, match="fch_t: shape"):
+        ts.sample(ops._replace(fch_t=ops.fch_t[:, :1024].contiguous()), meta)
+    with pytest.raises(ValueError, match="fch_b: shape"):
+        ts.sample(ops._replace(fch_b=ops.fch_b[:512].contiguous()), meta)
+    with pytest.raises(ValueError, match="wiemb_t: shape"):
+        ts.sample(ops, dataclasses.replace(meta, bunch=2))
+    with pytest.raises(ValueError, match="emb: dtype"):
+        ts.sample(ops, dataclasses.replace(meta, w8=True))
+    ops, meta = _form_operands("bunch4_int8", torch.bfloat16)
+    with pytest.raises(ValueError, match="s_emb: shape"):
+        ts.sample(ops._replace(s_emb=torch.empty(0)), meta)
+    assert ops.wh_a_t.dtype == torch.int8 and ops.cond_a.dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="wh_a_t: dtype"):
+        ts.sample(ops._replace(wh_a_t=ops.wh_a_t.to(torch.bfloat16)), meta)
+    with pytest.raises(ValueError, match="s_fch: shape"):
+        ts.sample(ops._replace(s_fch=ops.s_fch[:512].contiguous()), meta)
+    with pytest.raises(ValueError, match="s_wh_a: dtype"):
+        ts.sample(ops._replace(s_wh_a=ops.s_wh_a.double()), meta)
+    with pytest.raises(ValueError, match="emb: dtype"):
+        ts.sample(ops, dataclasses.replace(meta, w8=False))
+    assert ts.kernel_name(meta) == "lpcnet_sample_bunch4_int8"
 
 
 @pytest.mark.parametrize("form", list(FORMS))
 def test_wrapper_on_cpu_runs_plain_version_of_each_form(form):
-    bunch, sparse = FORMS[form]
-    ops, meta = _operands(torch.float32, bunch=bunch, sparse=sparse)
+    bunch = FORMS[form][0]
+    ops, meta = _form_operands(form, torch.float32)
     build.reset_launch_counts()
     got, trace = ts.sample(ops, meta, trace=True)
     want, want_trace = ts.sample_plain(ops, meta, trace=True)
@@ -166,6 +226,17 @@ def test_replay_of_the_plain_version_itself(dtype):
             r.index_margin, r.out_err) == (8 * 2 * 160, 0, 0.0, 0, 0.0, 0.0)
     np.testing.assert_array_equal(r.out.numpy(), own.numpy())
     assert ts.replay_faults(r, dtype) == []
+
+
+@pytest.mark.parametrize("form,what,wrong,dtype", WRONG_FORMS,
+                         ids=[f"{f}-{w}" for f, w, _, _ in WRONG_FORMS])
+def test_replay_rejects_a_wrong_sampler_of_each_form(form, what, wrong,
+                                                     dtype):
+    """On the CPU, the plain version of a sampler wrong in one part of a
+    bunched, sparse, int8 or cdf-product form fails the replay."""
+    ops, meta = _form_operands(form, dtype)
+    other = ts.sample_plain(*wrong(ops, meta), trace=True)
+    assert ts.replay_faults(ts.replay_plain(ops, meta, *other), dtype)
 
 
 @pytest.mark.parametrize("wrong", list(WRONG))
@@ -211,6 +282,27 @@ def test_kernel_matches_plain_version(cuda_device, dtype, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", ["bunch2_sparse", "bunch4_cdf_mm"])
+def test_plain_version_under_a_cuda_graph_is_the_op_by_op_one(cuda_device,
+                                                              form, dtype):
+    """On the card the plain version replays a CUDA graph of one frame
+    from the second frame on: its outputs, decisions and replay counts
+    are those of the same loop launched op by op."""
+    ops, meta = _form_operands(form, dtype, frames=3, device=cuda_device)
+    got, trace = ts.sample_plain(ops, meta, trace=True)
+    want, want_trace = ts._plain(ops, meta, trace=True, graph=False)
+    assert torch.equal(got, want) and torch.equal(trace, want_trace)
+    wrong = reverse_excitations(ops, meta)
+    other = ts._plain(*wrong, trace=True, graph=False)
+    r = ts.replay_plain(ops, meta, *other)
+    r_ops = ts._plain(ops, meta, replay=other, graph=False)
+    assert torch.equal(r.out, r_ops.out)
+    assert r._replace(out=None) == r_ops._replace(out=None)
+    assert r.draw_mismatches > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wrong", list(WRONG))
 def test_kernel_on_wrong_operands_fails_the_replay(cuda_device, wrong):
     ops, meta = _operands(torch.bfloat16, device=cuda_device)
@@ -224,11 +316,9 @@ def test_kernel_on_wrong_operands_fails_the_replay(cuda_device, wrong):
 @pytest.mark.parametrize("form", list(FORMS))
 def test_bunched_and_sparse_kernels_match_plain_version(cuda_device, form,
                                                        dtype):
-    """As test_kernel_matches_plain_version, for the bunch=2 dense and
-    block-sparse forms and the bunch=1 block-sparse form."""
-    bunch, sparse = FORMS[form]
-    ops, meta = _operands(dtype, device=cuda_device, bunch=bunch,
-                          sparse=sparse)
+    """As test_kernel_matches_plain_version, for every form beyond
+    bunch=1 dense (FORMS)."""
+    ops, meta = _form_operands(form, dtype, device=cuda_device)
     build.reset_launch_counts()
     got, trace = ts.sample(ops, meta, trace=True)
     torch.cuda.synchronize()
@@ -247,8 +337,6 @@ def test_bunched_and_sparse_kernels_match_plain_version(cuda_device, form,
                          ids=[f"{f}-{w}" for f, w, _, _ in WRONG_FORMS])
 def test_bunched_and_sparse_kernels_on_wrong_operands_fail_the_replay(
         cuda_device, form, what, wrong, dtype):
-    bunch, sparse = FORMS[form]
-    ops, meta = _operands(dtype, device=cuda_device, bunch=bunch,
-                          sparse=sparse)
+    ops, meta = _form_operands(form, dtype, device=cuda_device)
     other = ts.sample(*wrong(ops, meta), trace=True)
     assert ts.replay_faults(ts.replay_plain(ops, meta, *other), dtype)

@@ -33,6 +33,9 @@ vocoder whose GRU_A recurrent matrix is block-sparse (GRU_A 128, so
 that (64, 64) blocks leave auto_block_pattern a pattern; GRU_B 8).
 The port decodes it through the block-sparse bunch=2 sampler, JAX's
 CPU decoder through lpcnet_bunched.generate (dense), the same function.
+The same container decoded through a bunch=4 vocoder (a JAX
+init_bunched4 checkpoint, block-sparse, saved beside the first) takes
+the bunch=4 sampler, and JAX's CPU decoder lpcnet_bunched.generate4.
 """
 import os
 import pickle
@@ -66,10 +69,22 @@ from fpsc_tpu_torch.codec import range_coder as trc
 from fpsc_tpu_torch.config.config import Config as TConfig
 from fpsc_tpu_torch.config.config import apply_overrides as tapply
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.models.lpcnet_bunched import Bunched4LPCNet
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
 from fpsc_tpu_torch.train import checkpoint as tckpt
+from fpsc_tpu_torch.utils.device import torch_threads
 
 from test_file_codec import TINY, _write_artifacts, _write_wav
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -249,6 +264,55 @@ def test_decode_file_matches_jax_on_the_flagship_stream(flagship_stream):
         assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
 
 
+def test_decode_file_matches_jax_at_bunch_4(flagship_stream):
+    """The flagship's container decoded at lpcnet.bunch=4 through a
+    block-sparse bunch=4 vocoder from a JAX checkpoint (the unpickler's
+    Bunched4Params): JAX's coded features and LPC, and audio under the
+    trajectory contract against generate4, JAX's CPU sampler."""
+    tmp = flagship_stream["tmp"]
+    voc4 = jlb.sparsify_gru_a4(jlb.init_bunched4(
+        jax.random.PRNGKey(14),
+        jlpcnet.LPCNetConfig(gru_a_units=128, gru_b_units=8, embed_dim=16,
+                             cond_units=16)), 0.2, block=(64, 64))
+    jckpt.save(jckpt.checkpoint_path(str(tmp / "runs"), "voc4", 1), voc4,
+               opt_state=optax.adam(1e-3).init(voc4), step=3)
+    overrides = flagship_stream["overrides"] + [
+        "lpcnet.bunch=4", "train.vocoder_model=voc4"]
+    jcfg = japply(JConfig(), overrides)
+    *arts, jvoc = jcli.load_artifacts(jcfg, need_vocoder=True)
+    assert isinstance(jvoc, jlb.Bunched4Params)
+    want = jcli.decode_file(jcfg, flagship_stream["path"],
+                            str(tmp / "jax_wav4"), use_pallas=False,
+                            artifacts=arts, vocoder_params=jvoc)
+    cfg = tapply(TConfig(), overrides)
+    *artifacts, vocoder = tcli.load_artifacts(cfg, need_vocoder=True,
+                                              device="cpu")
+    assert isinstance(vocoder, Bunched4LPCNet)
+    pattern = ts.auto_block_pattern(vocoder)
+    assert pattern is not None and pattern[1] == (64, 64)
+    got = tcli.decode_file(cfg, flagship_stream["path"],
+                           str(tmp / "port_wav4"), artifacts=artifacts,
+                           vocoder=vocoder, device="cpu",
+                           uniforms=_jax_uniforms)
+    assert [g["name"] for g in got] == [w["name"] for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
+                                   atol=1e-5)
+        _, lpc, _ = jceps.ceps2lpc(jnp.asarray(g["coded"][:, :18] * C.MAXI))
+        np.testing.assert_allclose(g["lpc"], np.asarray(lpc), rtol=1e-4,
+                                   atol=1e-3)
+        coded_un = g["coded"][None] * C.MAXI
+        periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).astype(np.int32)
+        ref = np.asarray(jlb.generate4(
+            jvoc, jnp.asarray(g["coded"][None]), jnp.asarray(periods),
+            jnp.asarray(g["lpc"][None]), jax.random.PRNGKey(0),
+            corr=jnp.asarray(coded_un[..., 19])))
+        assert g["wav"].shape == w["wav"].shape == ref[0].shape
+        flips, _ = ts.trajectory_flips(g["wav"][None], ref,
+                                       atol=1e-5 * np.abs(ref).max())
+        assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
+
+
 def test_bitstream_and_container_match_jax(tmp_path):
     """The port's copies write JAX's bytes and read them back."""
     rng = np.random.RandomState(3)
@@ -312,9 +376,9 @@ def _port_stream(path, sizes, frames=3, **kw):
 TINY_SIZES = {"scl": 16, "scl_bl": 4, "vq": [32, 16], "vq_bl": [8]}
 
 
-def test_cli_main_decodes_a_range_coded_stream_at_bunch_2(tmp_path):
-    """The decode drive at the flagship's settings: a range-coded
-    container written by the port, lpcnet.bunch=2 on the command line."""
+def _range_coded_stream(tmp_path):
+    """A range-coded container of one utterance of random symbols,
+    written by the port -> (.fpsc path, codebook path)."""
     cb_path = _write_artifacts(tmp_path)
     rng = np.random.RandomState(4)
     frames = 3
@@ -330,10 +394,28 @@ def test_cli_main_decodes_a_range_coded_stream_at_bunch_2(tmp_path):
                                     orders=orders)
     path = str(tmp_path / "x.fpsc")
     tcontainer.write_fpsc(path, [("x", payload)], TINY_SIZES, entropy=True)
+    return path, cb_path
+
+
+def test_cli_main_decodes_a_range_coded_stream_at_bunch_2(tmp_path):
+    """The decode drive at the flagship's settings: a range-coded
+    container written by the port, lpcnet.bunch=2 on the command line."""
+    path, cb_path = _range_coded_stream(tmp_path)
     out = tmp_path / "wav"
     assert tcli.main(["decode", path, str(out), *TINY,
                       f"codec.codebook_path={cb_path}", "lpcnet.bunch=2",
                       "--device=cpu"]) == 0
+    assert (out / "x.wav").exists()
+
+
+def test_cli_main_decodes_a_range_coded_stream_at_bunch_4(tmp_path):
+    """The decode drive at bench.py's bunch4 settings: lpcnet.bunch=4
+    lpcnet.gru_b_units=64 on the command line."""
+    path, cb_path = _range_coded_stream(tmp_path)
+    out = tmp_path / "wav"
+    assert tcli.main(["decode", path, str(out), *TINY,
+                      f"codec.codebook_path={cb_path}", "lpcnet.bunch=4",
+                      "lpcnet.gru_b_units=64", "--device=cpu"]) == 0
     assert (out / "x.wav").exists()
 
 
@@ -353,7 +435,9 @@ def test_cli_main_decodes_on_cpu(tmp_path):
     (dict(entropy=True, packet_frames=5, fec=True), (), "packetized"),
     (dict(entropy=False, preset="lean"), (), "rate preset 'lean'"),
     (dict(entropy=False), ("codec.preset=lean",), "rate preset 'lean'"),
-    (dict(entropy=False), ("lpcnet.bunch=4",), "bunch=4"),
+    # bunch=3 is no vocoder; the refusal names those that run, up to
+    # bunch=4
+    (dict(entropy=False), ("lpcnet.bunch=3",), "bunch=4"),
 ])
 def test_decode_refuses_what_it_does_not_decode(tmp_path, container_kw,
                                                 cfg_extra, match):

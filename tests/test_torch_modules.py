@@ -28,6 +28,17 @@ from fpsc_tpu_torch.models import frame_predictor as tfp
 from fpsc_tpu_torch.models import gru as tgru
 from fpsc_tpu_torch.models import lpcnet as tlpcnet
 from fpsc_tpu_torch.train import weights
+from fpsc_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 

@@ -35,6 +35,17 @@ from fpsc_tpu.ops.lpcnet_sampler import pallas_generate, pallas_prepare
 
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
 from fpsc_tpu_torch.train import weights
+from fpsc_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
 
 B, FRAMES = 8, 2
 CASES = [(0, None), (1, 0.4), (2, 0.5)]
