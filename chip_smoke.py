@@ -46,31 +46,31 @@ exit and no result line:
    symbols, every frame's LPC synthesis filter must be stable
    (reflection coefficients inside (-1, 1)), and the audio must be
    finite, not silent, and peak below PEAK_LIMIT;
-5. kernel vs plain at the flagship's shape: the operands of its sampler
+6. kernel vs plain at the flagship's shape: the operands of its sampler
    call, rebuilt from its decoded features, in bf16 (as the main path
    runs) and in f32; every decision must pass the replay; the bf16
    kernel is timed with CUDA events against the free-running plain
    version (timed once), whose output must track each item up to its
    first flip; the bound of the work from its shapes; the other forms
    timed on the same inputs;
-6. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
+7. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
    weights_int8=True) on the flagship's features and vocoder must launch
    the bunch=2 sparse int8 form and give what sample(*prepare(...))
-   gives; then as 5, in bf16;
-7. the bunch=4 main path (bench.py's `bunch4` row, the configuration
-   scripts/validate_bunch4_recovery.py gates): as 4, 8 utterances of 2 s
+   gives; then as 6, in bf16;
+8. the bunch=4 main path (bench.py's `bunch4` row, the configuration
+   scripts/validate_bunch4_recovery.py gates): as 5, 8 utterances of 2 s
    (UTT_FRAMES), range-coded, with a bunch=4 vocoder at GRU_B 64, dense
-   GRU_A; then as 5, with the
+   GRU_A; then as 6, with the
    bunch=4 block-sparse form and the bunch=4 int8 form timed on the same
    features;
-8. the wide batch: as 7 for WIDE_UTT utterances of WIDE_FRAMES frames
+9. the wide batch: as 8 for WIDE_UTT utterances of WIDE_FRAMES frames
    in one bucket, which must launch the cdf_matmul form (JAX's default
-   above 128 items); then as 5 in bf16, with the scan form forced
+   above 128 items); then as 6 in bf16, with the scan form forced
    (cdf_matmul=False) timed on the same operands;
-9. the slice-1 main path: as 4, a fixed-layout container, a bunch=1
-   dense vocoder with GRU_B 16, at SLICE1_FRAMES frames; then as 5 for
+10. the slice-1 main path: as 5, a fixed-layout container, a bunch=1
+   dense vocoder with GRU_B 16, at SLICE1_FRAMES frames; then as 6 for
    its shape;
-10. decode_file on the card against decode_file on the CPU on small
+11. decode_file on the card against decode_file on the CPU on small
    inputs (2 x 20 frames), for the flagship, bunch=4 and slice-1
    configurations: the same coded features and LPC.
 
@@ -97,6 +97,8 @@ from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.ops import build, lpcnet_sampler, sampler_faults
+from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
+                                   probe_i8_matmul, probe_wide_store, timing)
 
 N_UTT, UTT_FRAMES = 8, 200
 # slice 1's path, cut in depth (200 frames in its own slice) to keep the
@@ -141,6 +143,29 @@ REPLACES = {"lpcnet_sample": f"{JAX_SAMPLER}:87",
             "lpcnet_sample_bunch2_sparse_int8": f"{JAX_SAMPLER}:142",
             "lpcnet_sample_bunch4": f"{JAX_SAMPLER}:334",
             "lpcnet_sample_bunch4_cdf_mm": f"{JAX_SAMPLER}:241"}
+
+
+# The probes: (module, geometry) as run, the script's defaults and the
+# draw at the wide bucket's batch; the arm of each probe that stands in
+# the kernels line, with the line of the TPU kernel it replaces
+PROBE_RUNS = [(probe_gates, probe_gates.DEFAULT),
+              (probe_draw_tail, probe_draw_tail.DEFAULT),
+              (probe_draw_tail, (256, probe_draw_tail.DEFAULT[1])),
+              (probe_wide_store, probe_wide_store.DEFAULT),
+              (probe_i8_matmul, probe_i8_matmul.DEFAULT)]
+PROBE_ROWS = {(probe_gates, "gates_f32"): ("probe_gates",
+                                           "scripts/probe_gates.py:42"),
+              (probe_draw_tail, "full"): ("probe_draw_tail",
+                                          "scripts/probe_draw_tail.py:53"),
+              (probe_wide_store, "per_row"): (
+                  "probe_wide_store", "scripts/probe_wide_store.py:39"),
+              (probe_i8_matmul, "bf16"): ("probe_i8_matmul_bf16",
+                                          "scripts/probe_i8_matmul.py:34"),
+              (probe_i8_matmul, "i8"): ("probe_i8_matmul_i8",
+                                        "scripts/probe_i8_matmul.py:43"),
+              (probe_i8_matmul, "onehot"): (
+                  "probe_i8_matmul_onehot", "scripts/probe_i8_matmul.py:89")}
+PLAIN_REPS = 3
 
 
 T_START = time.perf_counter()
@@ -188,6 +213,113 @@ def numerics():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+
+def _gates_library(ops):
+    """aten._thnn_fused_gru_cell on the gates' operands, in its (b, 3H)
+    layout and PyTorch's (r, z, n) row order -> a chain of `iters` calls.
+    One call is first held to the plain version's evaluation (rtol 1e-5,
+    atol 1e-6: the same f32 function, written as n + z (h - n))."""
+    pre, gh, h, iters = ops
+    hu = h.shape[0]
+
+    def rzn(x):
+        return torch.cat([x[hu:2 * hu], x[:hu], x[2 * hu:]]).T.contiguous()
+
+    ig, hg = rzn(pre), rzn(gh)
+
+    def cell(hx):
+        return torch.ops.aten._thnn_fused_gru_cell(ig, hg, hx)[0]
+
+    one = cell(h.T.contiguous()).T
+    torch.testing.assert_close(one, probe_gates._f32_step(pre, gh, h, hu),
+                               rtol=1e-5, atol=1e-6)
+
+    def chain():
+        hx = h.T.contiguous()
+        for _ in range(iters):
+            hx = cell(hx)
+        return hx
+    return chain
+
+
+def _product_library(arm, ops):
+    """One PyTorch call of the arm's product on the chain's first operands
+    (torch.matmul in bf16, torch._int_mm in int8, the one-hot operand as
+    int8), held to the plain version's f32 product of the same values (bf16:
+    within one bf16 step of its rounding; int8: exactly) -> a chain of
+    ITERS such calls."""
+    w, x = ops
+    if arm == "bf16":
+        rhs, fn = x.to(torch.bfloat16), torch.matmul
+    else:
+        make = probe_i8_matmul.quantize if arm == "i8" \
+            else probe_i8_matmul.onehot
+        rhs, fn = make(x).to(torch.int8), torch._int_mm
+    got = fn(w, rhs).float()
+    want = w.float() @ rhs.float()
+    if arm == "bf16":
+        torch.testing.assert_close(got, want, rtol=2.0 ** -8, atol=1e-6)
+    elif not torch.equal(got, want):
+        raise RuntimeError(f"torch._int_mm differs from the exact {arm} "
+                           "product")
+
+    def chain():
+        for _ in range(probe_i8_matmul.ITERS):
+            fn(w, rhs)
+    return chain
+
+
+def probes(dev):
+    """Each probe's entry point, then each arm's kernel against its plain
+    version, its bound and its library yardstick -> the kernels rows of
+    PROBE_ROWS."""
+    rows = []
+    for probe, geometry in PROBE_RUNS:
+        name = probe.__name__.rsplit(".", 1)[-1]
+        phase(f"probe {name} at {geometry}")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        times = probe.main(*geometry)
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        for arm in probe.ARMS:
+            if launches.get(probe.kernel_name(arm), 0) < 1:
+                raise RuntimeError(f"{name}.main did not launch the {arm} "
+                                   f"kernel: {launches}")
+        for arm in probe.ARMS:
+            ops = probe.operands(arm, *geometry, dev)
+            got = probe.run(arm, *ops)
+            torch.cuda.synchronize()
+            want = probe.run_plain(arm, *ops)
+            torch.cuda.synchronize()
+            err = probe.check(arm, got, want)
+            plain_ms = timing.median_ms(lambda: probe.run_plain(arm, *ops),
+                                        got, reps=PLAIN_REPS)
+            bound_ms, bound_by = probe.bound(arm, *geometry)
+            library = (_gates_library(ops) if probe is probe_gates
+                       else _product_library(arm, ops)
+                       if probe is probe_i8_matmul else None)
+            library_ms = (None if library is None
+                          else timing.median_ms(library, got))
+            extra = (f", {probe_draw_tail.flips(got, want)} flipped columns"
+                     if probe is probe_draw_tail else "")
+            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"{name} {arm}: kernel {times[arm]:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"library {lib}; max |kernel - plain| {err:.3g}{extra}; "
+                  f"launches {launches[probe.kernel_name(arm)]}: ok")
+            row = PROBE_ROWS.get((probe, arm))
+            if row is not None and geometry == probe.DEFAULT:
+                rows.append(dict(
+                    name=row[0], route="cuda",
+                    source=f"fpsc_tpu_torch/csrc/{probe.SOURCE}",
+                    replaces=row[1],
+                    launches=launches[probe.kernel_name(arm)],
+                    max_abs_err=err, ms=times[arm], plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms))
+    return rows
 
 
 def vocoder(bunch: int, sparse: bool, seed: int, dev):
@@ -656,6 +788,7 @@ def main() -> int:
     smi = toolchain()
     numerics()
     short_window(dev)
+    probe_rows = probes(dev)
     rows = []
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
         run = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True, "flagship")
@@ -678,7 +811,7 @@ def main() -> int:
         card_against_cpu(dev, work, BUNCH4, False, "bunch4")
         card_against_cpu(dev, work, SLICE1, False, "slice1")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The LPCNet sampler's wrapper, the replay check, and the kernel against
-the plain version.
+the plain version; the probe kernels against their plain versions.
 
 This file imports no JAX, so that it runs on a CUDA host without it:
 
@@ -25,6 +25,8 @@ from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig, sparsify_gru_a
 from fpsc_tpu_torch.models.lpcnet_bunched import VOCODERS
 from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.ops import lpcnet_sampler as ts
+from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
+                                   probe_i8_matmul, probe_wide_store)
 from fpsc_tpu_torch.ops.sampler_faults import (
     drop_block, reverse_excitations, reverse_row_scales, scales_to_one,
     swap_head_positions, swap_head_samples)
@@ -340,3 +342,43 @@ def test_bunched_and_sparse_kernels_on_wrong_operands_fail_the_replay(
     ops, meta = _form_operands(form, dtype, device=cuda_device)
     other = ts.sample(*wrong(ops, meta), trace=True)
     assert ts.replay_faults(ts.replay_plain(ops, meta, *other), dtype)
+
+
+PROBES = {"gates": probe_gates, "draw_tail": probe_draw_tail,
+          "wide_store": probe_wide_store, "i8_matmul": probe_i8_matmul}
+# a small geometry of each probe; the large one is the script's default
+PROBE_SMALL = {"gates": (8, 16), "draw_tail": (8, 16),
+               "wide_store": (8, 16), "i8_matmul": (64, 32, 8)}
+PROBE_CASES = [(name, arm, size) for name, probe in PROBES.items()
+               for arm in probe.ARMS for size in ("small", "default")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,arm,size", PROBE_CASES,
+                         ids=["-".join(c) for c in PROBE_CASES])
+def test_probe_kernel_matches_plain_version(cuda_device, name, arm, size):
+    """One launch of the arm's kernel, held to its plain version on the
+    same operands by the probe's `check` (the tolerances chip_smoke.py
+    uses)."""
+    probe = PROBES[name]
+    geometry = PROBE_SMALL[name] if size == "small" else probe.DEFAULT
+    ops = probe.operands(arm, *geometry, cuda_device)
+    build.reset_launch_counts()
+    got = probe.run(arm, *ops)
+    torch.cuda.synchronize()
+    assert build.launch_counts[probe.kernel_name(arm)] == 1
+    assert sum(build.launch_counts.values()) == 1
+    probe.check(arm, got, probe.run_plain(arm, *ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gates", "draw_tail", "i8_matmul"])
+def test_probe_wrappers_refuse_an_operand_on_the_cpu(cuda_device, name):
+    probe = PROBES[name]
+    arm = probe.ARMS[-1]
+    ops = probe.operands(arm, *PROBE_SMALL[name], cuda_device)
+    for i, x in enumerate(ops):
+        if isinstance(x, torch.Tensor):
+            wrong = (*ops[:i], x.cpu(), *ops[i + 1:])
+            with pytest.raises(ValueError, match="is on"):
+                probe.run(arm, *wrong)

@@ -467,7 +467,10 @@ for m in pkgutil.walk_packages(fpsc_tpu_torch.__path__, "fpsc_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("fpsc_tpu_torch.codec.range_coder",
-             "fpsc_tpu_torch.models.lpcnet_bunched"):
+             "fpsc_tpu_torch.models.lpcnet_bunched",
+             "fpsc_tpu_torch.probes.timing",
+             *(f"fpsc_tpu_torch.probes.probe_{p}" for p in
+               ("gates", "draw_tail", "wide_store", "i8_matmul"))):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"
@@ -479,7 +482,7 @@ print(len([n for n in sys.modules if n.startswith("fpsc_tpu_torch")]))
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert run.returncode == 0, run.stderr
-    assert int(run.stdout.split()[-1]) >= 22
+    assert int(run.stdout.split()[-1]) >= 37
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):

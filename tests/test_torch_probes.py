@@ -1,0 +1,385 @@
+"""The port's probes against the TPU probes' own kernels.
+
+The oracle of each probe is its script's kernel body
+(scripts/probe_*.py), run by Pallas in interpret mode on the CPU.  The
+bodies are closures inside each script's main(), so `_oracle` loads the
+script by path, replaces `pallas_call` with a recorder and `jax.jit`
+with the identity, and calls main() at a tiny size: the recorder keeps
+each arm's kernel, its pallas_call arguments and the script's own
+operands, then raises, which the script reports as a failed arm and
+skips its timing.  The real pallas_call then runs each kernel with
+interpret=True on those operands.  Nothing in scripts/ changes.
+
+Each arm's plain version is held to the oracle by its module's
+`check`, the comparison the card check uses between kernel and plain
+version, with the tolerances stated there: bit for bit for the i8,
+onehot and wide-store arms (integer sums below 2^24; f32 adds in one
+order); a few ulps for the f32 gates (their chain contracts); a share
+of the peak for the bf16 product chain; and for the draw tail a count
+of knife-edge flips (`cdf < u * total`), each moving a column by less
+than 5e-6.
+
+The bf16 oracles run in a child process with XLA's
+--xla_allow_excess_precision=false: by default XLA's CPU compiler may
+keep bf16 intermediates in f32 (ROADMAP Queue C 1).
+"""
+import contextlib
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+import torch
+
+from fpsc_tpu_torch.ops import build
+from fpsc_tpu_torch.probes import probe_draw_tail as pdt
+from fpsc_tpu_torch.probes import probe_gates as pg
+from fpsc_tpu_torch.probes import probe_i8_matmul as pim
+from fpsc_tpu_torch.probes import probe_wide_store as pws
+from fpsc_tpu_torch.utils.device import torch_threads
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for a module of small tensors: the
+    test workers share the host's cores, and a thread pool in each
+    spins against the others."""
+    with torch_threads(1):
+        yield
+
+
+class _Recorded(Exception):
+    """Raised by the recording pallas_call once it has the operands."""
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def _recording(records):
+    real_call, real_jit = pl.pallas_call, jax.jit
+
+    def record(kernel, **kwargs):
+        def call(*operands):
+            records.append((kernel, kwargs,
+                            [np.array(o) for o in operands]))
+            raise _Recorded()
+        return call
+
+    pl.pallas_call, jax.jit = record, (lambda f, **_: f)
+    try:
+        yield real_call
+    finally:
+        pl.pallas_call, jax.jit = real_call, real_jit
+
+
+def _oracle(script, *args):
+    """[(kernel, pallas_call kwargs, the script's operands)] of every arm
+    of scripts/<script>.py's main(*args), in the script's order, and the
+    real pallas_call."""
+    records = []
+    with _recording(records) as real_call:
+        _load_script(script).main(*args)
+    return records, real_call
+
+
+def _interpret(real_call, record, operands=None):
+    kernel, kwargs, script_operands = record
+    ops = script_operands if operands is None else operands
+    return np.array(real_call(kernel, **kwargs, interpret=True)(
+        *[jnp.asarray(o) for o in ops]))
+
+
+# --------------------------------------------------------------- i8 matmul
+
+I8_GEOMETRIES = [(64, 32, 8), (1152, 384, 8)]
+
+
+@pytest.fixture(scope="module")
+def i8_oracle():
+    return {g: _oracle("probe_i8_matmul", *g) for g in I8_GEOMETRIES}
+
+
+@pytest.mark.parametrize("geometry", I8_GEOMETRIES)
+def test_i8_inputs_are_the_scripts(i8_oracle, geometry):
+    records, _ = i8_oracle[geometry]
+    ops = pim.inputs(*geometry, device="cpu")
+    for arm, (_, _, (w, x)) in zip(pim.ARMS, records):
+        np.testing.assert_array_equal(ops["x"].numpy(), x)
+        np.testing.assert_array_equal(ops[arm].float().numpy(),
+                                      w.astype(np.float32))
+
+
+@pytest.mark.parametrize("geometry", I8_GEOMETRIES)
+@pytest.mark.parametrize("arm", ["i8", "onehot"])
+def test_i8_arms_match_the_script_bit_for_bit(i8_oracle, geometry, arm):
+    records, real_call = i8_oracle[geometry]
+    record = records[pim.ARMS.index(arm)]
+    w, x = (torch.as_tensor(o) for o in record[2])
+    want = _interpret(real_call, record)
+    build.reset_launch_counts()
+    got = pim.run(arm, w, x)
+    assert sum(build.launch_counts.values()) == 0
+    assert pim.check(arm, got, torch.as_tensor(want)) == 0.0
+    assert np.abs(want).max() > 0
+
+
+# -------------------------------------------------------------- wide store
+
+STORE_GEOMETRIES = [(8, 16), (24, 64)]
+
+
+@pytest.fixture(scope="module")
+def store_oracle():
+    return {g: _oracle("probe_wide_store", *g) for g in STORE_GEOMETRIES}
+
+
+@pytest.mark.parametrize("geometry", STORE_GEOMETRIES)
+@pytest.mark.parametrize("arm", pws.ARMS)
+def test_wide_store_arms_match_the_script_bit_for_bit(store_oracle,
+                                                      geometry, arm):
+    b, rows = geometry
+    records, real_call = store_oracle[geometry]
+    record = records[pws.ARMS.index(arm)]
+    np.testing.assert_array_equal(pws.inputs(b, "cpu").numpy(),
+                                  record[2][0])
+    want = _interpret(real_call, record)
+    got = pws.run(arm, torch.as_tensor(record[2][0]), rows).numpy()
+    assert got.shape == want.shape == (rows, b)
+    assert pws.check(arm, torch.as_tensor(got), torch.as_tensor(want)) == 0.0
+
+
+# ------------------------------------------- oracles with bf16 arithmetic
+
+GATES_GEOMETRIES = [(8, 16), (16, 64)]
+DRAW_GEOMETRIES = [(8, 16), (64, 64)]
+# (script, main's arguments, arm) of every oracle that rounds to bf16
+BF16_ORACLES = ([("probe_gates", g, "gates_bf16") for g in GATES_GEOMETRIES]
+                + [("probe_draw_tail", g, "tri_bf16")
+                   for g in DRAW_GEOMETRIES]
+                + [("probe_i8_matmul", I8_GEOMETRIES[-1], "bf16")])
+ARMS = {"probe_gates": pg.ARMS, "probe_draw_tail": pdt.ARMS,
+        "probe_i8_matmul": pim.ARMS}
+
+
+def _key(script, args, arm):
+    return f"{script}:{','.join(map(str, args))}:{arm}"
+
+
+_BF16_ORACLE = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[2])
+import test_torch_probes as T
+out = {}
+for script, args, arm in T.BF16_ORACLES:
+    records, real_call = T._oracle(script, *args)
+    record = records[T.ARMS[script].index(arm)]
+    out[T._key(script, args, arm)] = T._interpret(real_call, record)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def bf16_oracle(tmp_path_factory):
+    """The bf16 arms' oracles, computed with bf16 rounding where the
+    kernels ask for it: {_key(...): output}."""
+    path = tmp_path_factory.mktemp("probes_bf16") / "ref.npz"
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_allow_excess_precision=false",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, "-c", _BF16_ORACLE, str(path),
+                          tests], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr
+    return dict(np.load(path))
+
+
+def _want(script, args, arm, records, real_call, bf16_oracle):
+    if (script, args, arm) in BF16_ORACLES:
+        want = bf16_oracle[_key(script, args, arm)]
+    else:
+        want = _interpret(real_call, records[ARMS[script].index(arm)])
+    return torch.as_tensor(want)
+
+
+def _tensor(a):
+    """A numpy operand of a script (bf16 ones as ml_dtypes) as a tensor."""
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
+def test_bf16_product_chain_matches_the_script(i8_oracle, bf16_oracle):
+    """At k = 384 the chain keeps its scale (W's top k x k block has a
+    spectral radius of about 0.05 sqrt(384) = 0.98); at a smaller k it
+    decays out of bf16's range within 64 products, so the small
+    geometry would compare zeros."""
+    geometry = I8_GEOMETRIES[-1]
+    records, real_call = i8_oracle[geometry]
+    w, x = map(_tensor, records[0][2])
+    np.testing.assert_array_equal(
+        pim.inputs(*geometry, device="cpu")["bf16"].float().numpy(),
+        w.float().numpy())
+    want = _want("probe_i8_matmul", geometry, "bf16", records, real_call,
+                 bf16_oracle)
+    assert float(want.abs().max()) > 0.1
+    pim.check("bf16", pim.run("bf16", w, x), want)
+
+
+# -------------------------------------------------------------------- gates
+
+@pytest.fixture(scope="module")
+def gates_oracle():
+    return {g: _oracle("probe_gates", *g) for g in GATES_GEOMETRIES}
+
+
+@pytest.mark.parametrize("geometry", GATES_GEOMETRIES)
+@pytest.mark.parametrize("arm", pg.ARMS)
+def test_gates_arms_match_the_script(gates_oracle, bf16_oracle, geometry,
+                                     arm):
+    b, iters = geometry
+    records, real_call = gates_oracle[geometry]
+    operands = records[pg.ARMS.index(arm)][2]
+    ops = pg.inputs(b, "cpu")
+    for name, script in zip(("pre", "gh", "h"), operands):
+        np.testing.assert_array_equal(ops[name].numpy(), script)
+    want = _want("probe_gates", geometry, arm, records, real_call,
+                 bf16_oracle)
+    pg.check(arm, pg.run(arm, ops["pre"], ops["gh"], ops["h"], iters),
+             want)
+
+
+# ---------------------------------------------------------------- draw tail
+
+@pytest.fixture(scope="module")
+def draw_oracle():
+    return {g: _oracle("probe_draw_tail", *g) for g in DRAW_GEOMETRIES}
+
+
+@pytest.mark.parametrize("geometry", DRAW_GEOMETRIES)
+@pytest.mark.parametrize("arm", pdt.ARMS)
+def test_draw_tail_arms_match_the_script(draw_oracle, bf16_oracle,
+                                         geometry, arm):
+    b, iters = geometry
+    records, real_call = draw_oracle[geometry]
+    operands = records[pdt.ARMS.index(arm)][2]
+    ops = pdt.inputs(b, "cpu")
+    for name, script in zip(("logits", "u2l", "u"), operands):
+        np.testing.assert_array_equal(ops[name].numpy(), script)
+    # one flip moves fcpre by 1e-3 of one u2l entry
+    assert float(ops["u2l"].abs().max()) * 1e-3 < pdt.FLIP
+    want = _want("probe_draw_tail", geometry, arm, records, real_call,
+                 bf16_oracle)
+    pdt.check(arm, pdt.run(arm, ops["logits"], ops["u2l"], ops["u"],
+                             iters), want)
+
+
+def test_draw_tail_check_counts_flips():
+    """A column moved by one flip passes; more flipped columns than the
+    share allows, or a move of more than two flips, fail."""
+    want = torch.zeros(pdt.LEVELS, 64)
+    got = want.clone()
+    got[:, 3] += 0.8 * pdt.FLIP
+    assert pdt.flips(got, want) == 1
+    pdt.check("full", got, want)
+    got[:, 5] += 0.8 * pdt.FLIP
+    got[:, 7] += 0.8 * pdt.FLIP
+    with pytest.raises(RuntimeError, match="3 of 64 columns flipped"):
+        pdt.check("full", got, want)
+    with pytest.raises(RuntimeError, match="flipped"):
+        pdt.check("full", want + 3 * pdt.FLIP * (torch.arange(64) == 0),
+                  want)
+
+
+# ------------------------------------------------- refusals, without a card
+
+SMALL = {"gates": (8, 4), "draw": (8, 4), "store": (8, 16),
+         "i8": (64, 32, 8)}
+
+
+def test_wrappers_refuse_malformed_operands():
+    g = pg.inputs(8, "cpu")
+    with pytest.raises(ValueError, match="pre: shape"):
+        pg.run("gates_f32", g["pre"][:-1], g["gh"], g["h"], 2)
+    with pytest.raises(ValueError, match="gh: dtype"):
+        pg.run("gates_f32", g["pre"], g["gh"].double(), g["h"], 2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        pg.run("none", g["pre"], g["gh"], g["h"].T.contiguous().T, 2)
+    with pytest.raises(ValueError, match="arms are"):
+        pg.run("gates_f16", g["pre"], g["gh"], g["h"], 2)
+    d = pdt.inputs(8, "cpu")
+    with pytest.raises(ValueError, match="u: shape"):
+        pdt.run("full", d["logits"], d["u2l"], d["u"][0], 2)
+    with pytest.raises(ValueError, match="logits: shape"):
+        pdt.run("full", d["logits"][:128], d["u2l"], d["u"], 2)
+    with pytest.raises(ValueError, match="u2l: dtype"):
+        pdt.run("tri_f32", d["logits"], d["u2l"].half(), d["u"], 2)
+    x = pws.inputs(8, "cpu")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pws.run("block8", x, 12)
+    with pytest.raises(ValueError, match="x: shape"):
+        pws.run("per_row", x[:4], 16)
+    o = pim.inputs(64, 32, 8, "cpu")
+    with pytest.raises(ValueError, match="W: dtype"):
+        pim.run("i8", o["bf16"], o["x"])
+    with pytest.raises(ValueError, match="W: shape"):
+        pim.run("onehot", o["i8"], o["x"])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pim.run("i8", o["i8"][:40], o["x"])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pim.run("bf16", o["bf16"][:, :16].contiguous(),
+                         o["x"][:16])
+    with pytest.raises(ValueError, match="iters >= 1"):
+        pim.run("bf16", o["bf16"], o["x"], iters=0)
+
+
+@pytest.mark.parametrize("probe,args", [
+    (pg, SMALL["gates"]), (pdt, SMALL["draw"]), (pws, SMALL["store"]),
+    (pim, SMALL["i8"])], ids=["gates", "draw_tail", "wide_store",
+                              "i8_matmul"])
+def test_entry_points_need_a_card(probe, args, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe.main(*args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        probe.main(*args, device="cpu")
+    assert capsys.readouterr().out == ""
+
+
+def test_probe_bounds_follow_the_shapes():
+    """The bounds at the scripts' defaults: what bounds each, and the
+    operation and byte counts behind it."""
+    ms, by = pim.bound("bf16", 1152, 384, 128)
+    assert by == "operations" and ms == pytest.approx(
+        2 * 1152 * 384 * 128 * 64 / 989e12 * 1e3)
+    assert pim.bound("i8", 1152, 384, 128)[0] == pytest.approx(ms * 989 / 1979)
+    assert pim.bound("onehot", 1152, 384, 128)[0] == pytest.approx(
+        2 * 1152 * 256 * 128 * 64 / 1979e12 * 1e3)
+    assert pws.bound("per_row", 768, 2048) == pytest.approx(
+        ((8 + 2048) * 768 * 4 / 3.35e12 * 1e3, "bytes"))
+    assert pws.bound("none", 768, 2048)[0] < pws.bound("block8", 768, 2048)[0]
+    ms, by = pg.bound("gates_f32", 768, 512)
+    assert by == "operations" and ms == pytest.approx(
+        12 * 384 * 768 * 512 / 67e12 * 1e3)
+    assert pg.bound("none", 768, 512)[1] == "bytes"
+    ms, by = pdt.bound("full", 768, 64)
+    assert by == "operations" and ms == pytest.approx(
+        13 * 256 * 768 * 64 / 67e12 * 1e3)
+    assert pdt.bound("tri_bf16", 768, 64) == pdt.bound("full", 768, 64)
