@@ -10,7 +10,16 @@ exit and no result line:
 1. toolchain: build every kernel under fpsc_tpu_torch/csrc/ with nvcc,
    one process per source, all started together, and print versions;
 2. numerics: TF32 off for matmuls and for cuDNN (frame_net's conv1d);
-3. kernel vs plain, short window: each form of the LPCNet sampler
+   `lpcnet_sampler.prepare` turns both off around the conditioning
+   itself, so that a user's decode with PyTorch's defaults computes it
+   in f32 too (tests/test_torch_card.py checks that in a fresh process);
+3. the fold: fpsc_lpcnet_fold against fold_plain on the card at full
+   width, GRU_A's input table and the heads' table of bunch 1, 2 and 4
+   in f32, bf16 and int8 (bf16 activations): the products are exact, so
+   only the order of the 128-term f32 sums may differ
+   (lpcnet_sampler.check_fold: 2 * 129 * 2^-24 of the sum of the
+   terms' magnitudes, element by element);
+3b. kernel vs plain, short window: each form of the LPCNet sampler
    kernel (FORMS: bunch=1 dense, bunch=2 dense, bunch=2 block-sparse,
    bunch=1 block-sparse, bunch=4 dense and block-sparse, int8 weights at
    bunch=1 sparse, bunch=2 sparse and bunch=4 dense, bunch=4 with the cdf
@@ -49,10 +58,13 @@ exit and no result line:
 6. kernel vs plain at the flagship's shape: the operands of its sampler
    call, rebuilt from its decoded features, in bf16 (as the main path
    runs) and in f32; every decision must pass the replay; the bf16
-   kernel is timed with CUDA events against the free-running plain
-   version (timed once), whose output must track each item up to its
-   first flip; the bound of the work from its shapes; the other forms
-   timed on the same inputs;
+   sampler (fold and kernel, one `sample` call) is timed with CUDA
+   events against the free-running plain version (timed once), whose
+   output must track each item up to its first flip, with its time per
+   GRU step; the bound of the work from its shapes, with the embedding
+   products folded (and, beside it, the bound of the unfolded work); the
+   other forms timed on the same inputs; at the flagship the fold alone
+   against fold_plain and one torch.matmul a table;
 7. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
    weights_int8=True) on the flagship's features and vocoder must launch
    the bunch=2 sparse int8 form and give what sample(*prepare(...))
@@ -74,8 +86,13 @@ exit and no result line:
    inputs (2 x 20 frames), for the flagship, bunch=4 and slice-1
    configurations: the same coded features and LPC.
 
-Then the `kernels` JSON line, the card's name and power limit as
-nvidia-smi prints them, and the result line.
+Every main path must launch its sampler form and the fold.  The probes
+phase times each arm's library yardstick three ways: 64 independent
+calls, the chain of 64 dependent calls with the script's cast between
+them, and that chain captured once as a CUDA graph and replayed; the
+graph's time stands in the kernels line.  Then the `kernels` JSON line,
+the card's name and power limit as nvidia-smi prints them, and the
+result line.
 """
 import json
 import os
@@ -138,7 +155,8 @@ SOURCE = "fpsc_tpu_torch/csrc/lpcnet_sampler.cu"
 JAX_SAMPLER = "fpsc_tpu/ops/lpcnet_sampler.py"
 # The TPU kernel's lines each measured form replaces: _kernel, step2,
 # step4, wdot and the cdf_matmul draw.
-REPLACES = {"lpcnet_sample": f"{JAX_SAMPLER}:87",
+REPLACES = {"lpcnet_fold": f"{JAX_SAMPLER}:150-183, 262",
+            "lpcnet_sample": f"{JAX_SAMPLER}:87",
             "lpcnet_sample_bunch2_sparse": f"{JAX_SAMPLER}:291",
             "lpcnet_sample_bunch2_sparse_int8": f"{JAX_SAMPLER}:142",
             "lpcnet_sample_bunch4": f"{JAX_SAMPLER}:334",
@@ -247,9 +265,13 @@ def _product_library(arm, ops):
     """One PyTorch call of the arm's product on the chain's first operands
     (torch.matmul in bf16, torch._int_mm in int8, the one-hot operand as
     int8), held to the plain version's f32 product of the same values (bf16:
-    within one bf16 step of its rounding; int8: exactly) -> a chain of
-    ITERS such calls."""
+    within one bf16 step of its rounding; int8: exactly) -> {"independent":
+    ITERS such calls on the same operands, "chained": the probe's chain of
+    ITERS dependent calls with its cast between them, x <- cast(W @ x)[:k],
+    held to the plain version by the probe's check, "graph": that chain
+    captured once as a CUDA graph, one replay}."""
     w, x = ops
+    k = x.shape[0]
     if arm == "bf16":
         rhs, fn = x.to(torch.bfloat16), torch.matmul
     else:
@@ -264,10 +286,42 @@ def _product_library(arm, ops):
         raise RuntimeError(f"torch._int_mm differs from the exact {arm} "
                            "product")
 
-    def chain():
+    def independent():
         for _ in range(probe_i8_matmul.ITERS):
             fn(w, rhs)
-    return chain
+
+    def chained():
+        if arm == "bf16":
+            acc = x.to(torch.bfloat16)
+            for _ in range(probe_i8_matmul.ITERS):
+                acc = torch.matmul(w, acc)[:k]
+            return acc.float()
+        acc = x
+        for _ in range(probe_i8_matmul.ITERS):
+            if arm == "i8":
+                q = probe_i8_matmul.quantize(acc).to(torch.int8)
+                acc = torch._int_mm(w, q)[:k].float() \
+                    * probe_i8_matmul.INV_127_SQ
+            else:
+                q = probe_i8_matmul.onehot(acc).to(torch.int8)
+                acc = torch._int_mm(w, q)[:k].float() \
+                    * probe_i8_matmul.ONEHOT_SCALE
+        return acc
+
+    probe_i8_matmul.check(arm, chained(),
+                          probe_i8_matmul.run_plain(arm, w, x))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chained()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chained()
+    graph.replay()
+    probe_i8_matmul.check(arm, out, probe_i8_matmul.run_plain(arm, w, x))
+    return {"independent": independent, "chained": chained,
+            "graph": graph.replay}
 
 
 def probes(dev):
@@ -297,14 +351,19 @@ def probes(dev):
             plain_ms = timing.median_ms(lambda: probe.run_plain(arm, *ops),
                                         got, reps=PLAIN_REPS)
             bound_ms, bound_by = probe.bound(arm, *geometry)
-            library = (_gates_library(ops) if probe is probe_gates
+            library = ({"calls": _gates_library(ops)}
+                       if probe is probe_gates
                        else _product_library(arm, ops)
-                       if probe is probe_i8_matmul else None)
-            library_ms = (None if library is None
-                          else timing.median_ms(library, got))
+                       if probe is probe_i8_matmul else {})
+            library_times = {how: timing.median_ms(fn, got)
+                             for how, fn in library.items()}
+            # the chain's yardstick is the library's chain, replayed
+            library_ms = library_times.get(
+                "graph", library_times.get("calls"))
             extra = (f", {probe_draw_tail.flips(got, want)} flipped columns"
                      if probe is probe_draw_tail else "")
-            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            lib = ("none" if not library_times else ", ".join(
+                f"{how} {t:.4f} ms" for how, t in library_times.items()))
             print(f"{name} {arm}: kernel {times[arm]:.4f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
                   f"library {lib}; max |kernel - plain| {err:.3g}{extra}; "
@@ -343,20 +402,49 @@ FORMS = [(1, False, False, False), (2, False, False, False),
          (4, False, True, False), (4, False, False, True)]
 
 
-def short_window(dev):
-    """Each kernel form against the plain version at full width, B=8,
-    2 frames."""
-    phase("kernel vs plain, full width, B=8, 2 frames")
-    rng = np.random.RandomState(1)
+def _window_inputs(dev, rng):
+    """Seeded features, periods, LPC and uniforms, B=CHECK_B,
+    CHECK_FRAMES frames."""
     b, frames = CHECK_B, CHECK_FRAMES
 
     def t(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    feat = t(rng.randn(b, frames, 20) * 0.3)
-    periods = t(rng.randint(32, 256, (b, frames)), torch.int32)
-    lpc = t(rng.randn(b, frames, 16) * 0.05)
-    u = t(rng.uniform(size=(frames, b, C.FRAME_SIZE)))
+    return (t(rng.randn(b, frames, 20) * 0.3),
+            t(rng.randint(32, 256, (b, frames)), torch.int32),
+            t(rng.randn(b, frames, 16) * 0.05),
+            t(rng.uniform(size=(frames, b, C.FRAME_SIZE))))
+
+
+def fold_check(dev):
+    """fpsc_lpcnet_fold against fold_plain at full width: both tables of
+    bunch 1, 2 and 4 in f32, bf16 and int8 with bf16 activations."""
+    phase("fold vs fold_plain, full width")
+    inputs = _window_inputs(dev, np.random.RandomState(4))
+    for bunch in (1, 2, 4):
+        model = vocoder(bunch, False, seed=2, dev=dev)
+        for dtype, w8 in ((torch.float32, False), (torch.bfloat16, False),
+                          (torch.bfloat16, True)):
+            ops, meta = lpcnet_sampler.prepare(model, *inputs, dtype=dtype,
+                                               weights_int8=w8)
+            for head in (False, True)[:1 + (bunch > 1)]:
+                table = lpcnet_sampler.fold(ops, meta, head=head)
+                torch.cuda.synchronize()
+                err = lpcnet_sampler.check_fold(ops, meta, table, head=head)
+                print(f"bunch={bunch} {dtype}{' int8' if w8 else ''} "
+                      f"{'head' if head else 'GRU_A'} table "
+                      f"{tuple(table.shape)}: max |fold - fold_plain| "
+                      f"{err:.3g} (tolerance "
+                      f"{lpcnet_sampler.fold_tolerance(meta.e_dim):.3g} of "
+                      "|emb| @ |w|): ok")
+
+
+def short_window(dev):
+    """Each kernel form against the plain version at full width, B=8,
+    2 frames."""
+    phase("kernel vs plain, full width, B=8, 2 frames")
+    b = CHECK_B
+    feat, periods, lpc, u = _window_inputs(dev, np.random.RandomState(1))
     for bunch, sparse, w8, cdf_mm in FORMS:
         model = vocoder(bunch, sparse, seed=1, dev=dev)
         pattern = lpcnet_sampler.auto_block_pattern(model)
@@ -556,9 +644,10 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
     name = lpcnet_sampler.KERNELS[(
         cfg.lpcnet.bunch, sparse, False,
         n_utt > lpcnet_sampler.CDF_MATMUL_ABOVE)]
-    if launches.get(name, 0) < 1:
-        raise RuntimeError(f"the main path did not launch {name}: "
-                           f"{launches}")
+    for kernel in (name, lpcnet_sampler.FOLD_KERNEL):
+        if launches.get(kernel, 0) < 1:
+            raise RuntimeError(f"the main path did not launch {kernel}: "
+                               f"{launches}")
     if written:
         _check_symbols(stream, artifacts, written)
     wav = np.stack([r["wav"] for r in results])
@@ -587,7 +676,8 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
         raise RuntimeError(f"the decoded audio peaks at {peak:.4g}, above "
                            f"{PEAK_LIMIT}")
     return dict(results=results, vocoder=model, pattern=pattern,
-                launches=launches.get(name, 0), name=name)
+                launches=launches.get(name, 0), name=name,
+                fold_launches=launches[lpcnet_sampler.FOLD_KERNEL])
 
 
 def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
@@ -619,6 +709,12 @@ def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
     print(f"coded features and LPC agree, max |card - cpu| {err}")
 
 
+def _step_us(ms: float, meta) -> float:
+    """µs a GRU step of one `sample` call: the batch's items step
+    together."""
+    return ms * 1e3 / (meta.frames * C.FRAME_SIZE // meta.bunch)
+
+
 def _time_kernel(ops, meta, reps: int = 3) -> float:
     lpcnet_sampler.sample(ops, meta)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
@@ -630,7 +726,7 @@ def _time_kernel(ops, meta, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops, meta, out: torch.Tensor):
+def bound(ops, meta, out: torch.Tensor, folded: bool = True):
     """The least time of the work on this card's published peaks:
     (ms, "operations" or "bytes", MACs per item and GRU step).  Counts
     each input once, each output once, of a block-sparse GRU_A only its
@@ -638,9 +734,19 @@ def bound(ops, meta, out: torch.Tensor):
     weights meet activations of meta.dtype).  Each draw's prefix sum
     over the levels is levels - 1 f32 adds, whether the kernel takes it
     as a scan or as the product with a triangle of ones: the same
-    function, so both forms get the same bound."""
+    function, so both forms get the same bound.
+
+    `folded`: the work of the sampler kernel as it runs since the fold,
+    the embedding products taken as gathers of table rows: GRU_A's
+    input (2 bunch + 1) 3Ha f32 adds a step in place of as many times E
+    MACs, each further head's HEAD_EMBEDS[bunch] * 512 adds in place of
+    its embedding MACs, and the tables' bytes read once in place of the
+    embedding, its scales and the weights on it.  Else the unfolded work
+    of the TPU kernel's function, the bound before the fold."""
     n_emb = 2 * meta.bunch + 1
     ha, hb, e, lv = meta.ha, meta.hb, meta.e_dim, meta.levels
+    if folded:
+        return _folded_bound(ops, meta, out)
     if meta.pattern is None:
         live = 1.0
         rec = 3 * ha * ha
@@ -668,6 +774,109 @@ def bound(ops, meta, out: torch.Tensor):
           f"FLOP, {adds:.4g} prefix-sum adds, {nbytes:.0f} bytes")
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", macs)
+
+
+def _folded_bound(ops, meta, out):
+    """bound(folded=True)."""
+    bunch, ha, hb, lv = meta.bunch, meta.ha, meta.hb, meta.levels
+    n_emb, head_e = 2 * bunch + 1, lpcnet_sampler.HEAD_EMBEDS[bunch]
+    if meta.pattern is None:
+        live, rec = 1.0, 3 * ha * ha
+    else:
+        rb, cb = meta.block
+        rec = sum(len(c) for c in meta.pattern) * rb * cb
+        live = rec / (3 * ha * ha)
+    macs = rec + 3 * hb * (ha + hb) + bunch * 2 * lv * hb
+    gather = n_emb * 3 * ha + (bunch - 1) * head_e * 2 * lv
+    steps = meta.batch * meta.frames * C.FRAME_SIZE // bunch
+    flops = 2.0 * macs * steps
+    adds = (lv - 1.0) * meta.batch * meta.frames * C.FRAME_SIZE \
+        + gather * steps
+    skip = {"emb", "wiemb_t", "fch_t", "s_emb"}
+    nbytes = sum(x.numel() * x.element_size()
+                 for name, x in zip(ops._fields, ops) if name not in skip) \
+        - (1.0 - live) * ops.wh_a_t.numel() * ops.wh_a_t.element_size() \
+        + 2 * lv * (bunch - 1) * hb * ops.fch_t.element_size() \
+        + 4.0 * lv * gather + out.numel() * out.element_size()
+    t_mac = flops / PEAK_FLOPS[meta.dtype] * 1e3
+    t_add = adds / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = t_mac + t_add if meta.dtype == torch.float32 \
+        else max(t_mac, t_add)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"folded: {macs} MACs and {gather} gathered adds per item and "
+          f"GRU step, {steps} steps, {flops:.4g} FLOP, {adds:.4g} adds, "
+          f"{nbytes:.0f} bytes")
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", macs)
+
+
+def fold_bound(ops, meta):
+    """The least time of the fold of both tables of one `sample` call:
+    the weights on the embedding, the embedding (and its int8 scales)
+    read once, the f32 tables written once; levels E MACs a table
+    element at the peak of meta.dtype -> (ms, "operations" or
+    "bytes")."""
+    specs = [lpcnet_sampler.fold_spec(meta)]
+    if meta.bunch > 1:
+        specs.append(lpcnet_sampler.fold_spec(meta, head=True))
+    elems = sum(s.n_pos * s.n_slot * meta.levels * s.cols for s in specs)
+    w_elems = sum(s.n_pos * s.n_slot * meta.e_dim * s.cols for s in specs)
+    nbytes = (w_elems * ops.wiemb_t.element_size()
+              + ops.emb.numel() * ops.emb.element_size()
+              + ops.s_emb.numel() * 4 + elems * 4)
+    t_ops = 2.0 * elems * meta.e_dim / PEAK_FLOPS[meta.dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def fold_row(dev, run):
+    """The fold at the main path's shape (run["ops"], run["meta"], both
+    tables of one `sample` call): held to fold_plain, timed against
+    fold_plain and against one torch.matmul a table on its f32 operands
+    (the library's product of the same function) -> its kernels row."""
+    ops, meta = run["ops"], run["meta"]
+    phase(f"the fold at the main path's shape ({run['name']})")
+    heads = (False, True)[:1 + (meta.bunch > 1)]
+
+    def kernel():
+        return [lpcnet_sampler.fold(ops, meta, head=h) for h in heads]
+
+    def plain():
+        return [lpcnet_sampler.fold_plain(
+            ops.fch_t if h else ops.wiemb_t,
+            lpcnet_sampler.emb_rows(ops, meta),
+            lpcnet_sampler.fold_spec(meta, h)) for h in heads]
+
+    tables = kernel()
+    torch.cuda.synchronize()
+    err = max(lpcnet_sampler.check_fold(ops, meta, t, head=h)
+              for t, h in zip(tables, heads))
+    emb = lpcnet_sampler.emb_rows(ops, meta)
+    operands = []
+    for h in heads:
+        spec = lpcnet_sampler.fold_spec(meta, h)
+        w = (ops.fch_t if h else ops.wiemb_t)[
+            spec.row0:spec.row0 + spec.n_slot * meta.e_dim].float()
+        operands.append(w.reshape(spec.n_slot, meta.e_dim, spec.n_pos,
+                                  spec.cols).permute(2, 0, 1, 3).contiguous())
+
+    def library():
+        return [torch.matmul(emb, w) for w in operands]
+
+    ms = timing.median_ms(kernel, emb)
+    plain_ms = timing.median_ms(plain, emb, reps=PLAIN_REPS)
+    library_ms = timing.median_ms(library, emb)
+    bound_ms, bound_by = fold_bound(ops, meta)
+    print(f"fold of {len(heads)} tables: kernel {ms:.4f} ms, fold_plain "
+          f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); max |fold - fold_plain| "
+          f"{err:.3g}; launches on the main path {run['fold_launches']}")
+    return dict(name=lpcnet_sampler.FOLD_KERNEL, route="cuda", source=SOURCE,
+                replaces=REPLACES[lpcnet_sampler.FOLD_KERNEL],
+                launches=run["fold_launches"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def _features(dev, results, frames: int):
@@ -724,8 +933,12 @@ def main_shape(dev, run, frames: int, other_forms=(),
     print(f"free-running first flips {flips}: ok")
     ms = _time_kernel(ops, meta)
     bound_ms, bound_by, _ = bound(ops, meta, got)
-    print(f"kernel {ms:.3f} ms, plain version {plain_ms:.1f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+    unfolded_ms, unfolded_by, _ = bound(ops, meta, got, folded=False)
+    print(f"kernel {ms:.3f} ms ({_step_us(ms, meta):.2f} us a GRU step), "
+          f"plain version {plain_ms:.1f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}); the unfolded work's bound {unfolded_ms:.4f} ms "
+          f"({unfolded_by})")
+    run["ops"], run["meta"] = ops, meta
     for bunch, sparse, w8, cdf_mm in other_forms:
         own = (bunch == meta.bunch and sparse == (meta.pattern is not None))
         m = model if own else vocoder(bunch, sparse, seed=3, dev=dev)
@@ -733,9 +946,11 @@ def main_shape(dev, run, frames: int, other_forms=(),
                          meta.dtype, weights_int8=w8, cdf_matmul=cdf_mm)
         other_ms = _time_kernel(o, mt)
         other_bound, _, _ = bound(o, mt, got)
+        other_unfolded, _, _ = bound(o, mt, got, folded=False)
         print(f"{lpcnet_sampler.kernel_name(mt)} on the same features"
-              f"{' and weights' if own else ''}: kernel {other_ms:.3f} ms, "
-              f"bound {other_bound:.4f} ms")
+              f"{' and weights' if own else ''}: kernel {other_ms:.3f} ms "
+              f"({_step_us(other_ms, mt):.2f} us a GRU step), bound "
+              f"{other_bound:.4f} ms, unfolded {other_unfolded:.4f} ms")
     return dict(name=run["name"], route="cuda", source=SOURCE,
                 replaces=REPLACES[run["name"]], launches=run["launches"],
                 max_abs_err=r.out_err, ms=ms, plain_ms=plain_ms,
@@ -760,9 +975,10 @@ def int8_path(dev, flagship, frames: int):
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
     name = lpcnet_sampler.KERNELS[(2, True, True, False)]
-    if launches.get(name, 0) < 1:
-        raise RuntimeError(f"generate(weights_int8=True) did not launch "
-                           f"{name}: {launches}")
+    for kernel in (name, lpcnet_sampler.FOLD_KERNEL):
+        if launches.get(kernel, 0) < 1:
+            raise RuntimeError(f"generate(weights_int8=True) did not "
+                               f"launch {kernel}: {launches}")
     again = lpcnet_sampler.sample(*lpcnet_sampler.prepare(
         model, coded, periods, lpc, u, corr=corr, gru_a_pattern=pattern,
         weights_int8=True))
@@ -787,6 +1003,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = toolchain()
     numerics()
+    fold_check(dev)
     short_window(dev)
     probe_rows = probes(dev)
     rows = []
@@ -795,6 +1012,7 @@ def main() -> int:
         rows.append(main_shape(dev, run, UTT_FRAMES,
                                other_forms=[(2, False, False, False),
                                             (1, True, False, False)]))
+        rows.append(fold_row(dev, run))
         rows.append(int8_path(dev, run, UTT_FRAMES))
         run = main_path(dev, work, BUNCH4, UTT_FRAMES, False, "bunch4")
         rows.append(main_shape(dev, run, UTT_FRAMES,

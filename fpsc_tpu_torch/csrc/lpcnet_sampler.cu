@@ -16,12 +16,13 @@
 //
 // One GRU step emits BUNCH 16 kHz samples per batch item:
 //   1. pred = -sum(hist * lpc_rev) over the 16-sample history;
-//   2. mu-law indices of the GRU_A inputs and their embedding rows
-//      (the TPU took them as one-hot matmuls): the BUNCH newest samples,
-//      the BUNCH previous excitations (oldest first), pred;
-//   3. pre_a = wiemb @ e_cat + cond_a;  4. GRU_A gates on wh_a @ h_a + bh_a,
-//      dense, or per row block the sum of its live column blocks'
-//      products in pattern order (dead blocks are skipped, not
+//   2. mu-law indices of the GRU_A inputs (the TPU took their embeddings
+//      as one-hot matmuls): the BUNCH newest samples, the BUNCH previous
+//      excitations (oldest first), pred;
+//   3. pre_a = wiemb @ e_cat + cond_a, as the sum over the slots s of
+//      the rows ta[s, idx_s] of the folded table (below);
+//   4. GRU_A gates on wh_a @ h_a + bh_a, dense, or per row block the sum
+//      of its live column blocks' products (dead blocks are skipped, not
 //      compacted);
 //   5. GRU_B on wi_b @ h_a + cond_b and wh_b @ h_b + bh_b;
 //   6. head 1, the dual FC [fc1; fc2] @ h_b + b, then draw: exp, 0.002*Z
@@ -30,9 +31,11 @@
 //      idx = #{cdf < u * cdf[255]}, mu-law table; x = pred + e;
 //   7. each further sub-sample s: the history takes x, pred is
 //      recomputed, head s = rows (s-1)*512 ... of fch @ [h_b, head
-//      embeddings] + b, draw with the next uniform; the head embeddings
-//      are [x1, pred2] at bunch=2 and [hist[15], hist[14], pred] at
-//      bunch=4 (kHead of them);
+//      embeddings] + b, its h_b part taken with head 1's product and its
+//      embedding part the sum of the rows th[s-1, slot, idx] of the
+//      folded head table; draw with the next uniform; the head
+//      embeddings are [x1, pred2] at bunch=2 and [hist[15], hist[14],
+//      pred] at bunch=4 (kHead of them);
 //   8. y = x + deemph * prev_y per sample; the step's excitations are
 //      the next step's previous ones.
 // Cast points are the TPU kernel's (bf16 build): cond and weights are
@@ -45,28 +48,49 @@
 // sum is multiplied by its output row's f32 scale, then the bias is
 // added; an embedding element is q * s in f32, rounded to A.
 //
+// The fold (fold_kernel, fpsc_lpcnet_fold).  An embedding input is a row
+// of a 256-entry table, so its product with a weight block is one of 256
+// precomputable rows: ta[s, code, r] = sum_c wiemb[r, s*E + c] *
+// emb_A(code, c), and th[s-1, slot, code, col] likewise from the head
+// weights' embedding rows, as xiph/LPCNet's dump_lpcnet.py folds
+// embed_sig into GRU_A.  bf16 x bf16 and bf16 x int8 products are exact
+// in f32, so the fold changes only the order of the f32 sums; the
+// tables stay f32 and the int8 row scales apply after the sum over the
+// slots, as wdot applies them.  The wrapper folds at every call, on the
+// stream of the sampler's launch, so wrong operands reach the tables.
+//
 // What bounds it.  The step is a serial chain: each sample feeds the
 // next, so the whole loop runs inside one thread block per batch item
 // (Hopper blocks cannot carry state across a grid the way the TPU's
-// sequential grid did).  Per item and GRU step, at the flagship widths
-// (GRU_A 384, GRU_B 32, E 128), bunch=2 with 22 of 108 (64, 64) blocks
-// live does 1,031,168 MACs, bunch=4 at GRU_B 64 dense 2,576,384: far
-// too little work per step to fill the card, so it is bound by the
-// latency of the chain, not by bytes or FLOPs.  The weights (2.2 MB in
-// bf16 at bunch=2, 2.9 MB at bunch=4, half that in int8) do not fit one
-// SM's 227 KB of shared memory; here they are read from global memory at
-// every step and stay resident in the 50 MB L2.  State (h_a, h_b, the
+// sequential grid did).  The work of a step is far too small to fill
+// the card, so the step is bound by the latency of its weight loads
+// from L2, where the weights stay resident (they do not fit one SM's
+// 227 KB of shared memory).  After the fold, a step reads per item, in
+// bf16 at the flagship widths (GRU_A 384, E 128): 0.35 MB at bunch=2
+// (GRU_B 32, 22 of 108 (64, 64) recurrent blocks live), 1.38 MB at
+// bunch=4 (GRU_B 64, dense), 0.95 MB at bunch=1 (GRU_B 16, dense), of
+// which the dense recurrent matrix is 0.88 MB; the unfolded embedding
+// products were 1.7 MB of the flagship's 2.06.  Every weight product
+// reads 16 bytes a thread a load (8 bf16, 4 f32 or 16 int8), with
+// kDepth loads issued before the first is used: the recurrent product
+// on kProdThreads threads, each kN consecutive output rows of the
+// k-major matrix over a share of k (partial sums in shared memory),
+// while the other warps gather the table rows; GRU_B's two products the
+// same way (the input one on those threads, the recurrent one on the
+// others); every head's product on h_b at once after GRU_B, kN rows a
+// thread over the whole of k (the wrapper gives GRU_B's and the heads'
+// weights k-major).  int8 weights convert four at a
+// time with byte permutes and a float bias.  State (h_a, h_b, the
 // history, the previous excitations, prev_y) lives in shared memory;
-// __syncthreads() separates the phases.  The heads run on all 12 warps,
-// one thread per output row; the draws, which are serial, on warp 0,
-// but for the cdf product, one level a thread on the first 8 warps.
-// Holding the weights in the distributed shared memory of a 16-block
-// cluster is the redesign for a later change.
+// __syncthreads() separates the phases; the draws, which are serial,
+// run on warp 0, but for the cdf product, one level a thread on the
+// first 8 warps.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC  (plain C interface, loaded with ctypes).
 // Twelve instances of sample_kernel: (f32, bf16, int8 with f32 or bf16
 // activations) x bunch 1, 2, 4; sparsity and cdf_mm are run-time flags.
+// Four of fold_kernel: the same weight and activation types.
 
 #include <cstdint>
 #include <type_traits>
@@ -77,7 +101,9 @@
 namespace {
 
 constexpr int kThreads = 384;
-constexpr int kWarps = kThreads / 32;
+// threads of the GRU_A recurrent product; the others gather the table
+constexpr int kProdThreads = 288;
+constexpr int kDepth = 16;       // 16-byte loads issued before the first use
 constexpr int kLevels = 256;
 constexpr int kPerLane = kLevels / 32;
 constexpr int kFrame = 160;
@@ -94,21 +120,22 @@ struct Args {
   const float* lpc_rev;   // (B, L, 16)   reversed LPC coefficients
   const float* temp;      // (B, L)       sharpening temperature
   const float* u;         // (L, B, 160)  uniforms
-  const void* emb;        // (256, E)     W, mu-law embedding
-  const void* wiemb_t;    // (nE, 3Ha)    W, GRU_A input weights, k-major
+  const float* ta;        // (nE, 256, 3Ha) f32, GRU_A's folded input rows
   const void* wh_a_t;     // (Ha, 3Ha)    W, GRU_A recurrent weights, k-major
   const float* bh_a;      // (3Ha,)
-  const void* wi_b;       // (3Hb, Ha)    W, GRU_B input weights (h_a part)
-  const void* wh_b;       // (3Hb, Hb)    W
+  const void* wi_b_t;     // (Ha, 3Hb)    W, GRU_B input weights (h_a part),
+                          //              k-major
+  const void* wh_b_t;     // (Hb, 3Hb)    W, k-major
   const float* bh_b;      // (3Hb,)
-  const void* fc_w;       // (512, Hb)    W, [fc1; fc2]
+  const void* heads_t;    // (Hb, 512*bunch) W, every head's weights on h_b,
+                          //              k-major: [fc1; fc2], then block s
+                          //              = [fc3_s; fc4_s]
   const float* fc_b;      // (512,)
   const float* u2l;       // (256,)       mu-law code -> linear
-  const void* fch_t;      // (Hb+kE, 512*(bunch-1)) W, the further heads,
-                          //              k-major, block s-1 = [fc3_s; fc4_s]
+  const float* th;        // (bunch-1, kE, 256, 512) f32, the further heads'
+                          //              folded embedding rows
   const float* fch_b;     // (512*(bunch-1),)
   // int8 weights only: the f32 scales of the output rows
-  const float* s_emb;     // (E,)
   const float* s_wiemb;   // (3Ha,)
   const float* s_wh_a;    // (3Ha,)
   const float* s_wi_b;    // (3Hb,)
@@ -121,7 +148,7 @@ struct Args {
   int* trace;             // (B, L*160/bunch, trace width) or null: the
                           // decisions of each step (ops/lpcnet_sampler.py
                           // sample_plain)
-  int batch, frames, ha, hb, e_dim;
+  int batch, frames, ha, hb;
   int rb, cb, n_live;     // rb = 0: dense GRU_A
   int cdf_mm;             // 1: the cdf as TRI @ p
   float deemph;
@@ -143,6 +170,111 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ float ld(const int8_t* p) { return (float)*p; }
+
+// 16 bytes of weights, read through the read-only path, and their kN
+// values as f32.
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename W> struct Wide;
+template <> struct Wide<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+};
+template <> struct Wide<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Wide<int8_t> {
+  static constexpr int kN = 16;
+  // byte b of x ^ 0x80808080 is q + 128; as the low mantissa byte of
+  // 2^23 it gives the float 2^23 + q + 128 exactly
+  static __device__ __forceinline__ void unpack(const uint4& v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned x = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        f[4 * i + b] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + b))
+                       - 8388736.0f;
+    }
+  }
+};
+
+// acc[i] += sum over k in [k, k + D) of w[k, r0 + i] * x[k], the D loads
+// issued before the first is used; w k-major with row stride ld.
+template <typename W, int D>
+__device__ __forceinline__ void kmajor_batch(const W* w, int ld, int k,
+                                             const float* x, float* acc) {
+  constexpr int kN = Wide<W>::kN;
+  uint4 v[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) v[d] = ld16(w + (size_t)(k + d) * ld);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    float f[kN];
+    Wide<W>::unpack(v[d], f);
+    const float xk = x[k + d];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] = fmaf(f[i], xk, acc[i]);
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ void kmajor_product(const W* w, int ld, int k0,
+                                               int k1, const float* x,
+                                               float* acc) {
+  int k = k0;
+  for (; k + kDepth <= k1; k += kDepth) kmajor_batch<W, kDepth>(w, ld, k, x, acc);
+  for (; k + 4 <= k1; k += 4) kmajor_batch<W, 4>(w, ld, k, x, acc);
+  for (; k < k1; ++k) kmajor_batch<W, 1>(w, ld, k, x, acc);
+}
+
+__device__ __forceinline__ void store_rows(float* dst, const float* acc, int n) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = 0; i < n / 4; ++i)
+    d4[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                        acc[4 * i + 3]);
+}
+
+// Shares of k in a k-major product of `rows` output rows: groups of kn
+// rows over `threads` threads.
+__host__ __device__ inline int k_splits(int rows, int kn, int threads) {
+  const int groups = rows / kn;
+  return groups >= threads ? 1 : threads / groups;
+}
+
+// y = W^T x for a k-major W (k_len, rows): tasks of kN consecutive output
+// rows over one of k_splits(rows, kN, nt) shares of k, on threads t, t +
+// nt, ... of the nt given; share sp's sums go to part[sp * rows + r].
+template <typename W>
+__device__ __forceinline__ void kmajor_tasks(const W* w, int rows, int k_len,
+                                             const float* x, float* part,
+                                             int t, int nt) {
+  constexpr int kN = Wide<W>::kN;
+  const int n_grp = rows / kN, n_split = k_splits(rows, kN, nt);
+  for (int task = t; task < n_grp * n_split; task += nt) {
+    const int g = task % n_grp, sp = task / n_grp;
+    float acc[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
+    kmajor_product<W>(w + g * kN, rows, k_len * sp / n_split,
+                      k_len * (sp + 1) / n_split, x, acc);
+    store_rows(part + sp * rows + g * kN, acc, kN);
+  }
+}
 
 // A product's sum for output row r: times the row's scale with int8
 // weights (wdot: the scale applies to the output, before the bias).
@@ -274,75 +406,99 @@ __host__ __device__ constexpr int head_embeds(int bunch) {
   return bunch == 1 ? 0 : (bunch == 2 ? 2 : 3);
 }
 
-size_t smem_bytes(const Args& a, int bunch) {
-  const size_t n_emb = 2 * (size_t)bunch + 1;
-  const size_t floats = 3 * (size_t)a.ha           // h_a, rounded old and new
-                        + n_emb * a.e_dim          // e_cat
-                        + 3 * (size_t)a.hb         // h_b, rounded old and new
-                        + head_embeds(bunch) * (size_t)a.e_dim  // head embs
-                        + 2 * kLevels              // head pre-activations
-                        + 2 * kOrder               // history, lpc
-                        + kLevels + 8              // u2l, per-item scalars
-                        + 2 * kLevels;             // cdf product scratch
-  const size_t ints = kIdx + (a.rb ? 3 * (size_t)a.ha / a.rb + 1 + a.n_live : 0);
-  return floats * sizeof(float) + ints * sizeof(int);
+__host__ __device__ inline int take(int& at, int n) {
+  const int here = at;
+  at += (n + 3) & ~3;              // every array 16-byte aligned
+  return here;
 }
+
+// Shared memory, in 4-byte words from a 16-byte-aligned base.
+struct Layout {
+  int pc, ha, har, hbin, xa, part, partb, hb, hbr, hfc, fc, hist, lpc, u2l,
+      item, idx, bptr, bcol, words;
+  __host__ __device__ Layout(const Args& a, int bunch, int kn) {
+    const int ha3 = 3 * a.ha, hb3 = 3 * a.hb, n_rb = a.rb ? ha3 / a.rb : 0;
+    const int part_a = k_splits(ha3, kn, kProdThreads) * ha3;
+    const int part_b = k_splits(hb3, kn, kProdThreads) * hb3;
+    int at = 0;
+    pc = take(at, 2 * kLevels);              // cdf product: pcut, then cdf
+    ha = take(at, a.ha);                     // GRU_A state
+    har = take(at, a.ha);                    // rounded h_a (GRU_A in)
+    hbin = take(at, a.ha);                   // rounded new h_a (GRU_B in)
+    xa = take(at, ha3);                      // GRU_A's gathered input rows
+    // partial sums: GRU_A's recurrent product, then GRU_B's input one
+    part = take(at, part_a > part_b ? part_a : part_b);
+    partb = take(at, k_splits(hb3, kn, kThreads - kProdThreads) * hb3);
+    hb = take(at, a.hb);                     // GRU_B state
+    hbr = take(at, a.hb);                    // rounded old h_b
+    hfc = take(at, a.hb);                    // rounded new h_b (heads in)
+    fc = take(at, bunch * 2 * kLevels);      // the heads' pre-activations
+    hist = take(at, kOrder);                 // newest sample last
+    lpc = take(at, kOrder);                  // this frame's lpc_rev
+    u2l = take(at, kLevels);
+    item = take(at, 8);        // pred, prev_y, temp, -, e_prev[BUNCH]
+    idx = take(at, kIdx);                    // int
+    bptr = take(at, n_rb + 1);               // int
+    bcol = take(at, a.n_live);               // int
+    words = at;
+  }
+};
 
 // One thread block per batch item runs the item's whole sample loop.
 // W: weight storage; A: activations' precision (and cond's type).
 template <typename W, typename A, int BUNCH>
 __global__ void __launch_bounds__(kThreads, 1) sample_kernel(Args a) {
   using P = Prec<A>;
-  constexpr bool kW8 = std::is_same<W, int8_t>::value;
+  constexpr int kN = Wide<W>::kN;
   constexpr int kEmb = 2 * BUNCH + 1;
   constexpr int kHead = head_embeds(BUNCH);
   // decisions per step: the GRU_A indices and code 1, then for each
   // further sub-sample its head indices and code (trace_width)
   constexpr int kTrace = 2 * BUNCH + 2 + (BUNCH - 1) * (kHead + 1);
   constexpr int kSteps = kFrame / BUNCH;
-  constexpr int kHeadLd = 2 * kLevels * (BUNCH > 1 ? BUNCH - 1 : 1);
+  constexpr int kHeadRows = 2 * kLevels;
   extern __shared__ __align__(16) float smem[];
-  const int ha = a.ha, hb = a.hb, e_dim = a.e_dim, en = kEmb * a.e_dim;
+  const int ha = a.ha, hb = a.hb, ha3 = 3 * ha;
   const int frames = a.frames;
-  const int n_rb = a.rb ? 3 * ha / a.rb : 0;
+  const int n_rb = a.rb ? ha3 / a.rb : 0;
+  const int hb3 = 3 * hb;
+  const int n_grp = ha3 / kN, n_split = k_splits(ha3, kN, kProdThreads);
+  const int n_split_bi = k_splits(hb3, kN, kProdThreads);
+  const int n_split_bh = k_splits(hb3, kN, kThreads - kProdThreads);
+  constexpr int kHeadAll = BUNCH * kHeadRows;
+  // lanes that sum one GRU_B unit's shares of k: a power of two, as many
+  // as the block has for every unit at once
+  int gsz = 32;
+  while (gsz > 1 && hb * gsz > kThreads) gsz >>= 1;
   const bool cdf_mm = a.cdf_mm != 0;
-  float* s_pc = smem;             // [512] cdf product: pcut, then cdf
-  float* s_ha = s_pc + 2 * kLevels;  // [ha]  GRU_A state
-  float* s_har = s_ha + ha;       // [ha]  rounded h_a (GRU_A in)
-  float* s_hbin = s_har + ha;     // [ha]  rounded new h_a (GRU_B in)
-  float* s_ecat = s_hbin + ha;    // [nE]  GRU_A input embeddings
-  float* s_hb = s_ecat + en;      // [hb]  GRU_B state
-  float* s_hbr = s_hb + hb;       // [hb]  rounded old h_b
-  float* s_hfc = s_hbr + hb;      // [hb]  rounded new h_b (heads in)
-  float* s_h2 = s_hfc + hb;       // [kHead*E] head embeddings
-  float* s_fc = s_h2 + kHead * e_dim;  // [512] head pre-activations
-  float* s_hist = s_fc + 2 * kLevels;  // [16] newest sample last
-  float* s_lpc = s_hist + kOrder; // [16]  this frame's lpc_rev
-  float* s_u2l = s_lpc + kOrder;  // [256]
-  float* s_item = s_u2l + kLevels;  // pred, prev_y, temp, -, e_prev[BUNCH]
+  const Layout lay(a, BUNCH, kN);
+  int* smem_i = reinterpret_cast<int*>(smem);
+  float* s_pc = smem + lay.pc;
+  float* s_ha = smem + lay.ha;
+  float* s_har = smem + lay.har;
+  float* s_hbin = smem + lay.hbin;
+  float* s_xa = smem + lay.xa;
+  float* s_part = smem + lay.part;
+  float* s_partb = smem + lay.partb;
+  float* s_hb = smem + lay.hb;
+  float* s_hbr = smem + lay.hbr;
+  float* s_hfc = smem + lay.hfc;
+  float* s_fc = smem + lay.fc;
+  float* s_hist = smem + lay.hist;
+  float* s_lpc = smem + lay.lpc;
+  float* s_u2l = smem + lay.u2l;
+  float* s_item = smem + lay.item;
   float* s_eprev = s_item + 4;    // previous excitations, oldest first
-  int* s_idx = reinterpret_cast<int*>(s_item + 8);  // [kIdx]
-  int* s_bptr = s_idx + kIdx;     // [n_rb + 1]
-  int* s_bcol = s_bptr + n_rb + 1;  // [n_live]
+  int* s_idx = smem_i + lay.idx;
+  int* s_bptr = smem_i + lay.bptr;
+  int* s_bcol = smem_i + lay.bcol;
 
-  const W* emb = static_cast<const W*>(a.emb);
-  const W* wiemb_t = static_cast<const W*>(a.wiemb_t);
   const W* wh_a_t = static_cast<const W*>(a.wh_a_t);
-  const W* wi_b = static_cast<const W*>(a.wi_b);
-  const W* wh_b = static_cast<const W*>(a.wh_b);
-  const W* fc_w = static_cast<const W*>(a.fc_w);
-  const W* fch_t = static_cast<const W*>(a.fch_t);
-  // an embedding element: the table's, or q * s rounded to A
-  auto emb_at = [&](int idx, int c) -> float {
-    const float w = ld(emb + (size_t)idx * e_dim + c);
-    if constexpr (kW8) {
-      return P::round(w * a.s_emb[c]);
-    } else {
-      return w;
-    }
-  };
+  const W* wi_b_t = static_cast<const W*>(a.wi_b_t);
+  const W* wh_b_t = static_cast<const W*>(a.wh_b_t);
+  const W* heads_t = static_cast<const W*>(a.heads_t);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int b = blockIdx.x;
   float* out = a.out + (size_t)b * frames * kFrame;
   int* trace = a.trace ? a.trace + (size_t)b * frames * kSteps * kTrace
@@ -361,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, 1) sample_kernel(Args a) {
 
   for (int f = 0; f < frames; ++f) {
     const size_t bf = (size_t)b * frames + f;
-    const A* cond_a = static_cast<const A*>(a.cond_a) + bf * 3 * ha;
+    const A* cond_a = static_cast<const A*>(a.cond_a) + bf * ha3;
     const A* cond_b = static_cast<const A*>(a.cond_b) + bf * 3 * hb;
     const float* u = a.u + ((size_t)f * a.batch + b) * kFrame;
     if (tid < kOrder) s_lpc[tid] = a.lpc_rev[bf * kOrder + tid];
@@ -383,142 +539,161 @@ __global__ void __launch_bounds__(kThreads, 1) sample_kernel(Args a) {
       for (int i = tid; i < ha; i += kThreads) s_har[i] = P::round(s_ha[i]);
       for (int i = tid; i < hb; i += kThreads) s_hbr[i] = P::round(s_hb[i]);
       __syncthreads();
-      for (int i = tid; i < en; i += kThreads) {
-        const int slot = i / e_dim, c = i - slot * e_dim;
-        s_ecat[i] = emb_at(s_idx[slot], c);
+
+      // 3-4a: GRU_A's products.  The recurrent one on kProdThreads
+      // threads: kN consecutive output rows of the k-major matrix over
+      // one share of k (of the live blocks' k in the sparse form) each,
+      // into s_part; meanwhile the other warps sum the rows of the folded
+      // input table in slot order, a float4 of rows at a time, into s_xa.
+      if (tid < kProdThreads && !n_rb) {
+        kmajor_tasks<W>(wh_a_t, ha3, ha, s_har, s_part, tid, kProdThreads);
+      } else if (tid < kProdThreads) {
+        for (int task = tid; task < n_grp * n_split; task += kProdThreads) {
+          const int g = task % n_grp, sp = task / n_grp;
+          const int r0 = g * kN;
+          float acc[kN];
+#pragma unroll
+          for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
+          // the live column blocks of the row block, in pattern order, as
+          // one run of n * cb values of k, split evenly
+          const int rbk = r0 / a.rb, p0 = s_bptr[rbk];
+          const int n = (s_bptr[rbk + 1] - p0) * a.cb;
+          int q = n * sp / n_split;
+          const int q1 = n * (sp + 1) / n_split;
+          while (q < q1) {
+            const int blk = q / a.cb, off = q - blk * a.cb;
+            const int len = min(a.cb - off, q1 - q);
+            const int k0 = s_bcol[p0 + blk] * a.cb + off;
+            kmajor_product<W>(wh_a_t + r0, ha3, k0, k0 + len, s_har, acc);
+            q += len;
+          }
+          store_rows(s_part + sp * ha3 + r0, acc, kN);
+        }
+      } else {
+        for (int q = tid - kProdThreads; q < ha3 / 4;
+             q += kThreads - kProdThreads) {
+          float4 x[kEmb];
+#pragma unroll
+          for (int s = 0; s < kEmb; ++s)
+            x[s] = __ldg(reinterpret_cast<const float4*>(
+                a.ta + ((size_t)s * kLevels + s_idx[s]) * ha3) + q);
+          float4 sum = x[0];
+#pragma unroll
+          for (int s = 1; s < kEmb; ++s) {
+            sum.x += x[s].x; sum.y += x[s].y; sum.z += x[s].z; sum.w += x[s].w;
+          }
+          reinterpret_cast<float4*>(s_xa)[q] = sum;
+        }
       }
       __syncthreads();
 
-      // 3-4: GRU_A, one thread per unit j holding its r, z, n rows
+      // 4b: GRU_A's gates, one thread per unit j and its r, z, n rows;
+      // int8 scales apply after the sum over the slots (input) and over
+      // the shares of k (recurrent)
       for (int j = tid; j < ha; j += kThreads) {
-        float ax0 = 0.0f, ax1 = 0.0f, ax2 = 0.0f;
-        float ah0 = 0.0f, ah1 = 0.0f, ah2 = 0.0f;
-        const W* wx = wiemb_t + j;
-#pragma unroll 4
-        for (int k = 0; k < en; ++k) {
-          const W* row = wx + (size_t)k * 3 * ha;
-          const float x = s_ecat[k];
-          ax0 = fmaf(ld(row), x, ax0);
-          ax1 = fmaf(ld(row + ha), x, ax1);
-          ax2 = fmaf(ld(row + 2 * ha), x, ax2);
-        }
-        if (n_rb) {
-          // rows j, ha + j, 2ha + j lie in three row blocks, each with
-          // its own live list; with 64-row blocks a warp's 32 units
-          // share their row blocks, so the loops do not diverge
-          float ah[3];
+        float gx[3], gh[3];
 #pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            const int r = g * ha + j;
-            const int rbk = r / a.rb;
-            const W* wr = wh_a_t + r;
-            float acc = 0.0f;
-            for (int p = s_bptr[rbk]; p < s_bptr[rbk + 1]; ++p) {
-              const int k0 = s_bcol[p] * a.cb;
-              float part = 0.0f;
-#pragma unroll 4
-              for (int k = k0; k < k0 + a.cb; ++k)
-                part = fmaf(ld(wr + (size_t)k * 3 * ha), s_har[k], part);
-              acc += part;
-            }
-            ah[g] = acc;
-          }
-          ah0 = ah[0]; ah1 = ah[1]; ah2 = ah[2];
-        } else {
-          const W* wr = wh_a_t + j;
-#pragma unroll 4
-          for (int k = 0; k < ha; ++k) {
-            const W* row = wr + (size_t)k * 3 * ha;
-            const float x = s_har[k];
-            ah0 = fmaf(ld(row), x, ah0);
-            ah1 = fmaf(ld(row + ha), x, ah1);
-            ah2 = fmaf(ld(row + 2 * ha), x, ah2);
-          }
+        for (int g = 0; g < 3; ++g) {
+          const int r = g * ha + j;
+          float h = s_part[r];
+          for (int sp = 1; sp < n_split; ++sp) h += s_part[sp * ha3 + r];
+          gx[g] = scaled<W>(s_xa[r], a.s_wiemb, r) + ld(cond_a + r);
+          gh[g] = scaled<W>(h, a.s_wh_a, r) + a.bh_a[r];
         }
-        // int8: the recurrent scale applies after the column-block sum
-        ax0 = scaled<W>(ax0, a.s_wiemb, j);
-        ax1 = scaled<W>(ax1, a.s_wiemb, ha + j);
-        ax2 = scaled<W>(ax2, a.s_wiemb, 2 * ha + j);
-        ah0 = scaled<W>(ah0, a.s_wh_a, j);
-        ah1 = scaled<W>(ah1, a.s_wh_a, ha + j);
-        ah2 = scaled<W>(ah2, a.s_wh_a, 2 * ha + j);
-        const float r = sigmoidf((ax0 + ld(cond_a + j)) + (ah0 + a.bh_a[j]));
-        const float z = sigmoidf((ax1 + ld(cond_a + ha + j)) + (ah1 + a.bh_a[ha + j]));
-        const float n = tanhf((ax2 + ld(cond_a + 2 * ha + j)) + r * (ah2 + a.bh_a[2 * ha + j]));
+        const float r = sigmoidf(gx[0] + gh[0]);
+        const float z = sigmoidf(gx[1] + gh[1]);
+        const float n = tanhf(gx[2] + r * gh[2]);
         const float h = (1.0f - z) * n + z * s_ha[j];
         s_ha[j] = h;
         s_hbin[j] = P::round(h);
       }
       __syncthreads();
 
-      // 5: GRU_B, one warp per unit, lanes split the inner dimension
-      for (int uu = warp; uu < hb; uu += kWarps) {
-        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-        for (int k = lane; k < ha; k += 32) {
-          const float x = s_hbin[k];
-          a0 = fmaf(ld(wi_b + (size_t)uu * ha + k), x, a0);
-          a1 = fmaf(ld(wi_b + (size_t)(hb + uu) * ha + k), x, a1);
-          a2 = fmaf(ld(wi_b + (size_t)(2 * hb + uu) * ha + k), x, a2);
+      // 5: GRU_B's products as GRU_A's recurrent one, the input product
+      // on kProdThreads threads and the recurrent one on the others, then
+      // its gates, gsz lanes a unit summing the shares of k
+      if (tid < kProdThreads)
+        kmajor_tasks<W>(wi_b_t, hb3, ha, s_hbin, s_part, tid, kProdThreads);
+      else
+        kmajor_tasks<W>(wh_b_t, hb3, hb, s_hbr, s_partb, tid - kProdThreads,
+                        kThreads - kProdThreads);
+      __syncthreads();
+      // (one pass of whole warps when gsz > 1)
+      for (int t = tid; t < hb * gsz; t += kThreads) {
+        const int j = t / gsz, sub = t - j * gsz;
+        float x[3], h[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const int r = g * hb + j;
+          x[g] = 0.0f;
+          h[g] = 0.0f;
+          for (int sp = sub; sp < n_split_bi; sp += gsz) x[g] += s_part[sp * hb3 + r];
+          for (int sp = sub; sp < n_split_bh; sp += gsz) h[g] += s_partb[sp * hb3 + r];
+          for (int o = gsz / 2; o > 0; o >>= 1) {
+            x[g] += __shfl_xor_sync(kFull, x[g], o);
+            h[g] += __shfl_xor_sync(kFull, h[g], o);
+          }
         }
-        for (int k = lane; k < hb; k += 32) {
-          const float x = s_hbr[k];
-          c0 = fmaf(ld(wh_b + uu * hb + k), x, c0);
-          c1 = fmaf(ld(wh_b + (hb + uu) * hb + k), x, c1);
-          c2 = fmaf(ld(wh_b + (2 * hb + uu) * hb + k), x, c2);
-        }
-        a0 = warp_sum(a0); a1 = warp_sum(a1); a2 = warp_sum(a2);
-        c0 = warp_sum(c0); c1 = warp_sum(c1); c2 = warp_sum(c2);
-        if (lane == 0) {
-          a0 = scaled<W>(a0, a.s_wi_b, uu);
-          a1 = scaled<W>(a1, a.s_wi_b, hb + uu);
-          a2 = scaled<W>(a2, a.s_wi_b, 2 * hb + uu);
-          c0 = scaled<W>(c0, a.s_wh_b, uu);
-          c1 = scaled<W>(c1, a.s_wh_b, hb + uu);
-          c2 = scaled<W>(c2, a.s_wh_b, 2 * hb + uu);
-          const float r = sigmoidf((a0 + ld(cond_b + uu)) + (c0 + a.bh_b[uu]));
-          const float z = sigmoidf((a1 + ld(cond_b + hb + uu)) + (c1 + a.bh_b[hb + uu]));
-          const float n = tanhf((a2 + ld(cond_b + 2 * hb + uu)) + r * (c2 + a.bh_b[2 * hb + uu]));
-          const float h = (1.0f - z) * n + z * s_hb[uu];
-          s_hb[uu] = h;
-          s_hfc[uu] = P::round(h);
+        if (sub == 0) {
+          float gx[3], gh[3];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            const int r = g * hb + j;
+            gx[g] = scaled<W>(x[g], a.s_wi_b, r) + ld(cond_b + r);
+            gh[g] = scaled<W>(h[g], a.s_wh_b, r) + a.bh_b[r];
+          }
+          const float r = sigmoidf(gx[0] + gh[0]);
+          const float z = sigmoidf(gx[1] + gh[1]);
+          const float n = tanhf(gx[2] + r * gh[2]);
+          const float hn = (1.0f - z) * n + z * s_hb[j];
+          s_hb[j] = hn;
+          s_hfc[j] = P::round(hn);
         }
       }
       __syncthreads();
 
-      // 6: head 1 on all warps, one thread per output row of [fc1; fc2]
-      for (int i = tid; i < 2 * kLevels; i += kThreads) {
-        const W* row = fc_w + (size_t)i * hb;
-        float d = 0.0f;
-        for (int k = 0; k < hb; ++k) d = fmaf(ld(row + k), s_hfc[k], d);
-        s_fc[i] = scaled<W>(d, a.s_fc, i) + a.fc_b[i];
+      // 6: every head's product on h_b, k-major, kN rows a thread over the
+      // whole of k (no barrier to sum shares: at Hb 16-64 the chains are
+      // short): head 1 ([fc1; fc2]) finished with scale and bias, the
+      // further heads' h_b part kept for their sub-sample
+      for (int g = tid; g < kHeadAll / kN; g += kThreads) {
+        float acc[kN];
+#pragma unroll
+        for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
+        kmajor_product<W>(heads_t + g * kN, kHeadAll, 0, hb, s_hfc, acc);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          const int r = g * kN + i;
+          s_fc[r] = r < kHeadRows ? scaled<W>(acc[i], a.s_fc, r) + a.fc_b[r]
+                                  : acc[i];
+        }
       }
       __syncthreads();
 
 #pragma unroll
       for (int s = 0; s < BUNCH; ++s) {
+        float* fcs = s_fc + s * kHeadRows;
         if (s > 0) {
-          // 7: head s on [h_b, its kHead embeddings], one thread per row
-          // of the row block (s-1)*512 of fch (a column block of fch_t)
-          for (int i = tid; i < kHead * e_dim; i += kThreads) {
-            const int slot = i / e_dim, c = i - slot * e_dim;
-            s_h2[i] = emb_at(s_idx[kEmb + slot], c);
-          }
-          __syncthreads();
-          const int r0 = (s - 1) * 2 * kLevels;
-          for (int i = tid; i < 2 * kLevels; i += kThreads) {
-            const W* col = fch_t + r0 + i;
-            float d = 0.0f;
-            for (int k = 0; k < hb; ++k)
-              d = fmaf(ld(col + (size_t)k * kHeadLd), s_hfc[k], d);
-            for (int k = 0; k < kHead * e_dim; ++k)
-              d = fmaf(ld(col + (size_t)(hb + k) * kHeadLd), s_h2[k], d);
-            s_fc[i] = scaled<W>(d, a.s_fch, r0 + i) + a.fch_b[r0 + i];
+          // 7: head s: its h_b part plus the rows of the folded head
+          // table at its kHead indices, in slot order; int8 scales after
+          // the whole sum
+          const float* tab = a.th + (size_t)(s - 1) * kHead * kLevels * kHeadRows;
+          for (int i = tid; i < kHeadRows; i += kThreads) {
+            float x[kHead > 0 ? kHead : 1];
+#pragma unroll
+            for (int k = 0; k < kHead; ++k)
+              x[k] = __ldg(tab + ((size_t)k * kLevels + s_idx[kEmb + k]) * kHeadRows + i);
+            float e = x[0];
+#pragma unroll
+            for (int k = 1; k < kHead; ++k) e += x[k];
+            const int r = (s - 1) * kHeadRows + i;
+            fcs[i] = scaled<W>(fcs[i] + e, a.s_fch, r) + a.fch_b[r];
           }
           __syncthreads();
         }
         // draw (warp 0, or the block for the cdf product), then thread 0
         // emits the sample
-        const int code = draw<P>(s_fc, s_item[2], u[BUNCH * t + s], cdf_mm,
+        const int code = draw<P>(fcs, s_item[2], u[BUNCH * t + s], cdf_mm,
                                  s_pc, tid);
         if (tid == 0) {
           const float e = s_u2l[code];
@@ -563,7 +738,7 @@ __global__ void __launch_bounds__(kThreads, 1) sample_kernel(Args a) {
 
 template <typename W, typename A, int BUNCH>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a, BUNCH);
+  const size_t smem = (size_t)Layout(a, BUNCH, Wide<W>::kN).words * 4;
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       sample_kernel<W, A, BUNCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -583,39 +758,96 @@ cudaError_t launch_bunch(const Args& a, int bunch, cudaStream_t stream) {
   }
 }
 
+struct FoldArgs {
+  const void* w;          // (rows, ld) W, k-major weights
+  const void* emb;        // (levels, E) W, mu-law embedding
+  const float* s_emb;     // (E,) its int8 scales, or null
+  float* out;             // (n_pos, n_slot, levels, cols) f32
+  int ld, row0, n_slot, cols, e_dim, levels;
+};
+
+constexpr int kFoldThreads = 128;
+
+// out[p, s, code, col] = sum_c w[row0 + s*E + c, p*cols + col] *
+// emb_A(code, c), one thread per output element, the sum over c in
+// order.  Block (col tile, code, p * n_slot + s); the embedding row,
+// rounded to A as the sampler's plain version rounds it, is staged in
+// shared memory.
+template <typename W, typename A>
+__global__ void __launch_bounds__(kFoldThreads) fold_kernel(FoldArgs f) {
+  extern __shared__ float s_e[];
+  const int code = blockIdx.y, ps = blockIdx.z;
+  const int p = ps / f.n_slot, s = ps - p * f.n_slot;
+  const W* emb = static_cast<const W*>(f.emb) + (size_t)code * f.e_dim;
+  for (int c = threadIdx.x; c < f.e_dim; c += kFoldThreads) {
+    const float e = ld(emb + c);
+    if constexpr (std::is_same<W, int8_t>::value) {
+      s_e[c] = Prec<A>::round(e * f.s_emb[c]);
+    } else {
+      s_e[c] = e;
+    }
+  }
+  __syncthreads();
+  const int col = blockIdx.x * kFoldThreads + threadIdx.x;
+  if (col >= f.cols) return;
+  const W* w = static_cast<const W*>(f.w) + (size_t)(f.row0 + s * f.e_dim) * f.ld
+               + (size_t)p * f.cols + col;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < f.e_dim; ++c) acc = fmaf(ld(w + (size_t)c * f.ld), s_e[c], acc);
+  f.out[((size_t)ps * f.levels + code) * f.cols + col] = acc;
+}
+
+template <typename W, typename A>
+cudaError_t launch_fold(const FoldArgs& f, int n_pos, cudaStream_t stream) {
+  const dim3 grid((f.cols + kFoldThreads - 1) / kFoldThreads, f.levels,
+                  n_pos * f.n_slot);
+  fold_kernel<W, A><<<grid, kFoldThreads, f.e_dim * sizeof(float), stream>>>(f);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
 // Returns a cudaError_t code: 0 when the kernel was launched.  act_bf16
 // selects the activations' precision; the weights are int8 with w8, else
-// of that precision.
+// of that precision.  The weights and tables must be 16-byte aligned, Ha
+// and Hb multiples of 16, and a sparse row block a multiple of 16 rows.
 extern "C" int fpsc_lpcnet_sample(
     int act_bf16, int bunch, int w8, int cdf_mm,
     const void* cond_a, const void* cond_b, const float* lpc_rev,
-    const float* temp, const float* u, const void* emb,
-    const void* wiemb_t, const void* wh_a_t, const float* bh_a,
-    const void* wi_b, const void* wh_b, const float* bh_b,
-    const void* fc_w, const float* fc_b, const float* u2l,
-    const void* fch_t, const float* fch_b,
-    const float* s_emb, const float* s_wiemb, const float* s_wh_a,
+    const float* temp, const float* u, const float* ta,
+    const void* wh_a_t, const float* bh_a,
+    const void* wi_b_t, const void* wh_b_t, const float* bh_b,
+    const void* heads_t, const float* fc_b, const float* u2l,
+    const float* th, const float* fch_b,
+    const float* s_wiemb, const float* s_wh_a,
     const float* s_wi_b, const float* s_wh_b, const float* s_fc,
     const float* s_fch,
     const int* blk_ptr, const int* blk_col, float* out, int* trace,
-    int batch, int frames, int ha, int hb, int e_dim, int rb, int cb,
+    int batch, int frames, int ha, int hb, int rb, int cb,
     int n_live, float deemph, void* stream) {
-  if (batch <= 0 || frames <= 0 || ha <= 0 || hb <= 0 || e_dim <= 0 ||
-      (bunch != 1 && bunch != 2 && bunch != 4) ||
-      (bunch > 1 && (!fch_t || !fch_b)))
+  if (batch <= 0 || frames <= 0 || ha <= 0 || hb <= 0 || ha % 16 ||
+      hb % 16 || (bunch != 1 && bunch != 2 && bunch != 4) || !ta ||
+      (bunch > 1 && (!th || !fch_b)))
     return (int)cudaErrorInvalidValue;
-  if (w8 && (!s_emb || !s_wiemb || !s_wh_a || !s_wi_b || !s_wh_b || !s_fc ||
+  const void* wide[] = {ta, wh_a_t, wi_b_t, wh_b_t, heads_t, th};
+  for (const void* p : wide)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  if (w8 && (!s_wiemb || !s_wh_a || !s_wi_b || !s_wh_b || !s_fc ||
              (bunch > 1 && !s_fch)))
     return (int)cudaErrorInvalidValue;
-  if (rb != 0 && (rb < 0 || cb <= 0 || (3 * ha) % rb != 0 || ha % cb != 0 ||
-                  n_live < 0 || !blk_ptr || (n_live > 0 && !blk_col)))
+  if (rb != 0 && (rb < 0 || rb % 16 || cb <= 0 || (3 * ha) % rb != 0 ||
+                  ha % cb != 0 || n_live < 0 || !blk_ptr ||
+                  (n_live > 0 && !blk_col)))
     return (int)cudaErrorInvalidValue;
-  Args a{cond_a, cond_b, lpc_rev, temp, u, emb, wiemb_t, wh_a_t, bh_a,
-         wi_b, wh_b, bh_b, fc_w, fc_b, u2l, fch_t, fch_b,
-         s_emb, s_wiemb, s_wh_a, s_wi_b, s_wh_b, s_fc, s_fch,
-         blk_ptr, blk_col, out, trace, batch, frames, ha, hb, e_dim,
+  Args a{cond_a, cond_b, lpc_rev, temp, u, ta, wh_a_t, bh_a,
+         wi_b_t, wh_b_t, bh_b, heads_t, fc_b, u2l, th, fch_b,
+         s_wiemb, s_wh_a, s_wi_b, s_wh_b, s_fc, s_fch,
+         blk_ptr, blk_col, out, trace, batch, frames, ha, hb,
          rb, cb, n_live, cdf_mm, deemph};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
@@ -626,5 +858,30 @@ extern "C" int fpsc_lpcnet_sample(
   else
     err = act_bf16 ? launch_bunch<bf16, bf16>(a, bunch, s)
                    : launch_bunch<float, float>(a, bunch, s);
+  return (int)err;
+}
+
+// The folded embedding table of a k-major weight: out (n_pos, n_slot,
+// levels, cols) f32, out[p, s, code, col] = sum over c < e_dim of
+// w[row0 + s*e_dim + c, p*cols + col] * emb_A(code, c), w of row stride
+// ld.  Returns a cudaError_t code: 0 when the kernel was launched.
+extern "C" int fpsc_lpcnet_fold(
+    int act_bf16, int w8, const void* w, int ld, int row0, int n_pos,
+    int n_slot, int cols, const void* emb, const float* s_emb, int e_dim,
+    int levels, float* out, void* stream) {
+  if (!w || !emb || !out || ld <= 0 || row0 < 0 || n_pos <= 0 ||
+      n_slot <= 0 || cols <= 0 || n_pos * cols > ld || e_dim <= 0 ||
+      levels <= 0 || (w8 && !s_emb))
+    return (int)cudaErrorInvalidValue;
+  FoldArgs f{w, emb, s_emb, out, ld, row0, n_slot, cols, e_dim, levels};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (w8)
+    err = act_bf16 ? launch_fold<int8_t, bf16>(f, n_pos, s)
+                   : launch_fold<int8_t, float>(f, n_pos, s);
+  else
+    err = act_bf16 ? launch_fold<bf16, bf16>(f, n_pos, s)
+                   : launch_fold<float, float>(f, n_pos, s);
   return (int)err;
 }

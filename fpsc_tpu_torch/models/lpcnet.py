@@ -70,8 +70,9 @@ def frame_net(model: LPCNet, feat: torch.Tensor,
     """(B, L, 20) features + (B, L) int periods -> (B, L, 128) cond.
 
     Two k=3 'same' convolutions (padding 1), then two dense layers, all
-    tanh.  On the card, keep `torch.backends.cudnn.allow_tf32` off for
-    f32 parity: cuDNN's TF32 default would round the convolutions.
+    tanh.  On the card, run it under `utils.device.no_tf32` for f32
+    parity (`lpcnet_sampler.prepare` does): cuDNN's TF32 default would
+    round the convolutions.
     """
     emb = model.period_emb(torch.clamp(periods.long(), 0, 511))
     x = torch.cat([feat, emb], dim=-1).transpose(1, 2)      # (B, C, L)

@@ -15,10 +15,18 @@ cdf as a log-step scan or as a product with a triangle of ones:
   (rb, cb) blocks of GRU_A's recurrent matrix; a pattern goes into
   `prepare(gru_a_pattern=...)` and selects the kernel's sparse form.
 * `sample` (pallas_sample, 659-706): checks the operands and launches
-  the hand-written CUDA kernel csrc/lpcnet_sampler.cu on a CUDA
-  tensor; on a CPU tensor it runs `sample_plain`.  It never falls back
+  the hand-written CUDA kernels of csrc/lpcnet_sampler.cu on a CUDA
+  tensor: `fold` builds the embedding tables, then the sampler kernel
+  runs; on a CPU tensor it runs `sample_plain`.  It never falls back
   from the card to the CPU.  `generate` (pallas_generate, 709-761) is
   `sample(*prepare(...))`.
+* `fold` / `fold_plain`: an embedding input is a row of a 256-entry
+  table, so its product with a block of weights (emb_many / emb_of and
+  wdot(wiemb_ref, e_cat), 150-183 and 262; the heads' embedding part of
+  wdot(fch_ref, ...)) is the sum over the slots of precomputable rows.
+  `fold` takes them with the kernel fpsc_lpcnet_fold on the card, on the
+  operands `sample` is given, so that every change to the weights
+  reaches the tables; `fold_plain` is the same function in PyTorch.
 * `sample_plain`: the same arithmetic in plain PyTorch, a Python loop
   over GRU steps vectorised over the batch (on the card, one frame of
   it recorded as a CUDA graph and replayed frame by frame).  The CPU
@@ -58,7 +66,11 @@ Internal operand layouts are the card's, not the TPU's feature-major
 ones: per-frame streams are (B, L, F), and the GRU_A and head weights
 are stored k-major (transposed) so that one thread per output reads
 them coalesced.  int8 weights are quantised per output row in JAX's
-(R, C) layout first, and transposed after.
+(R, C) layout first, and transposed after.  `sample` gives the kernel
+GRU_B's and every head's weights on h_b k-major too (`kernel_weights`:
+transposes of wi_b, wh_b and fc_w beside fch_t's first Hb rows) and the
+folded tables in place of wiemb_t and fch_t's
+embedding rows; SamplerOperands stay as `prepare` makes them.
 """
 from __future__ import annotations
 
@@ -74,7 +86,7 @@ from fpsc_tpu_torch.dsp.mulaw import l2u_index, u2l
 from fpsc_tpu_torch.models.gru import gate_update
 from fpsc_tpu_torch.models.lpcnet import excitation_cdf, frame_net, round_to
 from fpsc_tpu_torch.ops import build
-from fpsc_tpu_torch.utils.device import host_array
+from fpsc_tpu_torch.utils.device import host_array, no_tf32
 
 SOURCE = "lpcnet_sampler.cu"
 # Embeddings into each further sub-sample's head: bunch=2 [x1, pred2],
@@ -97,6 +109,8 @@ KERNELS = {(b, s, w, c): _form_name(b, s, w, c) for b in HEAD_EMBEDS
            for s in (False, True) for w in (False, True)
            for c in (False, True)}
 KERNEL = KERNELS[(1, False, False, False)]
+# Launch counter of the fold kernel, one launch a table.
+FOLD_KERNEL = "lpcnet_fold"
 
 Pattern = Tuple[Tuple[int, ...], ...]
 
@@ -268,10 +282,13 @@ def prepare(model, feat: torch.Tensor, periods: torch.Tensor,
     if corr is None:
         corr = torch.clamp(feat[..., 19] * C.MAXI, -0.5, 0.5)
 
-    cond = frame_net(base, feat, periods)
     wi_a, wi_b = base.gru_a.wi, base.gru_b.wi
-    cond_a = cond @ wi_a[:, n_emb * e_dim:].T + base.gru_a.bi   # (B, L, 3Ha)
-    cond_b = cond @ wi_b[:, ha:].T + base.gru_b.bi              # (B, L, 3Hb)
+    # the conditioning in full f32 on the card too, whatever the caller's
+    # TF32 settings
+    with no_tf32():
+        cond = frame_net(base, feat, periods)
+        cond_a = cond @ wi_a[:, n_emb * e_dim:].T + base.gru_a.bi  # (B, L, 3Ha)
+        cond_b = cond @ wi_b[:, ha:].T + base.gru_b.bi             # (B, L, 3Hb)
     # no upper clamp: reference src/train.py:81
     temp = 1.0 + torch.clamp(1.5 * corr - 0.5, min=0.0)
 
@@ -362,6 +379,129 @@ class Replay(NamedTuple):
     index_margin: float    # largest distance of a mu-law input outside the
                            # rounding interval of the other's index
     indices: int           # embedding indices replayed
+
+
+def emb_rows(ops: SamplerOperands, meta: SamplerMeta) -> torch.Tensor:
+    """The mu-law embedding (levels, E) in f32 as it enters a product:
+    the table's values, or with int8 weights q * s in f32 rounded to the
+    activations' precision."""
+    emb = ops.emb.float()
+    return round_to(emb * ops.s_emb, meta.dtype) if meta.w8 else emb
+
+
+class FoldSpec(NamedTuple):
+    """Where a table's weights lie in a k-major operand: the rows
+    row0 + s*E + c of slot s, the columns p*cols ... of position p."""
+    row0: int
+    n_pos: int
+    n_slot: int
+    cols: int
+
+
+def fold_spec(meta: SamplerMeta, head: bool = False) -> FoldSpec:
+    """GRU_A's input table (from wiemb_t: 2*bunch+1 slots, 3Ha columns),
+    or with `head` the further heads' one (from fch_t's embedding rows:
+    bunch-1 positions of HEAD_EMBEDS[bunch] slots, 2*levels columns)."""
+    if head:
+        return FoldSpec(meta.hb, meta.bunch - 1, HEAD_EMBEDS[meta.bunch],
+                        2 * meta.levels)
+    return FoldSpec(0, 1, 2 * meta.bunch + 1, 3 * meta.ha)
+
+
+@torch.no_grad()
+def fold_plain(w_t: torch.Tensor, emb: torch.Tensor,
+               spec: FoldSpec) -> torch.Tensor:
+    """The folded table of the k-major weight w_t and the embedding rows
+    emb (levels, E) f32 -> (n_pos, n_slot, levels, cols) f32:
+    out[p, s, code, col] = sum_c w_t[row0 + s*E + c, p*cols + col] *
+    emb[code, c].  Gathering the rows of a slot's indices and summing
+    them over the slots gives the unfolded product on the concatenated
+    embeddings, up to the order of the f32 sums; with int8 weights the
+    output rows' scales apply after that sum."""
+    e = emb.shape[1]
+    w = w_t[spec.row0:spec.row0 + spec.n_slot * e].float().reshape(
+        spec.n_slot, e, spec.n_pos, spec.cols).permute(2, 0, 1, 3)
+    return torch.matmul(emb.float(), w)
+
+
+@torch.no_grad()
+def fold(ops: SamplerOperands, meta: SamplerMeta,
+         head: bool = False) -> torch.Tensor:
+    """fold_plain of GRU_A's input weights (or with `head`, of the
+    further heads' embedding rows) and the embedding, as the sampler
+    kernel takes it: on a CUDA tensor the kernel fpsc_lpcnet_fold (or
+    raise), on a CPU tensor fold_plain."""
+    spec = fold_spec(meta, head)
+    w_t = ops.fch_t if head else ops.wiemb_t
+    dev = w_t.device
+    if dev.type == "cpu":
+        return fold_plain(w_t, emb_rows(ops, meta), spec)
+    if dev.type != "cuda":
+        raise ValueError(f"the fold runs on cuda or cpu, not {dev}")
+    lib = _library()
+    out = torch.empty((spec.n_pos, spec.n_slot, meta.levels, spec.cols),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.count_launch(FOLD_KERNEL)
+        err = lib.fpsc_lpcnet_fold(
+            int(meta.dtype == torch.bfloat16), int(meta.w8), w_t.data_ptr(),
+            w_t.shape[1], spec.row0, spec.n_pos, spec.n_slot, spec.cols,
+            ops.emb.data_ptr(), ops.s_emb.data_ptr() if meta.w8 else None,
+            meta.e_dim, meta.levels, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{FOLD_KERNEL} kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def fold_tolerance(e_dim: int) -> float:
+    """The largest |fold - fold_plain| allowed, as a share of the sum of
+    the terms' magnitudes (|emb| @ |w|): two orders of an n-term f32 sum
+    part by at most n * 2^-24 of it each, with one rounding more for an
+    f32 product (the bf16 and int8 products are exact)."""
+    return 2.0 * (e_dim + 1) * 2.0 ** -24
+
+
+@torch.no_grad()
+def check_fold(ops: SamplerOperands, meta: SamplerMeta, table: torch.Tensor,
+               head: bool = False) -> float:
+    """Hold a table from `fold` to fold_plain on the same operands,
+    element by element within fold_tolerance of the terms' magnitudes
+    -> max |table - fold_plain|; raise RuntimeError beyond."""
+    spec = fold_spec(meta, head)
+    w_t = ops.fch_t if head else ops.wiemb_t
+    emb = emb_rows(ops, meta)
+    want = fold_plain(w_t, emb, spec)
+    mag = fold_plain(w_t.float().abs(), emb.abs(), spec)
+    err = (table - want).abs()
+    over = err - fold_tolerance(meta.e_dim) * mag
+    if tuple(table.shape) != tuple(want.shape) or bool((over > 0).any()):
+        raise RuntimeError(f"the {'head' if head else 'GRU_A'} table of "
+                           f"shape {tuple(table.shape)} differs from "
+                           f"fold_plain's {tuple(want.shape)} by up to "
+                           f"{float(err.max()):.3g}, beyond the f32 "
+                           "summation-order tolerance")
+    return float(err.max())
+
+
+class KernelWeights(NamedTuple):
+    """GRU_B's and the heads' weights k-major, as the sampler kernel reads
+    them, kN consecutive output rows in 16 bytes."""
+    wi_b_t: torch.Tensor     # (Ha, 3Hb)   wi_b transposed
+    wh_b_t: torch.Tensor     # (Hb, 3Hb)   wh_b transposed
+    heads_t: torch.Tensor    # (Hb, 2*levels*bunch) [fc_w^T, fch_t[:Hb]]:
+                             #             every head's weights on h_b
+
+
+@torch.no_grad()
+def kernel_weights(ops: SamplerOperands, meta: SamplerMeta) -> KernelWeights:
+    """The kernel's layout of GRU_B's and the heads' weights: transposes
+    of the operands (and the heads' h_b rows of fch_t as they are), each
+    a new contiguous tensor."""
+    heads = [ops.fc_w.T] + ([ops.fch_t[:meta.hb]] if meta.bunch > 1 else [])
+    return KernelWeights(ops.wi_b.T.contiguous(), ops.wh_b.T.contiguous(),
+                         torch.cat(heads, 1).contiguous())
 
 
 def _recurrent_a(wh_a_t: torch.Tensor, meta: SamplerMeta):
@@ -489,11 +629,7 @@ def _plain(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False,
     wi_b_t, wh_b_t = ops.wi_b.float().T, ops.wh_b.float().T
     fc_w_t = ops.fc_w.float().T
     recurrent = _recurrent_a(ops.wh_a_t.float(), meta)
-    emb = ops.emb.float()
-    if meta.w8:
-        # an embedding row is q * s in f32, rounded to the activations'
-        # precision where it enters a product
-        emb = round_to(emb * ops.s_emb, dt)
+    emb = emb_rows(ops, meta)
 
     def scaled(y, s):
         """A product's output rows times their int8 scales."""
@@ -731,31 +867,57 @@ def _pattern_arrays(meta: SamplerMeta, device):
             torch.tensor(cols, dtype=torch.int32, device=device))
 
 
+def _check_alignment(ops: SamplerOperands, meta: SamplerMeta) -> None:
+    """The kernel's 16-byte weight loads: Ha and Hb multiples of 16 (so
+    every weight row spans whole 16-byte chunks, 16 int8 the widest), a
+    sparse row block of a multiple of 16 rows, and GRU_A's recurrent
+    weights, the one operand the kernel reads as it is given (the others
+    it reads from `fold`'s tables and `kernel_weights`' copies), at a
+    16-byte-aligned address."""
+    if meta.ha % 16 or meta.hb % 16:
+        raise ValueError(f"the sampler kernel takes GRU widths that are "
+                         f"multiples of 16, not Ha {meta.ha}, Hb {meta.hb}")
+    if meta.pattern is not None and meta.block[0] % 16:
+        raise ValueError(f"the sampler kernel takes row blocks of a "
+                         f"multiple of 16 rows, not {meta.block[0]}")
+    if ops.wh_a_t.data_ptr() % 16:
+        raise ValueError("sampler operand wh_a_t is not 16-byte aligned")
+
+
 def _library():
     lib = build.load(SOURCE)
-    fn = lib.fpsc_lpcnet_sample
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] * 4
-                       + [p] * (len(SamplerOperands._fields) + 4)
-                       + [ctypes.c_int] * 8 + [ctypes.c_float, p])
-        fn.restype = ctypes.c_int
-    return fn
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if lib.fpsc_lpcnet_sample.argtypes is None:
+        # 4 flags, 26 pointers (streams, tables, weights, scales, the
+        # pattern, out, trace), 7 sizes, deemphasis, stream
+        lib.fpsc_lpcnet_sample.argtypes = ([i] * 4 + [p] * 26 + [i] * 7
+                                           + [ctypes.c_float, p])
+        lib.fpsc_lpcnet_sample.restype = i
+        lib.fpsc_lpcnet_fold.argtypes = ([i, i, p] + [i] * 5
+                                         + [p, p, i, i, p, p])
+        lib.fpsc_lpcnet_fold.restype = i
+    return lib
 
 
 def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
     """Run the sampler on the operands' device -> (B, L*160) f32, and
     with trace=True also its int32 trace (sample_plain).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run
-    sample_plain."""
+    CUDA tensors launch the kernels (or raise): the fold of the
+    embedding tables from these operands, then the sampler on the same
+    stream.  CPU tensors run sample_plain."""
     _check(ops, meta)
     dev = ops.u.device
     if dev.type == "cpu":
         return sample_plain(ops, meta, trace=trace)
     if dev.type != "cuda":
         raise ValueError(f"the sampler runs on cuda or cpu, not {dev}")
-    fn = _library()
+    _check_alignment(ops, meta)
+    fn = _library().fpsc_lpcnet_sample
+    empty = torch.empty((0,), dtype=torch.float32, device=dev)
+    ta = fold(ops, meta)
+    th = fold(ops, meta, head=True) if meta.bunch > 1 else empty
+    kw = kernel_weights(ops, meta)
     n = meta.frames * C.FRAME_SIZE
     out = torch.empty((meta.batch, n), dtype=torch.float32, device=dev)
     tr = (torch.empty((meta.batch, n // meta.bunch, trace_width(meta.bunch)),
@@ -771,9 +933,15 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
         build.count_launch(name)
         err = fn(int(meta.dtype == torch.bfloat16), meta.bunch,
                  int(meta.w8), int(meta.cdf_mm),
-                 *[x.data_ptr() for x in ops], *block_ptrs,
-                 out.data_ptr(), tr.data_ptr() if trace else None,
-                 meta.batch, meta.frames, meta.ha, meta.hb, meta.e_dim,
+                 *[x.data_ptr() for x in (
+                     ops.cond_a, ops.cond_b, ops.lpc_rev, ops.temp, ops.u,
+                     ta, ops.wh_a_t, ops.bh_a, kw.wi_b_t, kw.wh_b_t,
+                     ops.bh_b, kw.heads_t, ops.fc_b, ops.u2l, th,
+                     ops.fch_b, ops.s_wiemb, ops.s_wh_a, ops.s_wi_b,
+                     ops.s_wh_b, ops.s_fc, ops.s_fch)],
+                 *block_ptrs, out.data_ptr(),
+                 tr.data_ptr() if trace else None,
+                 meta.batch, meta.frames, meta.ha, meta.hb,
                  rb, cb, n_live, meta.deemphasis, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -40,3 +40,21 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuDNN's convolutions and for CUDA float32 matmuls
+    inside the block, both settings restored after it.  PyTorch's
+    default lets cuDNN round a float32 convolution's inputs to TF32 (about
+    three decimal digits); the port's float32 arithmetic is full
+    float32, as the reference's."""
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -15,6 +15,10 @@ runs too, so the card check and these tests hold the kernel to the same
 wrong samplers.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -325,7 +329,10 @@ def test_bunched_and_sparse_kernels_match_plain_version(cuda_device, form,
     got, trace = ts.sample(ops, meta, trace=True)
     torch.cuda.synchronize()
     assert build.launch_counts[ts.kernel_name(meta)] == 1
-    assert sum(build.launch_counts.values()) == 1
+    # one fold a table: GRU_A's, and the further heads' above bunch=1
+    folds = 1 + (meta.bunch > 1)
+    assert build.launch_counts[ts.FOLD_KERNEL] == folds
+    assert sum(build.launch_counts.values()) == 1 + folds
     assert ts.replay_faults(ts.replay_plain(ops, meta, got, trace),
                             dtype) == []
     want = ts.sample_plain(ops, meta)
@@ -342,6 +349,104 @@ def test_bunched_and_sparse_kernels_on_wrong_operands_fail_the_replay(
     ops, meta = _form_operands(form, dtype, device=cuda_device)
     other = ts.sample(*wrong(ops, meta), trace=True)
     assert ts.replay_faults(ts.replay_plain(ops, meta, *other), dtype)
+
+
+# (bunch, activations' precision, int8 weights) of the fold's cases
+FOLD_CASES = [(b, dt, w8) for b in (1, 2, 4) for dt in DTYPES
+              for w8 in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bunch,dtype,w8", FOLD_CASES,
+                         ids=[f"bunch{b}-{str(d)[6:]}{'-int8' * w}"
+                              for b, d, w in FOLD_CASES])
+def test_fold_kernel_matches_plain_version(cuda_device, bunch, dtype, w8):
+    """fpsc_lpcnet_fold gives fold_plain's tables, GRU_A's and the
+    further heads', within the f32 summation-order tolerance
+    (lpcnet_sampler.check_fold), one launch a table."""
+    ops, meta = _operands(dtype, bunch=bunch, w8=w8, device=cuda_device)
+    for head in (False, True)[:1 + (bunch > 1)]:
+        build.reset_launch_counts()
+        table = ts.fold(ops, meta, head=head)
+        torch.cuda.synchronize()
+        assert build.launch_counts[ts.FOLD_KERNEL] == 1
+        assert table.device.type == "cuda"
+        ts.check_fold(ops, meta, table, head=head)
+
+
+@pytest.mark.cuda
+def test_sampler_refuses_a_misaligned_operand(cuda_device):
+    """The kernel reads its weights 16 bytes at a time: an operand that
+    starts 2 bytes off is refused before any launch."""
+    ops, meta = _operands(torch.bfloat16, device=cuda_device)
+    w = torch.empty(ops.wh_a_t.numel() + 1, dtype=ops.wh_a_t.dtype,
+                    device=cuda_device)[1:].view(ops.wh_a_t.shape)
+    w.copy_(ops.wh_a_t)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="wh_a_t is not 16-byte aligned"):
+        ts.sample(ops._replace(wh_a_t=w), meta)
+    assert sum(build.launch_counts.values()) == 0
+
+
+# Run in a fresh process, with PyTorch's default TF32 settings (cuDNN's
+# on): decode_file on the card, recording the conditioning frame_net
+# gives inside prepare and the settings it ran under; the same frame_net
+# on the CPU in f32; and for comparison the card's frame_net with TF32
+# left on.
+_DEFAULT_SETTINGS_DECODE = """
+import copy, json, sys, tempfile
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from fpsc_tpu_torch.codec import cli
+from fpsc_tpu_torch.ops import lpcnet_sampler
+torch.set_grad_enabled(False)
+defaults = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+frame_net, seen = lpcnet_sampler.frame_net, []
+
+def recording(model, feat, periods):
+    cond = frame_net(model, feat, periods)
+    seen.append((model, feat, periods, cond, torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32))
+    return cond
+
+lpcnet_sampler.frame_net = recording
+with tempfile.TemporaryDirectory() as work:
+    cfg = cs._config(cs.FLAGSHIP, "")
+    stream, cb_path, _ = cs._write_stream(work, cfg, 2, 8, "tf32")
+    cli.decode_file(cs._config(cs.FLAGSHIP, cb_path), stream,
+                    work + "/wav", device="cuda")
+model, feat, periods, cond, cudnn, matmul = seen[0]
+want = frame_net(copy.deepcopy(model).cpu(), feat.cpu(), periods.cpu())
+tf32 = frame_net(model, feat, periods)
+print(json.dumps(dict(
+    defaults=defaults, inside=(cudnn, matmul),
+    after=(torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32),
+    err=float((cond.cpu() - want).abs().max()),
+    tf32_err=float((tf32.cpu() - want).abs().max()),
+    peak=float(want.abs().max()))))
+"""
+
+
+@pytest.mark.cuda
+def test_default_settings_decode_computes_f32_conditioning(cuda_device):
+    """A user's decode with PyTorch's defaults: decode_file's
+    conditioning (frame_net's two convolutions and dense layers, inside
+    prepare) is the f32 one, the CPU's within f32 rounding (atol 1e-5 on
+    tanh outputs), computed with TF32 off, and the caller's settings
+    stand after it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _DEFAULT_SETTINGS_DECODE,
+                          root], capture_output=True, text=True,
+                         timeout=600, cwd=root)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["defaults"] == [True, False]
+    assert got["inside"] == [False, False]
+    assert got["after"] == got["defaults"]
+    assert got["err"] <= 1e-5, got
 
 
 PROBES = {"gates": probe_gates, "draw_tail": probe_draw_tail,
