@@ -15,8 +15,9 @@ exit and no result line:
    in f32 too (tests/test_torch_card.py checks that in a fresh process);
 3. the fold: fpsc_lpcnet_fold against fold_plain on the card at full
    width, GRU_A's input table and the heads' table of bunch 1, 2 and 4
-   in f32, bf16 and int8 (bf16 activations): the products are exact, so
-   only the order of the 128-term f32 sums may differ
+   (both in one launch, as `sample` takes them) in f32, bf16 and int8
+   (bf16 activations): the products are exact, so only the order and
+   rounding of the 128-term f32 sums may differ
    (lpcnet_sampler.check_fold: 2 * 129 * 2^-24 of the sum of the
    terms' magnitudes, element by element);
 3b. kernel vs plain, short window: each form of the LPCNet sampler
@@ -64,7 +65,8 @@ exit and no result line:
    GRU step; the bound of the work from its shapes, with the embedding
    products folded (and, beside it, the bound of the unfolded work); the
    other forms timed on the same inputs; at the flagship the fold alone
-   against fold_plain and one torch.matmul a table;
+   (both tables, one launch) against fold_plain and one torch.matmul a
+   table;
 7. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
    weights_int8=True) on the flagship's features and vocoder must launch
    the bunch=2 sparse int8 form and give what sample(*prepare(...))
@@ -348,6 +350,12 @@ def probes(dev):
             want = probe.run_plain(arm, *ops)
             torch.cuda.synchronize()
             err = probe.check(arm, got, want)
+            if probe is probe_i8_matmul and arm == "bf16":
+                probe.check_kernel_repeats(*ops)
+                step_err = probe.check_kernel_products(*ops)
+                print(f"{name} {arm}: 8 runs bit for bit alike; products "
+                      f"1-4 each within a bf16 step of a plain product "
+                      f"(max |difference| {step_err:.3g}): ok")
             plain_ms = timing.median_ms(lambda: probe.run_plain(arm, *ops),
                                         got, reps=PLAIN_REPS)
             bound_ms, bound_by = probe.bound(arm, *geometry)
@@ -418,7 +426,8 @@ def _window_inputs(dev, rng):
 
 def fold_check(dev):
     """fpsc_lpcnet_fold against fold_plain at full width: both tables of
-    bunch 1, 2 and 4 in f32, bf16 and int8 with bf16 activations."""
+    bunch 1, 2 and 4, in one launch, in f32, bf16 and int8 with bf16
+    activations."""
     phase("fold vs fold_plain, full width")
     inputs = _window_inputs(dev, np.random.RandomState(4))
     for bunch in (1, 2, 4):
@@ -427,9 +436,10 @@ def fold_check(dev):
                           (torch.bfloat16, True)):
             ops, meta = lpcnet_sampler.prepare(model, *inputs, dtype=dtype,
                                                weights_int8=w8)
+            tables = lpcnet_sampler.fold_tables(ops, meta)
+            torch.cuda.synchronize()
             for head in (False, True)[:1 + (bunch > 1)]:
-                table = lpcnet_sampler.fold(ops, meta, head=head)
-                torch.cuda.synchronize()
+                table = tables[int(head)]
                 err = lpcnet_sampler.check_fold(ops, meta, table, head=head)
                 print(f"bunch={bunch} {dtype}{' int8' if w8 else ''} "
                       f"{'head' if head else 'GRU_A'} table "
@@ -840,7 +850,7 @@ def fold_row(dev, run):
     heads = (False, True)[:1 + (meta.bunch > 1)]
 
     def kernel():
-        return [lpcnet_sampler.fold(ops, meta, head=h) for h in heads]
+        return lpcnet_sampler.fold_tables(ops, meta)[:len(heads)]
 
     def plain():
         return [lpcnet_sampler.fold_plain(
@@ -868,7 +878,8 @@ def fold_row(dev, run):
     plain_ms = timing.median_ms(plain, emb, reps=PLAIN_REPS)
     library_ms = timing.median_ms(library, emb)
     bound_ms, bound_by = fold_bound(ops, meta)
-    print(f"fold of {len(heads)} tables: kernel {ms:.4f} ms, fold_plain "
+    print(f"fold of {len(heads)} tables in one launch: kernel {ms:.4f} ms, "
+          "fold_plain "
           f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}); max |fold - fold_plain| "
           f"{err:.3g}; launches on the main path {run['fold_launches']}")

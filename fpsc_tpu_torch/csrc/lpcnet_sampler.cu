@@ -57,7 +57,15 @@
 // in f32, so the fold changes only the order of the f32 sums; the
 // tables stay f32 and the int8 row scales apply after the sum over the
 // slots, as wdot applies them.  The wrapper folds at every call, on the
-// stream of the sampler's launch, so wrong operands reach the tables.
+// stream of the sampler's launch, so wrong operands reach the tables:
+// both tables in one launch.  The fold writes 5.9 + 1.0 MB of f32 tables
+// at the flagship from 1.7 MB of weights, so the bytes bound it (8.7 MB,
+// 2.6 us at 3.35 TB/s; its 0.44 GFLOP take 0.45 us on the tensor
+// cores).  Each block computes a 64-code x 128-column tile over the
+// whole of E from operands staged once in shared memory, on the tensor
+// cores with bf16 activations (the products are exact; only the order
+// and rounding of the f32 sums differ from fold_plain), with f32 FMAs
+// otherwise, and writes it 16 bytes a store.
 //
 // What bounds it.  The step is a serial chain: each sample feeds the
 // next, so the whole loop runs inside one thread block per batch item
@@ -90,7 +98,8 @@
 //        -Xcompiler -fPIC  (plain C interface, loaded with ctypes).
 // Twelve instances of sample_kernel: (f32, bf16, int8 with f32 or bf16
 // activations) x bunch 1, 2, 4; sparsity and cdf_mm are run-time flags.
-// Four of fold_kernel: the same weight and activation types.
+// Four of fold_kernel: the same weight and activation types, the bf16
+// activations' two on the tensor cores.
 
 #include <cstdint>
 #include <type_traits>
@@ -758,51 +767,263 @@ cudaError_t launch_bunch(const Args& a, int bunch, cudaStream_t stream) {
   }
 }
 
-struct FoldArgs {
-  const void* w;          // (rows, ld) W, k-major weights
-  const void* emb;        // (levels, E) W, mu-law embedding
-  const float* s_emb;     // (E,) its int8 scales, or null
-  float* out;             // (n_pos, n_slot, levels, cols) f32
-  int ld, row0, n_slot, cols, e_dim, levels;
+// ------------------------------------------------------------------ fold
+
+constexpr int kFoldThreads = 256;
+constexpr int kFoldCodes = 64;   // codes (output rows) a tile
+constexpr int kFoldCols = 128;   // output columns a tile
+constexpr int kFoldMaxE = 256;
+
+struct FoldTable {
+  const void* w;   // (rows, ld) W, k-major weights
+  float* out;      // (n_pos, n_slot, levels, cols) f32
+  int ld, row0, n_pos, n_slot, cols;
+  int tiles;       // n_pos n_slot x code tiles x column tiles; 0: none
 };
 
-constexpr int kFoldThreads = 128;
+struct FoldArgs {
+  FoldTable t[2];       // GRU_A's table, then the heads' (if any)
+  const void* emb;      // (levels, E) W, mu-law embedding
+  const float* s_emb;   // (E,) its int8 scales, or null
+  int e_dim, levels, code_tiles;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += A B, A 16 x 16 and B 16 x 8 bf16: the exact products summed in f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// N f32 values into shared memory as bf16 (exact for bf16 and int8
+// weights and for emb_A) or f32, 16 bytes a store.
+template <int N>
+__device__ __forceinline__ void put(__nv_bfloat16* dst, const float* v) {
+#pragma unroll
+  for (int j = 0; j < N; j += 8) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[j + 2 * i], v[j + 2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(dst + j) = make_uint4(u[0], u[1], u[2], u[3]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void put(float* dst, const float* v) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4)
+    *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+}
+
+// Shared memory of a fold tile.  Tensor-core form (A = bf16): the
+// embedding rows [code][E + 8] and the weights [c][kFoldCols + 8] in
+// bf16 (rows 16 bytes apart modulo 128, so ldmatrix meets no bank
+// conflict), then the f32 output tile [code][kFoldCols + 4] over them.
+// f32 form: the embedding transposed [c][kFoldCodes] and the weights
+// [c][kFoldCols] in f32.
+template <typename A>
+size_t fold_smem(int e) {
+  if (!std::is_same<A, __nv_bfloat16>::value)
+    return (size_t)e * (kFoldCodes + kFoldCols) * 4;
+  const size_t staged = ((size_t)kFoldCodes * (e + 8) + (size_t)e * (kFoldCols + 8)) * 2;
+  const size_t tile = (size_t)kFoldCodes * (kFoldCols + 4) * 4;
+  return staged > tile ? staged : tile;
+}
 
 // out[p, s, code, col] = sum_c w[row0 + s*E + c, p*cols + col] *
-// emb_A(code, c), one thread per output element, the sum over c in
-// order.  Block (col tile, code, p * n_slot + s); the embedding row,
-// rounded to A as the sampler's plain version rounds it, is staged in
-// shared memory.
+// emb_A(code, c) for both tables of a `sample` call in one launch: block
+// i is output tile i of the flat list of the two tables' tiles, kFoldCodes
+// codes x kFoldCols columns of one (p, s) over the whole of E.  The tile's
+// embedding rows (rounded to A as the sampler's plain version rounds
+// them) and its weights are staged in shared memory once, 16 bytes a
+// load, so every weight is read from L2 once a code tile.  bf16
+// activations: the products on the tensor cores (mma.sync m16n8k16, A by
+// ldmatrix, the k-major weights by ldmatrix.trans), each 16-deep partial
+// sum added to the f32 sum with a round-to-nearest add; 8 warps of 32 x
+// 32 outputs; the tile goes out through shared memory in 16-byte stores.
+// f32 activations: f32 FMAs in the order of c, no TF32; 4 codes x 8
+// columns a thread, 16-byte stores.
 template <typename W, typename A>
 __global__ void __launch_bounds__(kFoldThreads) fold_kernel(FoldArgs f) {
-  extern __shared__ float s_e[];
-  const int code = blockIdx.y, ps = blockIdx.z;
-  const int p = ps / f.n_slot, s = ps - p * f.n_slot;
-  const W* emb = static_cast<const W*>(f.emb) + (size_t)code * f.e_dim;
-  for (int c = threadIdx.x; c < f.e_dim; c += kFoldThreads) {
-    const float e = ld(emb + c);
-    if constexpr (std::is_same<W, int8_t>::value) {
-      s_e[c] = Prec<A>::round(e * f.s_emb[c]);
+  extern __shared__ __align__(128) unsigned char fold_mem[];
+  constexpr bool kMma = std::is_same<A, __nv_bfloat16>::value;
+  constexpr int kN = Wide<W>::kN;
+  const int E = f.e_dim;
+  int tile = blockIdx.x;
+  const bool second = tile >= f.t[0].tiles;
+  const FoldTable tb = second ? f.t[1] : f.t[0];
+  if (second) tile -= f.t[0].tiles;
+  const int col_tiles = (tb.cols + kFoldCols - 1) / kFoldCols;
+  const int col0 = (tile % col_tiles) * kFoldCols;
+  tile /= col_tiles;
+  const int code0 = (tile % f.code_tiles) * kFoldCodes;
+  const int ps = tile / f.code_tiles;
+  const int p = ps / tb.n_slot, s = ps - p * tb.n_slot;
+  const W* w = static_cast<const W*>(tb.w) + (size_t)(tb.row0 + s * E) * tb.ld +
+               (size_t)p * tb.cols + col0;
+  const W* emb = static_cast<const W*>(f.emb) + (size_t)code0 * E;
+  A* se = reinterpret_cast<A*>(fold_mem);
+  const int lde = kMma ? E + 8 : kFoldCodes;
+  A* sw = se + (kMma ? kFoldCodes * lde : E * kFoldCodes);
+  constexpr int ldw = kMma ? kFoldCols + 8 : kFoldCols;
+
+  // the embedding rows, emb_A: with int8 weights q * s rounded to A;
+  // transposed in the f32 form, neighbouring threads on neighbouring codes
+  for (int i = threadIdx.x; i < kFoldCodes * (E / kN); i += kFoldThreads) {
+    const int r = kMma ? i / (E / kN) : i % kFoldCodes;
+    const int c = (kMma ? i % (E / kN) : i / kFoldCodes) * kN;
+    float v[kN];
+    if (code0 + r < f.levels) {
+      Wide<W>::unpack(ld16(emb + (size_t)r * E + c), v);
+      if constexpr (std::is_same<W, int8_t>::value) {
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          v[j] = Prec<A>::round(__fmul_rn(v[j], f.s_emb[c + j]));
+      }
     } else {
-      s_e[c] = e;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) v[j] = 0.0f;
+    }
+    if constexpr (kMma) {
+      put<kN>(se + r * lde + c, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) se[(c + j) * kFoldCodes + r] = v[j];
     }
   }
+  // the weights: E rows of kFoldCols columns, zero beyond the table
+  for (int i = threadIdx.x; i < E * (kFoldCols / kN); i += kFoldThreads) {
+    const int r = i / (kFoldCols / kN), c = (i - r * (kFoldCols / kN)) * kN;
+    float v[kN];
+    if (col0 + c < tb.cols) {
+      Wide<W>::unpack(ld16(w + (size_t)r * tb.ld + c), v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) v[j] = 0.0f;
+    }
+    put<kN>(sw + r * ldw + c, v);
+  }
   __syncthreads();
-  const int col = blockIdx.x * kFoldThreads + threadIdx.x;
-  if (col >= f.cols) return;
-  const W* w = static_cast<const W*>(f.w) + (size_t)(f.row0 + s * f.e_dim) * f.ld
-               + (size_t)p * f.cols + col;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < f.e_dim; ++c) acc = fmaf(ld(w + (size_t)c * f.ld), s_e[c], acc);
-  f.out[((size_t)ps * f.levels + code) * f.cols + col] = acc;
+
+  float* out = tb.out + ((size_t)ps * f.levels + code0) * tb.cols + col0;
+  if constexpr (kMma) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 32 x 32
+    float acc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+    // ldmatrix lane addresses: A rows lane & 15, depth + 8 for lanes
+    // 16-31; B depth rows lane & 15, columns + 8 for lanes 16-31
+    const uint32_t a_addr =
+        smem_u32(se) + (uint32_t)(((wm * 32 + (lane & 15)) * lde + (lane >> 4) * 8) * 2);
+    const uint32_t b_addr =
+        smem_u32(sw) + (uint32_t)(((lane & 15) * ldw + wn * 32 + (lane >> 4) * 8) * 2);
+    for (int k0 = 0; k0 < E; k0 += 16) {
+      uint32_t af[2][4], bf[2][4];
+      ldmatrix_x4(af[0], a_addr + k0 * 2);
+      ldmatrix_x4(af[1], a_addr + (16 * lde + k0) * 2);
+      ldmatrix_x4_trans(bf[0], b_addr + k0 * ldw * 2);
+      ldmatrix_x4_trans(bf[1], b_addr + (k0 * ldw + 16) * 2);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(part, af[mt], bf[nt >> 1][2 * (nt & 1)],
+                   bf[nt >> 1][2 * (nt & 1) + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], part[i]);
+        }
+    }
+    __syncthreads();  // every warp has read the staged operands
+    constexpr int ldo = kFoldCols + 4;
+    float* so = reinterpret_cast<float*>(fold_mem);
+    const int g = lane >> 2, tq = lane & 3;
+    // acc[mt][nt]: rows wm*32 + mt*16 + g (+ 8 for the second pair),
+    // columns wn*32 + nt*8 + 2 tq, + 1
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(so + (wm * 32 + mt * 16 + g + 8 * h) * ldo +
+                                     wn * 32 + nt * 8 + 2 * tq) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kFoldCodes * kFoldCols / 4; i += kFoldThreads) {
+      const int r = i / (kFoldCols / 4), c = (i - r * (kFoldCols / 4)) * 4;
+      if (code0 + r < f.levels && col0 + c < tb.cols)
+        *reinterpret_cast<float4*>(out + (size_t)r * tb.cols + c) =
+            *reinterpret_cast<const float4*>(so + r * ldo + c);
+    }
+  } else {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // 8 columns, 4 codes
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < E; ++c) {
+      const float4 e4 = *reinterpret_cast<const float4*>(se + c * kFoldCodes + ty * 4);
+      const float4 w0 = *reinterpret_cast<const float4*>(sw + c * ldw + tx * 8);
+      const float4 w1 = *reinterpret_cast<const float4*>(sw + c * ldw + tx * 8 + 4);
+      const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[j], ev[i], acc[i][j]);
+    }
+    if (col0 + tx * 8 < tb.cols) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (code0 + ty * 4 + i < f.levels) {
+          float4* o = reinterpret_cast<float4*>(out + (size_t)(ty * 4 + i) * tb.cols +
+                                                tx * 8);
+          o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      }
+    }
+  }
 }
 
 template <typename W, typename A>
-cudaError_t launch_fold(const FoldArgs& f, int n_pos, cudaStream_t stream) {
-  const dim3 grid((f.cols + kFoldThreads - 1) / kFoldThreads, f.levels,
-                  n_pos * f.n_slot);
-  fold_kernel<W, A><<<grid, kFoldThreads, f.e_dim * sizeof(float), stream>>>(f);
+cudaError_t launch_fold(const FoldArgs& f, cudaStream_t stream) {
+  const size_t smem = fold_smem<A>(f.e_dim);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fold_kernel<W, A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fold_kernel<W, A><<<f.t[0].tiles + f.t[1].tiles, kFoldThreads, smem, stream>>>(f);
   return cudaGetLastError();
 }
 
@@ -861,27 +1082,44 @@ extern "C" int fpsc_lpcnet_sample(
   return (int)err;
 }
 
-// The folded embedding table of a k-major weight: out (n_pos, n_slot,
-// levels, cols) f32, out[p, s, code, col] = sum over c < e_dim of
-// w[row0 + s*e_dim + c, p*cols + col] * emb_A(code, c), w of row stride
-// ld.  Returns a cudaError_t code: 0 when the kernel was launched.
+// The folded embedding tables of one `sample` call in one launch:
+// n_tables (1 or 2) k-major weights, table i out_i (n_pos_i, n_slot_i,
+// levels, cols_i) f32, out_i[p, s, code, col] = sum over c < e_dim of
+// w_i[row0_i + s*e_dim + c, p*cols_i + col] * emb_A(code, c), w_i of row
+// stride ld_i.  The weights, the embedding and the tables 16-byte
+// aligned, ld_i and cols_i multiples of 16, e_dim a multiple of 16 up to
+// kFoldMaxE.  Returns a cudaError_t code: 0 when the kernel was launched.
 extern "C" int fpsc_lpcnet_fold(
-    int act_bf16, int w8, const void* w, int ld, int row0, int n_pos,
-    int n_slot, int cols, const void* emb, const float* s_emb, int e_dim,
-    int levels, float* out, void* stream) {
-  if (!w || !emb || !out || ld <= 0 || row0 < 0 || n_pos <= 0 ||
-      n_slot <= 0 || cols <= 0 || n_pos * cols > ld || e_dim <= 0 ||
-      levels <= 0 || (w8 && !s_emb))
+    int act_bf16, int w8, const void* emb, const float* s_emb, int e_dim,
+    int levels, int n_tables,
+    const void* w0, int ld0, int row00, int n_pos0, int n_slot0, int cols0,
+    float* out0,
+    const void* w1, int ld1, int row01, int n_pos1, int n_slot1, int cols1,
+    float* out1, void* stream) {
+  if (!emb || !aligned16(emb) || e_dim <= 0 || e_dim % 16 ||
+      e_dim > kFoldMaxE || levels <= 0 || (w8 && !s_emb) ||
+      n_tables < 1 || n_tables > 2)
     return (int)cudaErrorInvalidValue;
-  FoldArgs f{w, emb, s_emb, out, ld, row0, n_slot, cols, e_dim, levels};
+  FoldArgs f{{{w0, out0, ld0, row00, n_pos0, n_slot0, cols0, 0},
+              {w1, out1, ld1, row01, n_pos1, n_slot1, cols1, 0}},
+             emb, s_emb, e_dim, levels, (levels + kFoldCodes - 1) / kFoldCodes};
+  for (int i = 0; i < n_tables; ++i) {
+    FoldTable& t = f.t[i];
+    if (!t.w || !t.out || !aligned16(t.w) || !aligned16(t.out) || t.ld <= 0 ||
+        t.ld % 16 || t.row0 < 0 || t.n_pos <= 0 || t.n_slot <= 0 ||
+        t.cols <= 0 || t.cols % 16 || t.n_pos * t.cols > t.ld)
+      return (int)cudaErrorInvalidValue;
+    t.tiles = t.n_pos * t.n_slot * f.code_tiles *
+              ((t.cols + kFoldCols - 1) / kFoldCols);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t err;
   if (w8)
-    err = act_bf16 ? launch_fold<int8_t, bf16>(f, n_pos, s)
-                   : launch_fold<int8_t, float>(f, n_pos, s);
+    err = act_bf16 ? launch_fold<int8_t, bf16>(f, s)
+                   : launch_fold<int8_t, float>(f, s);
   else
-    err = act_bf16 ? launch_fold<bf16, bf16>(f, n_pos, s)
-                   : launch_fold<float, float>(f, n_pos, s);
+    err = act_bf16 ? launch_fold<bf16, bf16>(f, s)
+                   : launch_fold<float, float>(f, s);
   return (int)err;
 }

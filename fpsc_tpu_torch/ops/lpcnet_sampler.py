@@ -16,16 +16,17 @@ cdf as a log-step scan or as a product with a triangle of ones:
   `prepare(gru_a_pattern=...)` and selects the kernel's sparse form.
 * `sample` (pallas_sample, 659-706): checks the operands and launches
   the hand-written CUDA kernels of csrc/lpcnet_sampler.cu on a CUDA
-  tensor: `fold` builds the embedding tables, then the sampler kernel
-  runs; on a CPU tensor it runs `sample_plain`.  It never falls back
+  tensor: `fold_tables` builds the embedding tables (one launch), then
+  the sampler kernel runs; on a CPU tensor it runs `sample_plain`.  It never falls back
   from the card to the CPU.  `generate` (pallas_generate, 709-761) is
   `sample(*prepare(...))`.
-* `fold` / `fold_plain`: an embedding input is a row of a 256-entry
-  table, so its product with a block of weights (emb_many / emb_of and
-  wdot(wiemb_ref, e_cat), 150-183 and 262; the heads' embedding part of
-  wdot(fch_ref, ...)) is the sum over the slots of precomputable rows.
-  `fold` takes them with the kernel fpsc_lpcnet_fold on the card, on the
-  operands `sample` is given, so that every change to the weights
+* `fold_tables` / `fold` / `fold_plain`: an embedding input is a row of
+  a 256-entry table, so its product with a block of weights (emb_many /
+  emb_of and wdot(wiemb_ref, e_cat), 150-183 and 262; the heads'
+  embedding part of wdot(fch_ref, ...)) is the sum over the slots of
+  precomputable rows.  `fold_tables` takes both tables of a call in one
+  launch of the kernel fpsc_lpcnet_fold on the card (`fold` one table),
+  on the operands `sample` is given, so that every change to the weights
   reaches the tables; `fold_plain` is the same function in PyTorch.
 * `sample_plain`: the same arithmetic in plain PyTorch, a Python loop
   over GRU steps vectorised over the batch (on the card, one frame of
@@ -109,7 +110,7 @@ KERNELS = {(b, s, w, c): _form_name(b, s, w, c) for b in HEAD_EMBEDS
            for s in (False, True) for w in (False, True)
            for c in (False, True)}
 KERNEL = KERNELS[(1, False, False, False)]
-# Launch counter of the fold kernel, one launch a table.
+# Launch counter of the fold kernel, one launch a `sample` call.
 FOLD_KERNEL = "lpcnet_fold"
 
 Pattern = Tuple[Tuple[int, ...], ...]
@@ -429,30 +430,68 @@ def fold(ops: SamplerOperands, meta: SamplerMeta,
          head: bool = False) -> torch.Tensor:
     """fold_plain of GRU_A's input weights (or with `head`, of the
     further heads' embedding rows) and the embedding, as the sampler
-    kernel takes it: on a CUDA tensor the kernel fpsc_lpcnet_fold (or
-    raise), on a CPU tensor fold_plain."""
-    spec = fold_spec(meta, head)
-    w_t = ops.fch_t if head else ops.wiemb_t
-    dev = w_t.device
+    kernel takes it: on a CUDA tensor one launch of the kernel
+    fpsc_lpcnet_fold (or raise), on a CPU tensor fold_plain."""
+    return _fold(ops, meta, (head,))[0]
+
+
+@torch.no_grad()
+def fold_tables(ops: SamplerOperands, meta: SamplerMeta) -> tuple:
+    """Every folded table of a `sample` call -> (GRU_A's, the further
+    heads' or None at bunch=1): on a CUDA tensor both in one launch of
+    fpsc_lpcnet_fold (or raise), on a CPU tensor fold_plain each."""
+    tables = _fold(ops, meta, (False, True)[:1 + (meta.bunch > 1)])
+    return tables[0], (tables[1] if meta.bunch > 1 else None)
+
+
+# The fold kernel's limits: the embedding width a multiple of 16 up to
+# FOLD_MAX_E, every table's width and row stride multiples of 16.
+FOLD_MAX_E = 256
+
+
+def _fold(ops: SamplerOperands, meta: SamplerMeta, heads) -> list:
+    """The tables of `heads` (False: GRU_A's, True: the heads'), one
+    launch for all of them on the card."""
+    specs = [fold_spec(meta, h) for h in heads]
+    weights = [ops.fch_t if h else ops.wiemb_t for h in heads]
+    dev = weights[0].device
     if dev.type == "cpu":
-        return fold_plain(w_t, emb_rows(ops, meta), spec)
+        emb = emb_rows(ops, meta)
+        return [fold_plain(w, emb, sp) for w, sp in zip(weights, specs)]
     if dev.type != "cuda":
         raise ValueError(f"the fold runs on cuda or cpu, not {dev}")
+    if meta.e_dim % 16 or meta.e_dim > FOLD_MAX_E:
+        raise ValueError(f"the fold kernel takes an embedding width that is "
+                         f"a multiple of 16 up to {FOLD_MAX_E}, not "
+                         f"{meta.e_dim}")
+    for w, sp in zip(weights, specs):
+        if w.shape[1] % 16 or sp.cols % 16:
+            raise ValueError(f"the fold kernel takes tables {sp.cols} wide "
+                             f"from weights of row stride {w.shape[1]}: "
+                             "both must be multiples of 16")
+        if w.data_ptr() % 16 or not w.is_contiguous():
+            raise ValueError("the fold kernel reads its weights 16 bytes "
+                             "at a time: they must be contiguous and "
+                             "16-byte aligned")
     lib = _library()
-    out = torch.empty((spec.n_pos, spec.n_slot, meta.levels, spec.cols),
-                      dtype=torch.float32, device=dev)
+    outs = [torch.empty((sp.n_pos, sp.n_slot, meta.levels, sp.cols),
+                        dtype=torch.float32, device=dev) for sp in specs]
+    tables = [(w.data_ptr(), w.shape[1], sp.row0, sp.n_pos, sp.n_slot,
+               sp.cols, out.data_ptr())
+              for w, sp, out in zip(weights, specs, outs)]
+    tables += [(None, 0, 0, 0, 0, 0, None)] * (2 - len(tables))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.count_launch(FOLD_KERNEL)
         err = lib.fpsc_lpcnet_fold(
-            int(meta.dtype == torch.bfloat16), int(meta.w8), w_t.data_ptr(),
-            w_t.shape[1], spec.row0, spec.n_pos, spec.n_slot, spec.cols,
+            int(meta.dtype == torch.bfloat16), int(meta.w8),
             ops.emb.data_ptr(), ops.s_emb.data_ptr() if meta.w8 else None,
-            meta.e_dim, meta.levels, out.data_ptr(), stream)
+            meta.e_dim, meta.levels, len(heads), *tables[0], *tables[1],
+            stream)
     if err != 0:
         raise RuntimeError(f"{FOLD_KERNEL} kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return outs
 
 
 def fold_tolerance(e_dim: int) -> float:
@@ -893,8 +932,10 @@ def _library():
         lib.fpsc_lpcnet_sample.argtypes = ([i] * 4 + [p] * 26 + [i] * 7
                                            + [ctypes.c_float, p])
         lib.fpsc_lpcnet_sample.restype = i
-        lib.fpsc_lpcnet_fold.argtypes = ([i, i, p] + [i] * 5
-                                         + [p, p, i, i, p, p])
+        # 2 flags, the embedding and its scales, 3 sizes, then per table
+        # the weights, 5 sizes and the output; stream
+        lib.fpsc_lpcnet_fold.argtypes = ([i, i, p, p, i, i, i]
+                                         + [p, i, i, i, i, i, p] * 2 + [p])
         lib.fpsc_lpcnet_fold.restype = i
     return lib
 
@@ -915,8 +956,8 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
     _check_alignment(ops, meta)
     fn = _library().fpsc_lpcnet_sample
     empty = torch.empty((0,), dtype=torch.float32, device=dev)
-    ta = fold(ops, meta)
-    th = fold(ops, meta, head=True) if meta.bunch > 1 else empty
+    ta, th = fold_tables(ops, meta)
+    th = empty if th is None else th
     kw = kernel_weights(ops, meta)
     n = meta.frames * C.FRAME_SIZE
     out = torch.empty((meta.batch, n), dtype=torch.float32, device=dev)

@@ -329,10 +329,10 @@ def test_bunched_and_sparse_kernels_match_plain_version(cuda_device, form,
     got, trace = ts.sample(ops, meta, trace=True)
     torch.cuda.synchronize()
     assert build.launch_counts[ts.kernel_name(meta)] == 1
-    # one fold a table: GRU_A's, and the further heads' above bunch=1
-    folds = 1 + (meta.bunch > 1)
-    assert build.launch_counts[ts.FOLD_KERNEL] == folds
-    assert sum(build.launch_counts.values()) == 1 + folds
+    # one fold launch a call: GRU_A's table, and the further heads' above
+    # bunch=1, together
+    assert build.launch_counts[ts.FOLD_KERNEL] == 1
+    assert sum(build.launch_counts.values()) == 2
     assert ts.replay_faults(ts.replay_plain(ops, meta, got, trace),
                             dtype) == []
     want = ts.sample_plain(ops, meta)
@@ -363,15 +363,24 @@ FOLD_CASES = [(b, dt, w8) for b in (1, 2, 4) for dt in DTYPES
 def test_fold_kernel_matches_plain_version(cuda_device, bunch, dtype, w8):
     """fpsc_lpcnet_fold gives fold_plain's tables, GRU_A's and the
     further heads', within the f32 summation-order tolerance
-    (lpcnet_sampler.check_fold), one launch a table."""
+    (lpcnet_sampler.check_fold): both in one launch, as `sample` takes
+    them, and each alone in one launch of its own."""
     ops, meta = _operands(dtype, bunch=bunch, w8=w8, device=cuda_device)
-    for head in (False, True)[:1 + (bunch > 1)]:
-        build.reset_launch_counts()
-        table = ts.fold(ops, meta, head=head)
-        torch.cuda.synchronize()
-        assert build.launch_counts[ts.FOLD_KERNEL] == 1
+    heads = (False, True)[:1 + (bunch > 1)]
+    build.reset_launch_counts()
+    tables = ts.fold_tables(ops, meta)
+    torch.cuda.synchronize()
+    assert build.launch_counts[ts.FOLD_KERNEL] == 1
+    assert (tables[1] is None) == (bunch == 1)
+    for head in heads:
+        table = tables[int(head)]
         assert table.device.type == "cuda"
         ts.check_fold(ops, meta, table, head=head)
+        build.reset_launch_counts()
+        alone = ts.fold(ops, meta, head=head)
+        torch.cuda.synchronize()
+        assert build.launch_counts[ts.FOLD_KERNEL] == 1
+        ts.check_fold(ops, meta, alone, head=head)
 
 
 @pytest.mark.cuda
@@ -474,6 +483,62 @@ def test_probe_kernel_matches_plain_version(cuda_device, name, arm, size):
     assert build.launch_counts[probe.kernel_name(arm)] == 1
     assert sum(build.launch_counts.values()) == 1
     probe.check(arm, got, probe.run_plain(arm, *ops))
+
+
+# The bf16 chain's cluster geometry beyond the small shape (where 4 of 6
+# CTAs hold no rows) and the default: row tiles above k that do not split
+# evenly over a cluster's 6 CTAs (m = 400: one tile, on the first CTA;
+# m = 1168: 49 tiles, 9 on each CTA but the last, which has 4), W whose
+# stripe needs 8-CTA clusters (m = 2176) and 16-CTA ones (m = 3200), and
+# more groups of 8 columns than clusters fit on the card at once, so that
+# clusters walk over two groups (b = 256) or eight (b = 1024).
+CHAIN_EDGES = [(400, 384, 16), (1168, 384, 64), (2176, 384, 32),
+               (3200, 384, 32), (1152, 384, 256), (1152, 384, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b", CHAIN_EDGES,
+                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_EDGES])
+def test_bf16_chain_kernel_at_the_cluster_edges(cuda_device, m, k, b):
+    """The bf16 chain kernel against its plain version (the probe's check)
+    where the rows do not split evenly over a cluster's CTAs and where
+    each cluster walks over several column groups: one launch."""
+    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
+    build.reset_launch_counts()
+    got = probe_i8_matmul.run("bf16", w, x)
+    torch.cuda.synchronize()
+    assert build.launch_counts[probe_i8_matmul.kernel_name("bf16")] == 1
+    probe_i8_matmul.check("bf16", got, probe_i8_matmul.run_plain("bf16", w, x))
+
+
+# Every shape the bf16 chain's card tests name: the small one, the
+# default and the cluster edges.
+CHAIN_SHAPES = [PROBE_SMALL["i8_matmul"], probe_i8_matmul.DEFAULT,
+                *CHAIN_EDGES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b", CHAIN_SHAPES,
+                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_SHAPES])
+def test_bf16_chain_kernel_repeats_bit_for_bit(cuda_device, m, k, b):
+    """Every element of the bf16 chain sums in a fixed order, so eight
+    runs agree bit for bit: a race in the exchange of x (a stale or half
+    written x read in a few columns) would show here even where it stays
+    inside BF16_CHAIN_TOL."""
+    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
+    probe_i8_matmul.check_kernel_repeats(w, x, repeats=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,b", CHAIN_SHAPES,
+                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_SHAPES])
+def test_bf16_chain_kernel_product_by_product(cuda_device, m, k, b):
+    """The kernel stopped after each of its first four products, each
+    held to one plain product of its result before at about one bf16
+    step of each element (`check_product`), so that an error in the
+    exchange cannot hide under the rounding that 64 products gather."""
+    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
+    probe_i8_matmul.check_kernel_products(w, x, products=4)
 
 
 @pytest.mark.cuda

@@ -200,6 +200,24 @@ def test_kernel_weights_round_trip_to_the_operands(bunch, precision):
         assert torch.equal(kw.heads_t[:, rows:], ops.fch_t[:meta.hb])
 
 
+@pytest.mark.parametrize("precision", ["bf16", "int8_f32"])
+@pytest.mark.parametrize("bunch", [1, 2, 4])
+def test_one_launch_fold_gives_fold_plains_tables(bunch, precision):
+    """fold_tables, which `sample` calls (both tables in one launch on
+    the card), gives on the CPU fold_plain's tables exactly: GRU_A's
+    and, above bunch=1, the further heads'."""
+    _, ops, meta = _case(bunch, precision)
+    ta, th = ts.fold_tables(ops, meta)
+    emb = ts.emb_rows(ops, meta)
+    assert torch.equal(ta, ts.fold_plain(ops.wiemb_t, emb,
+                                         ts.fold_spec(meta)))
+    if bunch == 1:
+        assert th is None
+    else:
+        assert torch.equal(th, ts.fold_plain(ops.fch_t, emb,
+                                             ts.fold_spec(meta, head=True)))
+
+
 @pytest.mark.parametrize("bunch", [2, 4])
 def test_a_fault_in_the_weights_reaches_the_tables(bunch):
     """The wrong-operand samplers edit the weights; since `sample` folds

@@ -26,8 +26,10 @@ keep bf16 intermediates in f32 (ROADMAP Queue C 1).
 import contextlib
 import importlib.util
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -240,6 +242,109 @@ def test_bf16_product_chain_matches_the_script(i8_oracle, bf16_oracle):
                  bf16_oracle)
     assert float(want.abs().max()) > 0.1
     pim.check("bf16", pim.run("bf16", w, x), want)
+
+
+@pytest.mark.parametrize("group", [8, 16])
+@pytest.mark.parametrize("geometry", [(64, 32, 32), (1152, 384, 128)],
+                         ids=["small", "default"])
+def test_bf16_chain_is_column_separable(geometry, group):
+    """Column j of W @ x depends only on column j of x, so the chain on
+    the whole of x is, bit for bit, the chains of its column groups put
+    side by side: what lets the kernel give each thread-block cluster a
+    group of its own and keep no barrier across the grid."""
+    w, x = pim.operands("bf16", *geometry, "cpu")
+    whole = pim.run_plain("bf16", w, x)
+    parts = [pim.run_plain("bf16", w, x[:, c:c + group].contiguous())
+             for c in range(0, x.shape[1], group)]
+    assert torch.equal(whole, torch.cat(parts, 1))
+
+
+def test_bf16_chain_refuses_a_stripe_beyond_shared_memory():
+    """The bf16 kernel splits W's rows over the CTAs of a cluster and
+    keeps each stripe in shared memory: at k = 384, 6-CTA clusters take
+    W up to 1632 rows, 8-CTA ones up to 2176 and 16-CTA ones up to 4224
+    (15 row tiles above k a CTA, 2 below); one tile more is refused
+    before any launch.  The i8 arm, which reads W from L2, is not."""
+    assert pim.CLUSTER == 6
+    assert [pim.cluster_ctas(m, 384) for m in (1152, 1632, 1648, 2176, 2192,
+                                               4224, 4240)] == [
+        6, 6, 8, 8, 16, 16, None]
+    x = torch.zeros((384, 8))
+    pim.run("bf16", torch.zeros((4224, 384), dtype=torch.bfloat16), x, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        pim.run("bf16", torch.zeros((4240, 384), dtype=torch.bfloat16), x, 1)
+    pim.run("i8", torch.zeros((4240, 384), dtype=torch.int8), x, 1)
+
+
+def _kernel_smem_rule():
+    """The kernel's shared-memory rule, read from its source: kChainCols,
+    kChainSmem and the body of cluster_smem, turned into Python."""
+    src = (Path(pim.__file__).parents[1] / "csrc" / pim.SOURCE).read_text()
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (kChainCols|kChainSmem) = (\d+);", src)}
+    body = re.search(r"size_t cluster_smem\(int m, int k, int csize, "
+                     r"int\* pp, int\* qq\) \{(.*?)\n\}", src, re.S).group(1)
+    code = (body.replace("(size_t)", "").replace("*pp", "pp")
+            .replace("*qq", "qq").replace("/", "//")
+            .replace("return ", "smem = ").replace(";", "\n"))
+    code = "\n".join(line.strip() for line in code.splitlines())
+
+    def smem(m, k, csize):
+        scope = dict(consts, m=m, k=k, csize=csize)
+        exec(code, {}, scope)
+        return scope["smem"]
+    return consts, smem
+
+
+@pytest.mark.parametrize("ctas", [6, 8, 16])
+def test_chain_shared_memory_rule_is_the_kernels(ctas):
+    """`_check` refuses a W whose stripe the kernel would refuse at
+    launch, and no other: Python's constants and cluster_smem are the
+    kernel's (csrc/probe_i8_matmul.cu), at every cluster size the
+    wrapper launches, on both sides of the limit."""
+    consts, smem = _kernel_smem_rule()
+    assert consts == {"kChainCols": pim.CHAIN_COLS,
+                      "kChainSmem": pim.SMEM_BYTES}
+    for k in (32, 128, 384):
+        for m in range(k, 4400, 16):
+            want = smem(m, k, ctas)
+            assert pim.cluster_smem(m, k, ctas) == want, (m, k)
+    # the sizes the refusal test names sit on the limit
+    assert smem(1632, 384, 6) <= pim.SMEM_BYTES < smem(1648, 384, 6)
+    assert smem(4224, 384, 16) <= pim.SMEM_BYTES < smem(4240, 384, 16)
+
+
+@pytest.mark.parametrize("geometry", [(64, 32, 8), (1152, 384, 128)],
+                         ids=["small", "default"])
+def test_bf16_product_check_allows_another_summation_order(geometry):
+    """One product of the chain summed in float64, or in f32 by depth
+    steps of 16 as the tensor cores go, passes `check_product`: its
+    tolerance admits what the summation order moves."""
+    w, x = pim.operands("bf16", *geometry, "cpu")
+    k = x.shape[0]
+    wf, xb = w.float(), x.to(torch.bfloat16).float()
+    exact = (wf.double() @ xb.double())[:k].to(torch.bfloat16).float()
+    pim.check_product(exact, w, x)
+    stepped = sum(wf[:k, d:d + 16] @ xb[d:d + 16] for d in range(0, k, 16))
+    pim.check_product(stepped.to(torch.bfloat16).float(), w, x)
+    pim.check_product(pim.run_plain("bf16", w, x, 1), w, x)
+
+
+@pytest.mark.parametrize("fault", ["stale", "half written"])
+def test_bf16_product_check_catches_a_column_of_a_wrong_x(fault):
+    """A product that read one column of x stale (the x of the product
+    before) or half written (its second half not yet in) fails
+    `check_product`."""
+    w, x = pim.operands("bf16", 1152, 384, 128, "cpu")
+    before = pim.run_plain("bf16", w, x, 1)
+    wrong = before.clone()
+    if fault == "stale":
+        wrong[:, 3] = x[:, 3]
+    else:
+        wrong[192:, 3] = 0
+    got = pim.run_plain("bf16", w, wrong, 1)
+    with pytest.raises(RuntimeError, match="one product differs"):
+        pim.check_product(got, w, before)
 
 
 # -------------------------------------------------------------------- gates
