@@ -89,7 +89,11 @@ exit and no result line:
    configurations: the same coded features and LPC.
 
 Every main path must launch its sampler form and the fold.  The probes
-phase times each arm's library yardstick three ways: 64 independent
+phase also runs each product chain (bf16, i8, onehot) 8 times, which
+must agree bit for bit, and stops it after each of its first four
+products, each held to one plain product of the kernel's result before
+(within a bf16 step for bf16; equal for i8 and onehot); it times each
+arm's library yardstick three ways: 64 independent
 calls, the chain of 64 dependent calls with the script's cast between
 them, and that chain captured once as a CUDA graph and replayed; the
 graph's time stands in the kernels line.  Then the `kernels` JSON line,
@@ -350,11 +354,13 @@ def probes(dev):
             want = probe.run_plain(arm, *ops)
             torch.cuda.synchronize()
             err = probe.check(arm, got, want)
-            if probe is probe_i8_matmul and arm == "bf16":
-                probe.check_kernel_repeats(*ops)
-                step_err = probe.check_kernel_products(*ops)
+            if probe is probe_i8_matmul:
+                probe.check_kernel_repeats(arm, *ops)
+                step_err = probe.check_kernel_products(arm, *ops)
+                step = ("within a bf16 step of" if arm == "bf16"
+                        else "equal to")
                 print(f"{name} {arm}: 8 runs bit for bit alike; products "
-                      f"1-4 each within a bf16 step of a plain product "
+                      f"1-4 each {step} a plain product "
                       f"(max |difference| {step_err:.3g}): ok")
             plain_ms = timing.median_ms(lambda: probe.run_plain(arm, *ops),
                                         got, reps=PLAIN_REPS)

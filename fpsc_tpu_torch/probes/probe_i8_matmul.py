@@ -56,13 +56,14 @@ BF16_CHAIN_TOL = 0.05
 
 # the script's (m, k, b)
 DEFAULT = (1152, 384, 128)
-# The bf16 arm's launch: CTAs a thread-block cluster, each cluster
+# The chain kernels' launch: CTAs a thread-block cluster, each cluster
 # carrying CHAIN_COLS columns of x.  W's rows are split over the
 # cluster's CTAs, each holding its stripe in shared memory, at most
-# SMEM_BYTES a CTA (the card's 232,448 less the kernel's two barriers).
-# CLUSTER CTAs, or more where W's stripe would not fit: 8, then 16 (a
-# non-portable size).  csrc/probe_i8_matmul.cu names the same kChainCols
-# and kChainSmem.
+# SMEM_BYTES a CTA (the card's 232,448 less the bf16 and i8 kernels' two
+# barriers).  CLUSTER CTAs, the fastest size of every arm at the default
+# geometry (chain_parts.py), or the first of LARGER_CLUSTERS where W's
+# stripe would not fit (16 is a non-portable size).
+# csrc/probe_i8_matmul.cu names the same kChainCols and kChainSmem.
 CLUSTER = 6
 LARGER_CLUSTERS = (8, 16)
 CHAIN_COLS = 8
@@ -114,82 +115,77 @@ def _check(arm: str, w: torch.Tensor, x: torch.Tensor, iters: int):
         raise ValueError(f"probe_i8_matmul takes m a multiple of 16, k of "
                          f"32 and at most m, b of 8, iters >= 1; got m={m}, "
                          f"k={k}, b={b}, iters={iters}")
-    if arm == "bf16" and cluster_ctas(m, k) is None:
+    if cluster_ctas(m, k, arm) is None:
         ctas = LARGER_CLUSTERS[-1]
-        raise ValueError(f"the bf16 chain holds W in the shared memory of "
+        raise ValueError(f"the {arm} chain holds W in the shared memory of "
                          f"a cluster of at most {ctas} CTAs: a stripe of W "
-                         f"({m}, {k}) needs {cluster_smem(m, k, ctas)} "
-                         f"bytes a CTA, more than {SMEM_BYTES}")
+                         f"{tuple(w.shape)} needs "
+                         f"{cluster_smem(m, k, ctas, arm)} bytes a CTA, "
+                         f"more than {SMEM_BYTES}")
     return dev
 
 
-def cluster_ctas(m: int, k: int):
-    """The CTAs of a cluster of the bf16 chain at W (m, k): CLUSTER, or the
-    first of LARGER_CLUSTERS above it at which W's stripe fits one CTA's
+def cluster_ctas(m: int, k: int, arm: str = "bf16"):
+    """The CTAs of a cluster of the arm's chain at W (m, k): CLUSTER, or
+    the first of LARGER_CLUSTERS at which W's stripe fits one CTA's
     shared memory; None where none fits."""
-    for ctas in (CLUSTER, *(c for c in LARGER_CLUSTERS if c > CLUSTER)):
-        if cluster_smem(m, k, ctas) <= SMEM_BYTES:
+    for ctas in (CLUSTER, *LARGER_CLUSTERS):
+        if cluster_smem(m, k, ctas, arm) <= SMEM_BYTES:
             return ctas
     return None
 
 
-def cluster_smem(m: int, k: int, ctas: int) -> int:
-    """The shared memory of one CTA of the bf16 chain on clusters of
+def cluster_smem(m: int, k: int, ctas: int, arm: str = "bf16") -> int:
+    """The shared memory of one CTA of the arm's chain on clusters of
     `ctas` CTAs (csrc cluster_smem): its stripe of W, the rows below k
     and those above each split over the CTAs in 16-row tiles, and two
-    buffers of the cluster's CHAIN_COLS columns of x, each row and
-    column padded by 8 bf16."""
+    buffers of the cluster's CHAIN_COLS columns of x (bf16, i8) or W's
+    first 16 rows (onehot); each row of W and column of x is its depth
+    in bytes padded to 64, then by 16 more."""
     pp = -(-(k // 16) // ctas)
     qq = -(-((m - k) // 16) // ctas)
-    return ((pp + qq) * 16 + 2 * CHAIN_COLS) * (k + 8) * 2
+    depth = _depth(arm, k) * (2 if arm == "bf16" else 1)
+    row = -(-depth // 64) * 64 + 16
+    extra = 16 if arm == "onehot" else 2 * CHAIN_COLS
+    return ((pp + qq) * 16 + extra) * row
 
 
 def run(arm: str, w: torch.Tensor, x: torch.Tensor,
-                 iters: int = ITERS) -> torch.Tensor:
+        iters: int = ITERS) -> torch.Tensor:
     """`iters` chained products of the arm -> (k, b) f32.  CUDA tensors
-    launch the kernel (one launch for the whole chain) or raise; CPU
-    tensors run `run_plain`.  The bf16 arm runs on thread-block clusters
-    of cluster_ctas(m, k) CTAs; a cluster or shared-memory size the card
-    refuses raises."""
+    launch the kernel (one launch for the whole chain, on thread-block
+    clusters of cluster_ctas(m, k, arm) CTAs) or raise, also where the
+    card refuses the cluster or its shared memory; CPU tensors run
+    `run_plain`."""
     dev = _check(arm, w, x, iters)
     if dev.type == "cpu":
         return run_plain(arm, w, x, iters)
-    if arm == "bf16":
-        return run_bf16(w, x, iters)
-    k, b = x.shape
-    out = torch.empty((k, b), dtype=torch.float32, device=dev)
-    # the chain's ping-pong buffers in f32
-    xbuf = torch.empty((2, k, b), dtype=torch.float32, device=dev)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    launch(SOURCE, "fpsc_probe_i8_matmul", [i, p, p, p, p, i, i, i, i],
-           kernel_name(arm), dev, ARMS.index(arm), w.data_ptr(),
-           x.data_ptr(), out.data_ptr(), xbuf.data_ptr(), w.shape[0], k,
-           b, iters)
-    return out
+    return run_chain(arm, w, x, iters)
 
 
-# What a timing variant of the bf16 kernel leaves out of each product
-# (csrc Skip): its products, or its stores of x to the cluster's peers.
+# What a timing variant of the bf16 or i8 kernel leaves out of each
+# product (csrc Skip): its products, or its stores of x to the cluster's
+# peers.  The onehot kernel exchanges nothing and has no variants.
 SKIP = {"products": 1, "exchange": 2}
 
 
-def run_bf16(w: torch.Tensor, x: torch.Tensor, iters: int = ITERS,
-             ctas: Optional[int] = None,
-             skip: Tuple[str, ...] = ()) -> torch.Tensor:
-    """The bf16 arm's kernel on CUDA tensors that passed `_check`, on
-    clusters of `ctas` CTAs (by default cluster_ctas(m, k)); with
-    `skip`, a timing variant that leaves those parts of each product out
-    (its output is not the chain's), counted under
-    kernel_name("bf16") + "_variant"."""
+def run_chain(arm: str, w: torch.Tensor, x: torch.Tensor,
+              iters: int = ITERS, ctas: Optional[int] = None,
+              skip: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The arm's kernel on CUDA tensors that passed `_check`, on clusters
+    of `ctas` CTAs (by default cluster_ctas(m, k, arm)); with `skip`, a
+    timing variant that leaves those parts of each product out (its
+    output is not the chain's), counted under kernel_name(arm) +
+    "_variant"."""
     k, b = x.shape
     if ctas is None:
-        ctas = cluster_ctas(w.shape[0], k)
+        ctas = cluster_ctas(w.shape[0], k, arm)
     out = torch.empty((k, b), dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch(SOURCE, "fpsc_probe_bf16_chain", [p, p, p] + [i] * 6,
-           kernel_name("bf16") + ("_variant" if skip else ""), x.device,
-           w.data_ptr(), x.data_ptr(), out.data_ptr(), w.shape[0], k, b,
-           iters, ctas, sum(SKIP[s] for s in skip))
+    launch(SOURCE, "fpsc_probe_i8_matmul", [i, p, p, p] + [i] * 6,
+           kernel_name(arm) + ("_variant" if skip else ""), x.device,
+           ARMS.index(arm), w.data_ptr(), x.data_ptr(), out.data_ptr(),
+           w.shape[0], k, b, iters, ctas, sum(SKIP[s] for s in skip))
     return out
 
 
@@ -271,30 +267,49 @@ def check_product(got: torch.Tensor, w: torch.Tensor,
     return float(diff.max())
 
 
-def check_kernel_products(w: torch.Tensor, x: torch.Tensor,
+def check_step(arm: str, got: torch.Tensor, w: torch.Tensor,
+               x: torch.Tensor) -> float:
+    """Hold one product of the arm's chain, got, to one plain product of
+    x (on the CPU) -> max |got - want|: bf16 by `check_product`; the
+    exact arms must equal it bit for bit, or this raises."""
+    if arm == "bf16":
+        return check_product(got, w, x)
+    want = run_plain(arm, w.detach().cpu(), x.detach().cpu(), 1)
+    got = got.detach().cpu()
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero()
+        r, c = (int(i) for i in bad[0])
+        raise RuntimeError(
+            f"probe_i8_matmul {arm}: one product differs at {len(bad)} "
+            f"elements, first ({r}, {c}): {float(got[r, c])!r} against "
+            f"{float(want[r, c])!r}")
+    return 0.0
+
+
+def check_kernel_products(arm: str, w: torch.Tensor, x: torch.Tensor,
                           products: int = 4) -> float:
-    """The bf16 chain's kernel on CUDA operands, stopped after each of
-    its first `products` products, each held by `check_product` to one
-    plain product of the kernel's result before (x itself for the first)
-    -> the largest max |got - want|.  Four products reach both of x's
+    """The arm's chain kernel on CUDA operands, stopped after each of its
+    first `products` products, each held by `check_step` to one plain
+    product of the kernel's result before (x itself for the first) ->
+    the largest max |got - want|.  Four products reach both of x's
     buffers twice each."""
     err, before = 0.0, x
     for iters in range(1, products + 1):
-        got = run("bf16", w, x, iters)
-        err = max(err, check_product(got, w, before))
+        got = run(arm, w, x, iters)
+        err = max(err, check_step(arm, got, w, before))
         before = got
     return err
 
 
-def check_kernel_repeats(w: torch.Tensor, x: torch.Tensor,
+def check_kernel_repeats(arm: str, w: torch.Tensor, x: torch.Tensor,
                          repeats: int = 8) -> None:
-    """The bf16 chain's kernel on CUDA operands, `repeats` times: every
+    """The arm's chain kernel on CUDA operands, `repeats` times: every
     element sums in a fixed order, so the runs must agree bit for bit,
     and a race in the exchange of x shows as runs that differ."""
-    first = run("bf16", w, x)
+    first = run(arm, w, x)
     for i in range(1, repeats):
-        if not torch.equal(run("bf16", w, x), first):
-            raise RuntimeError(f"probe_i8_matmul bf16: run {i} of the "
+        if not torch.equal(run(arm, w, x), first):
+            raise RuntimeError(f"probe_i8_matmul {arm}: run {i} of the "
                                f"chain differs from run 0")
 
 

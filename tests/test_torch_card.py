@@ -485,60 +485,102 @@ def test_probe_kernel_matches_plain_version(cuda_device, name, arm, size):
     probe.check(arm, got, probe.run_plain(arm, *ops))
 
 
-# The bf16 chain's cluster geometry beyond the small shape (where 4 of 6
+# The chain kernels' cluster geometry beyond the small shape (where 4 of 6
 # CTAs hold no rows) and the default: row tiles above k that do not split
 # evenly over a cluster's 6 CTAs (m = 400: one tile, on the first CTA;
 # m = 1168: 49 tiles, 9 on each CTA but the last, which has 4), W whose
-# stripe needs 8-CTA clusters (m = 2176) and 16-CTA ones (m = 3200), and
-# more groups of 8 columns than clusters fit on the card at once, so that
-# clusters walk over two groups (b = 256) or eight (b = 1024).
+# bf16 stripe needs 8-CTA clusters (m = 2176) and 16-CTA ones (m = 3200),
+# and more groups of 8 columns than clusters fit on the card at once, so
+# that clusters walk over two groups (b = 256) or eight (b = 1024); for
+# the i8 and onehot arms also the largest W of each larger cluster size
+# they fall back to, and k = 96, whose 96 bytes of int8 depth the kernel
+# pads with zeros to 128.
 CHAIN_EDGES = [(400, 384, 16), (1168, 384, 64), (2176, 384, 32),
                (3200, 384, 32), (1152, 384, 256), (1152, 384, 1024)]
+CHAIN_ARMS = probe_i8_matmul.ARMS
+
+
+def _largest_w(arm, ctas, k=384):
+    """The most rows of W whose stripe of the arm fits clusters of `ctas`
+    CTAs: the i8 and onehot arms' edges of each larger cluster size."""
+    m = k
+    while probe_i8_matmul.cluster_smem(m + 16, k, ctas, arm) \
+            <= probe_i8_matmul.SMEM_BYTES:
+        m += 16
+    return m
+
+
+EDGE_CASES = [(arm, *shape) for arm in CHAIN_ARMS for shape in CHAIN_EDGES] \
+    + [(arm, _largest_w(arm, ctas), 384, 16) for arm in ("i8", "onehot")
+       for ctas in probe_i8_matmul.LARGER_CLUSTERS] \
+    + [(arm, 1152, 96, 64) for arm in ("i8", "onehot")]
+
+
+def _chain_id(case):
+    arm, m, k, b = case
+    return f"{arm}-{m}x{k}x{b}"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,b", CHAIN_EDGES,
-                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_EDGES])
-def test_bf16_chain_kernel_at_the_cluster_edges(cuda_device, m, k, b):
-    """The bf16 chain kernel against its plain version (the probe's check)
-    where the rows do not split evenly over a cluster's CTAs and where
-    each cluster walks over several column groups: one launch."""
-    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
+@pytest.mark.parametrize("arm,m,k,b", EDGE_CASES,
+                         ids=[_chain_id(c) for c in EDGE_CASES])
+def test_chain_kernel_at_the_cluster_edges(cuda_device, arm, m, k, b):
+    """Each arm's chain kernel against its plain version (the probe's
+    check: bit for bit for i8 and onehot) where the rows do not split
+    evenly over a cluster's CTAs and where each cluster walks over
+    several column groups: one launch."""
+    w, x = probe_i8_matmul.operands(arm, m, k, b, cuda_device)
     build.reset_launch_counts()
-    got = probe_i8_matmul.run("bf16", w, x)
+    got = probe_i8_matmul.run(arm, w, x)
     torch.cuda.synchronize()
-    assert build.launch_counts[probe_i8_matmul.kernel_name("bf16")] == 1
-    probe_i8_matmul.check("bf16", got, probe_i8_matmul.run_plain("bf16", w, x))
+    assert build.launch_counts[probe_i8_matmul.kernel_name(arm)] == 1
+    probe_i8_matmul.check(arm, got, probe_i8_matmul.run_plain(arm, w, x))
 
 
-# Every shape the bf16 chain's card tests name: the small one, the
-# default and the cluster edges.
+# Every shape the chains' card tests name: the small one, the default and
+# the cluster edges, for each arm.
 CHAIN_SHAPES = [PROBE_SMALL["i8_matmul"], probe_i8_matmul.DEFAULT,
                 *CHAIN_EDGES]
+SHAPE_CASES = [(arm, *shape) for arm in CHAIN_ARMS for shape in CHAIN_SHAPES]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,b", CHAIN_SHAPES,
-                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_SHAPES])
-def test_bf16_chain_kernel_repeats_bit_for_bit(cuda_device, m, k, b):
-    """Every element of the bf16 chain sums in a fixed order, so eight
-    runs agree bit for bit: a race in the exchange of x (a stale or half
-    written x read in a few columns) would show here even where it stays
-    inside BF16_CHAIN_TOL."""
-    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
-    probe_i8_matmul.check_kernel_repeats(w, x, repeats=8)
+@pytest.mark.parametrize("arm,m,k,b", SHAPE_CASES,
+                         ids=[_chain_id(c) for c in SHAPE_CASES])
+def test_chain_kernel_repeats_bit_for_bit(cuda_device, arm, m, k, b):
+    """Every element of a chain sums in a fixed order, so eight runs agree
+    bit for bit: a race in the exchange of x (a stale or half written x
+    read in a few columns) would show here even where it stays inside
+    BF16_CHAIN_TOL."""
+    w, x = probe_i8_matmul.operands(arm, m, k, b, cuda_device)
+    probe_i8_matmul.check_kernel_repeats(arm, w, x, repeats=8)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,b", CHAIN_SHAPES,
-                         ids=[f"{m}x{k}x{b}" for m, k, b in CHAIN_SHAPES])
-def test_bf16_chain_kernel_product_by_product(cuda_device, m, k, b):
+@pytest.mark.parametrize("arm,m,k,b", SHAPE_CASES,
+                         ids=[_chain_id(c) for c in SHAPE_CASES])
+def test_chain_kernel_product_by_product(cuda_device, arm, m, k, b):
     """The kernel stopped after each of its first four products, each
-    held to one plain product of its result before at about one bf16
-    step of each element (`check_product`), so that an error in the
-    exchange cannot hide under the rounding that 64 products gather."""
-    w, x = probe_i8_matmul.operands("bf16", m, k, b, cuda_device)
-    probe_i8_matmul.check_kernel_products(w, x, products=4)
+    held to one plain product of its result before (`check_step`: at
+    about one bf16 step of each element for bf16, equal for i8 and
+    onehot), so that an error in the exchange cannot hide under the
+    rounding that 64 products gather."""
+    w, x = probe_i8_matmul.operands(arm, m, k, b, cuda_device)
+    probe_i8_matmul.check_kernel_products(arm, w, x, products=4)
+
+
+@pytest.mark.cuda
+def test_onehot_chain_kernel_takes_every_level(cuda_device):
+    """An x whose row 0 sends the 256 columns to the 256 levels: the
+    one-hot B fragments the kernel builds in registers hit every byte of
+    every depth step, and the first product must equal the plain one,
+    as must the whole chain (after the first product every index is 0,
+    int(clip(W_emb[0, i] 1e-4)) for any int8 W_emb)."""
+    w, x = probe_i8_matmul.operands("onehot", 1152, 384, 256, cuda_device)
+    x[0] = torch.arange(256, device=cuda_device) + 0.5
+    probe_i8_matmul.check_kernel_products("onehot", w, x, products=2)
+    probe_i8_matmul.check("onehot", probe_i8_matmul.run("onehot", w, x),
+                          probe_i8_matmul.run_plain("onehot", w, x))
 
 
 @pytest.mark.cuda

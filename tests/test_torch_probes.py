@@ -40,6 +40,7 @@ from jax.experimental import pallas as pl
 import torch
 
 from fpsc_tpu_torch.ops import build
+from fpsc_tpu_torch.probes import gates_sass
 from fpsc_tpu_torch.probes import probe_draw_tail as pdt
 from fpsc_tpu_torch.probes import probe_gates as pg
 from fpsc_tpu_torch.probes import probe_i8_matmul as pim
@@ -259,6 +260,53 @@ def test_bf16_chain_is_column_separable(geometry, group):
     assert torch.equal(whole, torch.cat(parts, 1))
 
 
+@pytest.mark.parametrize("arm", ["i8", "onehot"])
+@pytest.mark.parametrize("group", [8, 16])
+@pytest.mark.parametrize("geometry", [(64, 32, 32), (1152, 384, 128)],
+                         ids=["small", "default"])
+def test_int8_chains_are_column_separable(geometry, group, arm):
+    """As for bf16: the i8 and onehot chains on the whole of x are, bit
+    for bit, the chains of its column groups side by side, so their
+    kernels too give each cluster a group of its own."""
+    w, x = pim.operands(arm, *geometry, "cpu")
+    whole = pim.run_plain(arm, w, x)
+    parts = [pim.run_plain(arm, w, x[:, c:c + group].contiguous())
+             for c in range(0, x.shape[1], group)]
+    assert torch.equal(whole, torch.cat(parts, 1))
+
+
+def _onehot_indices(w, x, iters=pim.ITERS):
+    """The onehot plain chain's index of each column before each product."""
+    indices, acc = [], x
+    for _ in range(iters):
+        indices.append(torch.clamp(acc[0], 0, 255).to(torch.int32))
+        acc = pim.run_plain("onehot", w, acc, 1)
+    return torch.stack(indices)
+
+
+@pytest.mark.parametrize("geometry", [(64, 32, 32), (1152, 384, 128)],
+                         ids=["small", "default"])
+def test_onehot_indices_depend_only_on_row_tile_0(geometry):
+    """The onehot kernel has every warp compute W_emb's row tile 0 beside
+    its own tiles and take the next indices from it, exchanging nothing:
+    right only if the chain's indices depend on W_emb's first 16 rows
+    alone.  Rows from 16 up drawn anew give the same index trajectory,
+    from an x whose row 0 takes the columns to levels all over the 256.
+    (After the first product an index is int(clip(W_emb[0, i] 1e-4)),
+    which is 0 for every int8 W_emb.)"""
+    b = geometry[2]
+    w, x = pim.operands("onehot", *geometry, "cpu")
+    x[0] = torch.arange(b) * (255.0 / b) + 0.5
+    other = w.clone()
+    rng = np.random.RandomState(1)
+    other[16:] = torch.as_tensor(
+        rng.randint(-127, 128, tuple(other[16:].shape)).astype(np.int8))
+    assert not torch.equal(other[16:], w[16:])
+    want = _onehot_indices(w, x)
+    assert torch.equal(_onehot_indices(other, x), want)
+    assert len(set(want[0].tolist())) == b and not want[1:].any()
+
+
 def test_bf16_chain_refuses_a_stripe_beyond_shared_memory():
     """The bf16 kernel splits W's rows over the CTAs of a cluster and
     keeps each stripe in shared memory: at k = 384, 6-CTA clusters take
@@ -276,42 +324,86 @@ def test_bf16_chain_refuses_a_stripe_beyond_shared_memory():
     pim.run("i8", torch.zeros((4240, 384), dtype=torch.int8), x, 1)
 
 
+# (arm, k, W's rows, CTAs a cluster) where each arm's stripe just fits
+# the cluster size the refusal tests name, and one row tile more does not
+LIMITS = [("bf16", 384, 1632, 6), ("bf16", 384, 4224, 16),
+          ("i8", 384, 8832, 16), ("onehot", 384, 13184, 16)]
+
+
+@pytest.mark.parametrize("arm", ["i8", "onehot"])
+def test_int8_chains_refuse_a_stripe_beyond_shared_memory(arm):
+    """The i8 and onehot kernels hold W's stripe in shared memory too (i8
+    beside two int8 buffers of x, onehot beside W's first 16 rows): at
+    k = 384, 16-CTA clusters take int8 W up to 8832 rows and W_emb up to
+    13184; one tile more is refused before any launch, on the CPU too."""
+    m = {"i8": 8832, "onehot": 13184}[arm]
+    depth = 384 if arm == "i8" else pim.EMB_ROWS
+    x = torch.zeros((384, 8))
+    assert pim.cluster_ctas(m, 384, arm) == 16
+    pim.run(arm, torch.zeros((m, depth), dtype=torch.int8), x, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        pim.run(arm, torch.zeros((m + 16, depth), dtype=torch.int8), x, 1)
+
+
 def _kernel_smem_rule():
     """The kernel's shared-memory rule, read from its source: kChainCols,
-    kChainSmem and the body of cluster_smem, turned into Python."""
+    kChainSmem, kEmbRows, the arms' numbers, and the bodies of row_bytes
+    and cluster_smem, turned into Python."""
     src = (Path(pim.__file__).parents[1] / "csrc" / pim.SOURCE).read_text()
     consts = {name: int(v) for name, v in re.findall(
-        r"constexpr int (kChainCols|kChainSmem) = (\d+);", src)}
-    body = re.search(r"size_t cluster_smem\(int m, int k, int csize, "
-                     r"int\* pp, int\* qq\) \{(.*?)\n\}", src, re.S).group(1)
-    code = (body.replace("(size_t)", "").replace("*pp", "pp")
-            .replace("*qq", "qq").replace("/", "//")
+        r"constexpr int (kChainCols|kChainSmem|kEmbRows) = (\d+);", src)}
+    arms = re.search(r"enum Arm \{ (.*?) \};", src).group(1).split(", ")
+    row = re.search(r"constexpr int row_bytes\(int depth\) \{\s*"
+                    r"return (.*?);\s*\}", src, re.S).group(1)
+    body = re.search(r"size_t cluster_smem\(int arm, int m, int k, "
+                     r"int csize, int\* pp, int\* qq\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    code = (body.replace("(size_t)", "").replace("const int ", "")
+            .replace("*pp", "pp").replace("*qq", "qq").replace("/", "//")
             .replace("return ", "smem = ").replace(";", "\n"))
-    code = "\n".join(line.strip() for line in code.splitlines())
+    # C's (a == b ? c : d) as Python's (c if a == b else d)
+    code = re.sub(r"\(([^()?]+?) \? ([^():]+?) : ([^()]+?)\)",
+                  r"(\2 if \1 else \3)", code)
+    code = "\n".join(line.strip() for line in code.splitlines()
+                     if not line.strip().startswith("//"))
+    row_bytes = eval("lambda depth: " + row.replace("/", "//"))
 
-    def smem(m, k, csize):
-        scope = dict(consts, m=m, k=k, csize=csize)
+    def smem(m, k, csize, arm="bf16"):
+        scope = dict(consts, m=m, k=k, csize=csize, arm=pim.ARMS.index(arm),
+                     row_bytes=row_bytes,
+                     **{name: i for i, name in enumerate(arms)})
         exec(code, {}, scope)
         return scope["smem"]
-    return consts, smem
+    return consts, arms, smem
 
 
-@pytest.mark.parametrize("ctas", [6, 8, 16])
+@pytest.mark.parametrize("ctas", [1, 2, 3, 4, 5, 6, 7, 8, 16])
 def test_chain_shared_memory_rule_is_the_kernels(ctas):
     """`_check` refuses a W whose stripe the kernel would refuse at
     launch, and no other: Python's constants and cluster_smem are the
-    kernel's (csrc/probe_i8_matmul.cu), at every cluster size the
-    wrapper launches, on both sides of the limit."""
-    consts, smem = _kernel_smem_rule()
+    kernel's (csrc/probe_i8_matmul.cu), for each arm, at every cluster
+    size the kernel launches, on both sides of the limit; cluster_ctas
+    picks the first of its sizes whose stripe fits."""
+    consts, arms, smem = _kernel_smem_rule()
     assert consts == {"kChainCols": pim.CHAIN_COLS,
-                      "kChainSmem": pim.SMEM_BYTES}
-    for k in (32, 128, 384):
-        for m in range(k, 4400, 16):
-            want = smem(m, k, ctas)
-            assert pim.cluster_smem(m, k, ctas) == want, (m, k)
-    # the sizes the refusal test names sit on the limit
-    assert smem(1632, 384, 6) <= pim.SMEM_BYTES < smem(1648, 384, 6)
-    assert smem(4224, 384, 16) <= pim.SMEM_BYTES < smem(4240, 384, 16)
+                      "kChainSmem": pim.SMEM_BYTES,
+                      "kEmbRows": pim.EMB_ROWS}
+    assert arms == ["kBf16", "kI8", "kOneHot"] and len(pim.ARMS) == 3
+    for arm in pim.ARMS:
+        sizes = [pim.CLUSTER, *pim.LARGER_CLUSTERS]
+        for k in (32, 64, 96, 128, 384):
+            for m in range(k, 4400, 16):
+                want = smem(m, k, ctas, arm)
+                assert pim.cluster_smem(m, k, ctas, arm) == want, (arm, m, k)
+                fits = [c for c in sizes
+                        if smem(m, k, c, arm) <= consts["kChainSmem"]]
+                assert pim.cluster_ctas(m, k, arm) == (
+                    fits[0] if fits else None), (arm, m, k)
+    # the sizes the refusal tests name sit on the limit
+    for arm, k, m, size in LIMITS:
+        assert smem(m, k, size, arm) <= pim.SMEM_BYTES \
+            < smem(m + 16, k, size, arm), (arm, m)
+    assert smem(1152, 384, 6, "i8") == 83200
 
 
 @pytest.mark.parametrize("geometry", [(64, 32, 8), (1152, 384, 128)],
@@ -347,6 +439,18 @@ def test_bf16_product_check_catches_a_column_of_a_wrong_x(fault):
         pim.check_product(got, w, before)
 
 
+@pytest.mark.parametrize("arm", ["i8", "onehot"])
+def test_exact_product_check_catches_one_element_off(arm):
+    """One product of an exact chain passes `check_step` only as the plain
+    product itself: one element moved by the arm's smallest step fails."""
+    w, x = pim.operands(arm, 1152, 384, 128, "cpu")
+    got = pim.run_plain(arm, w, x, 1)
+    assert pim.check_step(arm, got, w, x) == 0.0
+    got[100, 5] += pim.INV_127_SQ if arm == "i8" else pim.ONEHOT_SCALE
+    with pytest.raises(RuntimeError, match="one product differs at 1 "):
+        pim.check_step(arm, got, w, x)
+
+
 # -------------------------------------------------------------------- gates
 
 @pytest.fixture(scope="module")
@@ -368,6 +472,44 @@ def test_gates_arms_match_the_script(gates_oracle, bf16_oracle, geometry,
                  bf16_oracle)
     pg.check(arm, pg.run(arm, ops["pre"], ops["gh"], ops["h"], iters),
              want)
+
+
+# cuobjdump -sass's layout: two kernels, the second with a loop of two
+# evaluations (MUFU and the 0.999 multiply twice) behind a label, a
+# forward branch in it, and a second, shorter backward branch
+_SASS = """
+        Function : _ZN12_GLOBAL__N_112gates_kernelILi0EEEvPKfS2_S2_Pfiii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;           /* 0x000 */
+        /*0010*/                   BRA 0x0 ;                        /* 0x000 */
+        Function : _ZN12_GLOBAL__N_112gates_kernelILi1EEEvPKfS2_S2_Pfiii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;           /* 0x000 */
+.L_x_1:
+        /*0010*/                   FADD R2, R2, R3 ;                /* 0x000 */
+        /*0020*/                   MUFU.EX2 R4, R2 ;                /* 0x000 */
+        /*0030*/              @P1 BRA 0x50 ;                        /* 0x000 */
+        /*0040*/                   MUFU.RCP R5, R4 ;                /* 0x000 */
+        /*0050*/                   FMUL R6, R5, 0.99900001287460327148 ;
+        /*0060*/                   MUFU.TANH R4, R2 ;               /* 0x000 */
+        /*0070*/                   FMUL R6, R6, 0x3f7fbe77 ;        /* 0x000 */
+        /*0080*/              @P0 BRA `(.L_x_1) ;                   /* 0x000 */
+        /*0090*/              @P2 BRA 0x70 ;                        /* 0x000 */
+        /*00a0*/                   EXIT ;                           /* 0x000 */
+"""
+
+
+def test_gates_sass_counts_the_longest_loop():
+    """gates_sass reads gates_kernel<1> alone out of the disassembly,
+    resolves a label target, and counts the longest backward branch's
+    body: 8 instructions, one jumped over by the forward branch, 3 MUFU,
+    2 evaluations, 2 branches."""
+    code = gates_sass.parse_sass(_SASS, gates_sass.KERNEL)
+    assert [a for a, _ in code] == list(range(0, 0xb0, 0x10))
+    assert code[8][1] == "@P0 BRA `(0x10)"
+    assert gates_sass.loop_counts(code) == {
+        "instructions": 8, "skipped": 1, "mufu": 3, "evaluations": 2,
+        "branches": 2, "mufu_kinds": ["MUFU.EX2", "MUFU.RCP", "MUFU.TANH"]}
+    with pytest.raises(RuntimeError, match="no SASS"):
+        gates_sass.parse_sass(_SASS, "gates_kernelILi2E")
 
 
 # ---------------------------------------------------------------- draw tail
