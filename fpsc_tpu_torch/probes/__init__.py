@@ -17,6 +17,10 @@ median of 9 timed runs (CUDA events, after a warm-up) and the card's
 name.  Without a card they raise.  A kernel that does not build or
 launch raises too: no arm is skipped.
 
+Beside them, chain_parts, draw_parts (the draw's and the wide store's
+template instances) and gates_sass and draw_sass (instruction bounds
+from the kernels' SASS) take the probes apart on the card.
+
 This module holds what the wrappers share: the operand check and the
 launch of a kernel through its plain C interface.
 """

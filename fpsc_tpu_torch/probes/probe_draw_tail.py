@@ -2,33 +2,45 @@
 
 Port of scripts/probe_draw_tail.py (make -> kernel, pallas_call at :118)
 as csrc/probe_draw_tail.cu.  The draw of the sampler kernel
-(csrc/lpcnet_sampler.cu `draw`) runs on one warp, 8 levels a lane: two
-tanh, exp, a column sum, a cut at 0.002 of it, an inclusive prefix sum
-over the 256 levels, and the count below u * total.  This probe times
-that draw on (256, b) logits, one warp per column, chained `iters`
-times, fcpre <- fcpre + 1e-3 draw(fcpre), with ablations:
+(csrc/lpcnet_sampler.cu `draw`): two tanh, exp, a column sum, a cut at
+0.002 of it, an inclusive prefix sum over the 256 levels, and the count
+below u * total.  This probe times that draw on (256, b) logits, chained
+`iters` times, fcpre <- fcpre + 1e-3 draw(fcpre), with ablations:
 
   empty      fcpre <- fcpre + 1e-6: the loop alone
   full       the draw, its prefix sum the warp's register scan
   no_cumsum  the prefix sum left out
   no_exp     exp replaced by an affine map
-  no_decode  the compare and u2l sum replaced by cdf[0] - u * total
+  no_decode  the decode replaced by cdf[0] - u * total
   no_tanh    the two tanh replaced by scales
   tri_bf16   the prefix sum as the product of a triangle of ones with
              the cut probabilities rounded to bf16, f32 sums
   tri_f32    the same product in f32
 
-The draw's result is sum(u2l[l] for levels l with cdf[l] < u * total).
+The script's draw is sum(u2l[l] for levels l with cdf[l] < u * total).
+The cut probabilities are not negative, so those levels are the first
+n, up to f32 rounding; the kernel counts them and reads the sum of
+u2l's first n levels from u2l's prefix sums, which it takes once
+(u2l does not change between draws).  Without a prefix sum (no_cumsum)
+the levels are no prefix, and the kernel sums u2l over them.
 
     python -m fpsc_tpu_torch.probes.probe_draw_tail [b] [iters]
 
 One line per arm: the median us per draw over 9 timed runs.
 
-The plain version repeats the kernel's order of summation: a column sum
-is each lane's 8 levels in order, then a butterfly over the 32 lanes;
-the scan is Hillis-Steele (cdf[l] += cdf[l - k], k = 1 ... 128); the
-product's row l is the sum of levels 0 ... l in order (the triangle's
-zeros add nothing), which is a running sum.
+A column's reductions run on one warp, lane j holding levels 8 j ...
+8 j + 7; the elementwise part (tanh, exp) is shared by the column's
+`warps` warps (WARPS, the launcher's choice `warps_per_column`), each
+of which runs the reductions.  The
+plain version repeats the kernel's arithmetic: a prefix sum is each
+lane's 8 levels in order, plus the lane's offset from a hypercube scan
+of the lane totals, with that scan's column total as level 255's; one
+prefix sum of p gives the column sum (level 255) and, in a column where
+no level is cut to 0, the cdf (level l's sum less (l + 1) cuts); a
+column with a level cut to 0 takes the prefix sum of pcut.  The float
+sum of u2l is each lane's 8 levels as a tree, then a butterfly over the
+32 lanes.  The product's row l is the sum of levels 0 ... l in order
+(the triangle's zeros add nothing), a running sum.
 """
 from __future__ import annotations
 
@@ -46,8 +58,17 @@ from fpsc_tpu_torch.utils.device import resolve_device
 SOURCE = "probe_draw_tail.cu"
 LEVELS = 256
 LANES = 32
+PER_LANE = LEVELS // LANES
 ARMS = ("empty", "full", "no_cumsum", "no_exp", "no_decode", "no_tanh",
         "tri_bf16", "tri_f32")
+# The kernel's template instances: warps a column and the decode of the
+# full arm (count and prefix lookup, or the float sum).  The launcher
+# takes the first decode and warps_per_column(b); draw_parts times the
+# others on the full arm.
+WARPS = (1, 2)
+DECODES = ("count", "sum")
+# warp schedulers an SM
+SCHEDULERS = 4
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # An f32 rounding difference of tanh, exp or a sum moves fcpre by an ulp
@@ -71,6 +92,14 @@ def kernel_name(arm: str) -> str:
     return f"probe_draw_tail_{arm}"
 
 
+def warps_per_column(b: int, sms: int) -> int:
+    """The launcher's warps a column at b columns on a card of `sms` SMs:
+    2 while b * 2 warps have a scheduler each, else 1.  (With the
+    kernel's tile loads, 4 and 8 warps were at best 1% faster at 8, 100
+    and 256 columns on an H100, PERF.md §6.)"""
+    return 2 if b * 2 <= SCHEDULERS * sms else 1
+
+
 def inputs(b: int, device) -> Dict[str, torch.Tensor]:
     """The script's operands, drawn in its order from RandomState(0):
     logits (256, b), u2l (256, b), u (1, b)."""
@@ -90,11 +119,26 @@ def operands(arm: str, b: int, iters: int, device) -> tuple:
 
 
 def run(arm: str, logits: torch.Tensor, u2l: torch.Tensor,
-          u: torch.Tensor, iters: int) -> torch.Tensor:
+        u: torch.Tensor, iters: int) -> torch.Tensor:
     """`iters` chained draws of the arm -> fcpre (256, b) f32.  CUDA
     tensors launch the kernel or raise; CPU tensors run `run_plain`."""
+    return run_variant(arm, logits, u2l, u, iters)
+
+
+def run_variant(arm: str, logits: torch.Tensor, u2l: torch.Tensor,
+                u: torch.Tensor, iters: int, warps: int = 0,
+                decode: str = DECODES[0]) -> torch.Tensor:
+    """`run` on one template instance: `warps` of WARPS a column (0: the
+    launcher's choice), and for the full arm the other decode of
+    DECODES.  CPU tensors run `run_plain` with the decode."""
     if arm not in ARMS:
         raise ValueError(f"probe_draw_tail arms are {ARMS}, not {arm!r}")
+    if warps not in (0, *WARPS) or decode not in DECODES:
+        raise ValueError(f"probe_draw_tail takes warps in {WARPS} and "
+                         f"decode in {DECODES}, not {warps}, {decode!r}")
+    changed = decode != DECODES[0]
+    if changed and arm != "full":
+        raise ValueError(f"{decode!r} is no instance of the {arm} arm")
     dev = operand_device(logits)
     b = logits.shape[-1]
     check_operand("logits", logits, (LEVELS, b), torch.float32, dev)
@@ -103,26 +147,70 @@ def run(arm: str, logits: torch.Tensor, u2l: torch.Tensor,
     if iters < 0:
         raise ValueError(f"iters must be >= 0, not {iters}")
     if dev.type == "cpu":
-        return run_plain(arm, logits, u2l, u, iters)
+        return run_plain(arm, logits, u2l, u, iters, decode)
     out = torch.empty_like(logits)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch(SOURCE, "fpsc_probe_draw_tail", [i, p, p, p, p, i, i],
-           kernel_name(arm), dev, ARMS.index(arm), logits.data_ptr(),
-           u2l.data_ptr(), u.data_ptr(), out.data_ptr(), b, iters)
+    args = (ARMS.index(arm), logits.data_ptr(), u2l.data_ptr(),
+            u.data_ptr(), out.data_ptr(), b, iters)
+    if warps == 0 and not changed:
+        launch(SOURCE, "fpsc_probe_draw_tail", [i, p, p, p, p, i, i],
+               kernel_name(arm), dev, *args)
+    else:
+        launch(SOURCE, "fpsc_probe_draw_tail_variant",
+               [i, p, p, p, p, i, i, i, i], kernel_name(arm), dev,
+               *args, warps, DECODES.index(decode))
     return out
 
 
-def _warp_sum(x: torch.Tensor) -> torch.Tensor:
-    """The column sums of (256, b) as the kernel takes them: lane l sums
-    levels l, l + 32, ... in order, then a butterfly over the lanes."""
-    x = x.reshape(LEVELS // LANES, LANES, -1)
-    s = x[0]
-    for i in range(1, x.shape[0]):
-        s = s + x[i]
-    lane = torch.arange(LANES, device=x.device)
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """(256, b) -> (8, 32, b) as a warp holds it: [i, j] is level 8 j + i,
+    register i of lane j."""
+    return x.reshape(LANES, PER_LANE, -1).transpose(0, 1)
+
+
+def _butterfly(s: torch.Tensor) -> torch.Tensor:
+    """(32, b) lane values -> (1, b): s += s[lane ^ o], o = 16 ... 1,
+    which leaves every lane the same sum."""
+    lane = torch.arange(LANES, device=s.device)
     for o in (16, 8, 4, 2, 1):
         s = s + s[lane ^ o]
     return s[:1]
+
+
+def _tree8(c: torch.Tensor) -> torch.Tensor:
+    """(8, 32, b) -> (32, b): each lane's 8 levels as a tree ((0 + 1) +
+    (2 + 3)) + ((4 + 5) + (6 + 7))."""
+    return ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]))
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The column sums of (256, b) as the kernel's float-sum decode takes
+    them: each lane's 8 levels as a tree, then a butterfly over the 32
+    lanes."""
+    return _butterfly(_tree8(_lanes(x)))
+
+
+def _scan(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix sums of (256, b) as the kernel takes them:
+    each lane's 8 levels in order; a hypercube scan of the lane totals
+    (at k = 1, 2, 4, 8, 16 each lane takes the group total of lane ^ k,
+    adds it to its offset if lane & k, and to its own group total),
+    which leaves every lane the column total; the lane's offset added to
+    each of its sums; and that column total as level 255's."""
+    c = _lanes(x)
+    sums = [c[0]]
+    for i in range(1, PER_LANE):
+        sums.append(sums[-1] + c[i])
+    lane = torch.arange(LANES, device=x.device)
+    total, offset = sums[-1], torch.zeros_like(sums[-1])
+    for k in (1, 2, 4, 8, 16):
+        other = total[lane ^ k]
+        offset = torch.where(((lane & k) != 0)[:, None], offset + other,
+                             offset)
+        total = total + other
+    cdf = torch.stack([offset + s for s in sums])
+    cdf[PER_LANE - 1, LANES - 1] = total[LANES - 1]
+    return cdf.transpose(0, 1).reshape(LEVELS, -1)
 
 
 def _prefix(arm: str, pcut: torch.Tensor) -> torch.Tensor:
@@ -135,37 +223,55 @@ def _prefix(arm: str, pcut: torch.Tensor) -> torch.Tensor:
         for level in range(1, LEVELS):
             rows.append(rows[-1] + pcut[level])
         return torch.stack(rows)
-    cdf, k = pcut, 1
-    while k < LEVELS:
-        cdf = torch.cat([cdf[:k], cdf[k:] + cdf[:-k]])
-        k *= 2
-    return cdf
+    return _scan(pcut)
+
+
+def u2l_prefix(u2l: torch.Tensor) -> torch.Tensor:
+    """(257, b): row n is the sum of u2l over levels 0 ... n - 1, by the
+    kernel's prefix sum (_scan)."""
+    return torch.cat([torch.zeros_like(u2l[:1]), _scan(u2l)])
 
 
 def draw_plain(arm: str, fcpre: torch.Tensor, u2l: torch.Tensor,
-               u: torch.Tensor) -> torch.Tensor:
-    """One draw of the arm -> (1, b)."""
+               u: torch.Tensor, decode: str = DECODES[0]) -> torch.Tensor:
+    """One draw of the arm -> (1, b).  Decode "count": row n of
+    u2l_prefix, n the number of levels with cdf < u * total; "sum" (and
+    always without a prefix sum): the column sum of u2l over them."""
     if arm == "no_tanh":
         logits = fcpre * 0.3 + fcpre * 0.2
     else:
         logits = torch.tanh(fcpre) + torch.tanh(fcpre)
     p = logits * 0.125 + 2.0 if arm == "no_exp" else torch.exp(logits * 0.1)
-    pcut = torch.clamp(p - 0.002 * _warp_sum(p), min=0.0)
-    cdf = _prefix(arm, pcut)
+    sums = _scan(p)
+    cut = 0.002 * sums[LEVELS - 1:]
+    pcut = torch.clamp(p - cut, min=0.0)
+    if arm == "no_cumsum" or arm.startswith("tri_"):
+        cdf = _prefix(arm, pcut)
+    else:
+        # where no level of a column is cut to 0, its cdf is the prefix
+        # sum of p less (l + 1) cuts; else the prefix sum of pcut
+        level = torch.arange(1, LEVELS + 1, device=p.device,
+                             dtype=p.dtype)[:, None]
+        cdf = torch.where((p < cut).any(0, keepdim=True), _scan(pcut),
+                          sums - level * cut)
     thresh = u * cdf[LEVELS - 1:]
     if arm == "no_decode":
         return cdf[:1] - thresh
-    return _warp_sum(torch.where(cdf < thresh, u2l, 0.0))
+    below = cdf < thresh
+    if decode == "sum" or arm == "no_cumsum":
+        return _warp_sum(torch.where(below, u2l, 0.0))
+    return u2l_prefix(u2l).gather(0, below.sum(0, keepdim=True))
 
 
 def run_plain(arm: str, logits: torch.Tensor, u2l: torch.Tensor,
-                u: torch.Tensor, iters: int) -> torch.Tensor:
+              u: torch.Tensor, iters: int,
+              decode: str = DECODES[0]) -> torch.Tensor:
     fcpre = logits
     for _ in range(iters):
         if arm == "empty":
             fcpre = fcpre + 1e-6
         else:
-            fcpre = fcpre + draw_plain(arm, fcpre, u2l, u) * 1e-3
+            fcpre = fcpre + draw_plain(arm, fcpre, u2l, u, decode) * 1e-3
     return fcpre
 
 
@@ -200,11 +306,16 @@ def ops_per_level(arm: str) -> int:
 def bound(arm: str, b: int, iters: int) -> Tuple[float, str]:
     """The least time on the card's published peaks -> (ms, by): the
     operands read once and fcpre written once; ops_per_level at the f32
-    peak outside the tensor cores."""
+    peak outside the tensor cores.  draw_sass gives the bound the
+    kernel's instructions set."""
     ops = float(ops_per_level(arm)) * LEVELS * b * iters
     nbytes = (3 * LEVELS + 1) * b * 4
     t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# the `kernels` line's bound: the published rates alone, as `bound` is
+rate_bound = bound
 
 
 def main(b: int = DEFAULT[0], iters: int = DEFAULT[1],

@@ -161,6 +161,10 @@ def bound(arm: str, b: int, iters: int,
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+# the `kernels` line's bound: the published rates alone, as `bound` is
+rate_bound = bound
+
+
 def main(b: int = DEFAULT[0], iters: int = DEFAULT[1],
          device=None) -> Dict[str, float]:
     """Time every arm on the card and print one line each -> {arm: ms

@@ -17,6 +17,12 @@ of the output are never written (torch.empty, as the TPU output is).
 
 One line per arm: the median us per output row over 9 timed runs.
 Every arm is exact: the same f32 adds in the same order.
+
+Each carry is a chain of dependent f32 adds, so besides the bytes the
+chain bounds an arm: its iterations at ADD_LATENCY cycles each, at the
+SM clock SM_CLOCK_HZ.  per_row's 2,048 adds (4.1 us) outlast its bytes
+(1.9 us at the defaults).  The kernel's instances (COLS columns a
+block) are timed by draw_parts.
 """
 from __future__ import annotations
 
@@ -36,6 +42,15 @@ ARMS = ("none", "per_row", "block8")
 CARRY = 8
 STEP = 1e-6
 PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# The dependent f32 add: its latency in cycles and the SM clock it runs
+# at, the H100's maximum (1980 MHz as nvidia-smi read it, PERF.md §6).
+ADD_LATENCY = 4
+SM_CLOCK_HZ = 1.98e9
+# columns a block of the kernel's instances, and the launcher's for each
+# arm (the C source's kLauncherCols)
+COLS = (8, 32)
+LAUNCHER_COLS = {"none": 8, "per_row": 32, "block8": 8}
 
 # the script's (b, rows)
 DEFAULT = (768, 2048)
@@ -70,8 +85,19 @@ def run(arm: str, x: torch.Tensor, rows: int) -> torch.Tensor:
     """The arm's stores of the carry x -> (rows, b) f32, of which the
     first written_rows(arm, rows) are defined.  CUDA tensors launch the
     kernel or raise; CPU tensors run `run_plain`."""
+    return run_variant(arm, x, rows)
+
+
+def run_variant(arm: str, x: torch.Tensor, rows: int,
+                cols: int = 0) -> torch.Tensor:
+    """`run` on one template instance: `cols` of COLS columns a block (0:
+    the launcher's)."""
     if arm not in ARMS:
         raise ValueError(f"probe_wide_store arms are {ARMS}, not {arm!r}")
+    cols = cols or LAUNCHER_COLS[arm]
+    if cols not in COLS:
+        raise ValueError(f"probe_wide_store has no instance of {arm} with "
+                         f"{cols} columns a block")
     dev = operand_device(x)
     b = x.shape[-1]
     check_operand("x", x, (CARRY, b), torch.float32, dev)
@@ -82,9 +108,13 @@ def run(arm: str, x: torch.Tensor, rows: int) -> torch.Tensor:
         return run_plain(arm, x, rows)
     out = torch.empty((rows, b), dtype=torch.float32, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch(SOURCE, "fpsc_probe_wide_store", [i, p, p, i, i],
-           kernel_name(arm), dev, ARMS.index(arm), x.data_ptr(),
-           out.data_ptr(), b, rows)
+    args = (ARMS.index(arm), x.data_ptr(), out.data_ptr(), b, rows)
+    if cols == LAUNCHER_COLS[arm]:
+        launch(SOURCE, "fpsc_probe_wide_store", [i, p, p, i, i],
+               kernel_name(arm), dev, *args)
+    else:
+        launch(SOURCE, "fpsc_probe_wide_store_variant", [i, p, p, i, i, i],
+               kernel_name(arm), dev, *args, cols)
     return out
 
 
@@ -114,12 +144,32 @@ def check(arm: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def bound_terms(arm: str, b: int, rows: int) -> Dict[str, float]:
+    """The least times in ms: "bytes", the carry read once and the
+    defined rows written once at the published HBM3 rate; "operations",
+    the adds at the f32 rate; "chain", the longest chain's adds one
+    after another, ADD_LATENCY cycles each at SM_CLOCK_HZ."""
+    n = iterations(arm, rows)
+    return {"bytes": (CARRY + written_rows(arm, rows)) * b * 4
+            / PEAK_BYTES * 1e3,
+            "operations": CARRY * b * n / PEAK_F32 * 1e3,
+            "chain": n * ADD_LATENCY / SM_CLOCK_HZ * 1e3}
+
+
+def rate_bound(arm: str, b: int, rows: int) -> Tuple[float, str]:
+    """The bound on the card's published rates alone -> (ms, "bytes" or
+    "operations"): the `kernels` line's, as every probe's rate_bound."""
+    terms = bound_terms(arm, b, rows)
+    by = max(("bytes", "operations"), key=terms.get)
+    return terms[by], by
+
+
 def bound(arm: str, b: int, rows: int) -> Tuple[float, str]:
-    """The least time on the card's published HBM3 rate -> (ms, "bytes"):
-    the carry read once, the defined rows written once.  The adds (b per
-    row) are far below the bytes."""
-    nbytes = (CARRY + written_rows(arm, rows)) * b * 4
-    return nbytes / PEAK_BYTES * 1e3, "bytes"
+    """The least time -> (ms, by): the larger of the bytes and the add
+    chain ("bytes" or "chain"); the adds' rate is far below both."""
+    terms = bound_terms(arm, b, rows)
+    by = max(("bytes", "chain"), key=terms.get)
+    return terms[by], by
 
 
 def main(b: int = DEFAULT[0], rows: int = DEFAULT[1],

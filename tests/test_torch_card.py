@@ -583,6 +583,78 @@ def test_onehot_chain_kernel_takes_every_level(cuda_device):
                           probe_i8_matmul.run_plain("onehot", w, x))
 
 
+# The draw's instances at column counts that fill no block (8, 100, 257),
+# one that fills them (256) and the script's (768), with no draw, one,
+# and the script's 64.
+DRAW_CASES = [(b, iters, warps) for b in (8, 100, 256, 257, 768)
+              for iters in (0, 1, 64) for warps in probe_draw_tail.WARPS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,iters,warps", DRAW_CASES,
+                         ids=[f"b{b}-iters{i}-warps{w}"
+                              for b, i, w in DRAW_CASES])
+def test_draw_kernel_instances_match_plain_version(cuda_device, b, iters,
+                                                   warps):
+    """Every arm of the draw kernel at `warps` a column, and the full
+    arm's float-sum decode, each held to its plain version by the
+    probe's check: one launch each."""
+    pdt = probe_draw_tail
+    ops = pdt.operands("full", b, iters, cuda_device)
+    variants = [(arm, "count") for arm in pdt.ARMS] + [("full", "sum")]
+    for arm, decode in variants:
+        build.reset_launch_counts()
+        got = pdt.run_variant(arm, *ops, warps=warps, decode=decode)
+        torch.cuda.synchronize()
+        assert build.launch_counts[pdt.kernel_name(arm)] == 1
+        pdt.check(arm, got, pdt.run_plain(arm, *ops, decode=decode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", probe_draw_tail.WARPS)
+def test_draw_kernel_cuts_levels_to_zero(cuda_device, warps):
+    """Logits 40 times the script's, so that no_tanh's levels fall below
+    the cut and the kernel scans pcut (full's tanh keeps them above):
+    each arm against its plain version."""
+    pdt = probe_draw_tail
+    logits, u2l, u, iters = pdt.operands("full", 100, 64, cuda_device)
+    for arm in ("no_tanh", "full"):
+        got = pdt.run_variant(arm, logits * 40, u2l, u, iters, warps=warps)
+        pdt.check(arm, got, pdt.run_plain(arm, logits * 40, u2l, u, iters))
+
+
+@pytest.mark.cuda
+def test_draw_launcher_picks_warps_per_column(cuda_device):
+    lib = build.load(probe_draw_tail.SOURCE)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for b in (1, 8, 66, 100, 132, 256, 257, 528, 768, 4096):
+        assert lib.fpsc_probe_draw_tail_warps(b) == \
+            probe_draw_tail.warps_per_column(b, sms), b
+
+
+STORE_CASES = [(b, rows) for b in (8, 40, 768) for rows in (8, 24, 2056)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,rows", STORE_CASES,
+                         ids=[f"b{b}-rows{r}" for b, r in STORE_CASES])
+def test_wide_store_instances_match_plain_version(cuda_device, b, rows):
+    """Every arm of the store kernel on blocks of each of COLS columns,
+    bit for bit against the plain version: rows that are not a multiple
+    of the unrolled 16, a last block of fewer columns (b = 40 on 32
+    columns a block, b = 8 on 32)."""
+    pws = probe_wide_store
+    x, _ = pws.operands("none", b, rows, cuda_device)
+    for arm in pws.ARMS:
+        want = pws.run_plain(arm, x, rows)
+        for cols in pws.COLS:
+            build.reset_launch_counts()
+            got = pws.run_variant(arm, x, rows, cols=cols)
+            torch.cuda.synchronize()
+            assert build.launch_counts[pws.kernel_name(arm)] == 1
+            pws.check(arm, got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["gates", "draw_tail", "i8_matmul"])
 def test_probe_wrappers_refuse_an_operand_on_the_cpu(cuda_device, name):

@@ -470,7 +470,9 @@ for name in ("fpsc_tpu_torch.codec.range_coder",
              "fpsc_tpu_torch.models.lpcnet_bunched",
              "fpsc_tpu_torch.probes.timing",
              *(f"fpsc_tpu_torch.probes.probe_{p}" for p in
-               ("gates", "draw_tail", "wide_store", "i8_matmul"))):
+               ("gates", "draw_tail", "wide_store", "i8_matmul")),
+             "fpsc_tpu_torch.probes.draw_parts",
+             "fpsc_tpu_torch.probes.draw_sass"):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"

@@ -40,7 +40,7 @@ from jax.experimental import pallas as pl
 import torch
 
 from fpsc_tpu_torch.ops import build
-from fpsc_tpu_torch.probes import gates_sass
+from fpsc_tpu_torch.probes import draw_sass, gates_sass
 from fpsc_tpu_torch.probes import probe_draw_tail as pdt
 from fpsc_tpu_torch.probes import probe_gates as pg
 from fpsc_tpu_torch.probes import probe_i8_matmul as pim
@@ -142,7 +142,7 @@ def test_i8_arms_match_the_script_bit_for_bit(i8_oracle, geometry, arm):
 
 # -------------------------------------------------------------- wide store
 
-STORE_GEOMETRIES = [(8, 16), (24, 64)]
+STORE_GEOMETRIES = [(8, 16), (24, 64), (40, 24)]
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +168,7 @@ def test_wide_store_arms_match_the_script_bit_for_bit(store_oracle,
 # ------------------------------------------- oracles with bf16 arithmetic
 
 GATES_GEOMETRIES = [(8, 16), (16, 64)]
-DRAW_GEOMETRIES = [(8, 16), (64, 64)]
+DRAW_GEOMETRIES = [(8, 16), (64, 64), (100, 64)]
 # (script, main's arguments, arm) of every oracle that rounds to bf16
 BF16_ORACLES = ([("probe_gates", g, "gates_bf16") for g in GATES_GEOMETRIES]
                 + [("probe_draw_tail", g, "tri_bf16")
@@ -506,7 +506,8 @@ def test_gates_sass_counts_the_longest_loop():
     assert [a for a, _ in code] == list(range(0, 0xb0, 0x10))
     assert code[8][1] == "@P0 BRA `(0x10)"
     assert gates_sass.loop_counts(code) == {
-        "instructions": 8, "skipped": 1, "mufu": 3, "evaluations": 2,
+        "instructions": 8, "path": 7, "skipped": 1,
+        "skipped_ranges": [(0x40, 0x40)], "mufu": 3, "evaluations": 2,
         "branches": 2, "mufu_kinds": ["MUFU.EX2", "MUFU.RCP", "MUFU.TANH"]}
     with pytest.raises(RuntimeError, match="no SASS"):
         gates_sass.parse_sass(_SASS, "gates_kernelILi2E")
@@ -535,6 +536,166 @@ def test_draw_tail_arms_match_the_script(draw_oracle, bf16_oracle,
                  bf16_oracle)
     pdt.check(arm, pdt.run(arm, ops["logits"], ops["u2l"], ops["u"],
                              iters), want)
+
+
+def test_draw_tail_scan_is_the_prefix_sum():
+    """The kernel's blocked scan is an inclusive prefix sum, level 255 the
+    column total; on non-negative levels it rises level by level up to
+    f32 rounding, so the count decode gives the float sum's draw."""
+    x = torch.as_tensor(np.random.RandomState(1).rand(256, 40)
+                        .astype(np.float32))
+    cdf = pdt._scan(x)
+    torch.testing.assert_close(cdf.double(), x.double().cumsum(0),
+                               rtol=1e-6, atol=0)
+    pre = pdt.u2l_prefix(x)
+    assert torch.equal(pre[0], torch.zeros(40)) and torch.equal(pre[1:], cdf)
+    ops = pdt.inputs(40, "cpu")
+    pdt.check("full", pdt.run_plain("full", *ops.values(), 8),
+              pdt.run_plain("full", *ops.values(), 8, decode="sum"))
+
+
+def test_draw_tail_cuts_levels_to_zero_as_the_script(draw_oracle):
+    """Logits 40 times the script's: no_tanh's p then spreads so far that
+    levels fall below the cut, and the plain version scans pcut; full's
+    tanh keeps every level above it.  Each against the script's kernel
+    on the same operands."""
+    b, iters = DRAW_GEOMETRIES[1]
+    records, real_call = draw_oracle[(b, iters)]
+    ops = pdt.inputs(b, "cpu")
+    ops["logits"] = ops["logits"] * 40
+    operands = [ops[k].numpy() for k in ("logits", "u2l", "u")]
+    for arm, cut_to_zero in (("no_tanh", True), ("full", False)):
+        lg = ops["logits"] * 0.5 if arm == "no_tanh" else \
+            2 * torch.tanh(ops["logits"])
+        p = torch.exp(lg * 0.1)
+        assert bool((p < 0.002 * p.sum(0)).any()) == cut_to_zero
+        want = _interpret(real_call, records[pdt.ARMS.index(arm)], operands)
+        pdt.check(arm, pdt.run(arm, *ops.values(), iters),
+                  torch.as_tensor(want))
+
+
+def test_draw_tail_variants_are_the_kernels_instances():
+    """Every warps a column runs; another decode than the launcher's is
+    an instance of the full arm alone."""
+    d = pdt.inputs(8, "cpu")
+    ops = (d["logits"], d["u2l"], d["u"], 2)
+    for warps in (0, *pdt.WARPS):
+        assert torch.equal(pdt.run_variant("full", *ops, warps=warps),
+                           pdt.run("full", *ops))
+    pdt.run_variant("full", *ops, decode="sum")
+    with pytest.raises(ValueError, match="no instance"):
+        pdt.run_variant("no_exp", *ops, decode="sum")
+    with pytest.raises(ValueError, match="warps in"):
+        pdt.run_variant("full", *ops, warps=4)
+    with pytest.raises(ValueError, match="decode in"):
+        pdt.run_variant("full", *ops, decode="tree")
+    # the launcher's rule: 2 warps while they have a scheduler each
+    assert [pdt.warps_per_column(b, 132) for b in (8, 66, 100, 256, 264,
+                                                   265, 528, 768)] == \
+        [2, 2, 2, 2, 2, 1, 1, 1]
+
+
+def test_wide_store_variants_are_the_kernels_instances():
+    x = pws.inputs(40, "cpu")
+    for arm in pws.ARMS:
+        for cols in (0, *pws.COLS):
+            pws.check(arm, pws.run_variant(arm, x, 24, cols=cols),
+                      pws.run(arm, x, 24))
+    with pytest.raises(ValueError, match="no instance"):
+        pws.run_variant("none", x, 24, cols=16)
+
+
+def test_launcher_instances_are_the_wrappers():
+    """The wrappers name the instances the C launchers take: the draw's
+    decodes (the enum's order) and warps a column, and the store's
+    columns a block, the launcher's and all."""
+    csrc = os.path.join(REPO, "fpsc_tpu_torch", "csrc")
+    with open(os.path.join(csrc, pdt.SOURCE)) as f:
+        draw = f.read()
+    order = re.search(r"enum Decode \{ (\w+), (\w+) \};", draw).groups()
+    assert tuple(k[1:].lower() for k in order) == pdt.DECODES
+    warps = re.findall(r"case (\d+): return launch<ARM, \1, DECODE>", draw)
+    assert tuple(int(w) for w in warps) == pdt.WARPS
+    with open(os.path.join(csrc, pws.SOURCE)) as f:
+        store = f.read()
+    cols = re.search(r"constexpr int kLauncherCols\[3\] = \{(.*?)\};", store)
+    assert [int(n) for n in cols.group(1).split(",")] == \
+        [pws.LAUNCHER_COLS[arm] for arm in pws.ARMS]
+    cases = re.findall(r"case (\d+): return \(int\)launch<\1>", store)
+    assert tuple(int(c) for c in cases) == pws.COLS
+
+
+# a draw loop of two draws (the update's FMUL by 1e-3, once in hex and
+# once in decimal), one MUFU each, and a forward branch over one
+_DRAW_SASS = """
+        Function : _ZN12_GLOBAL__N_111draw_kernelILi1ELi2ELi0EEEvPKfS2_S2_Pfii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;           /* 0x000 */
+.L_x_7:
+        /*0010*/                   MUFU.EX2 R4, R2 ;                /* 0x000 */
+        /*0020*/              @P1 BRA 0x40 ;                        /* 0x000 */
+        /*0030*/                   FADD R5, R4, R4 ;                /* 0x000 */
+        /*0040*/                   FMUL R6, R5, 0x3a83126f ;        /* 0x000 */
+        /*0050*/                   MUFU.EX2 R4, R6 ;                /* 0x000 */
+        /*0060*/                   FMUL R6, R4, 0.0010000000474974513054 ;
+        /*0070*/                   FMUL R7, R6, 0.0020000000949949026108 ;
+        /*0080*/              @P0 BRA `(.L_x_7) ;                   /* 0x000 */
+        /*0090*/                   EXIT ;                           /* 0x000 */
+"""
+
+
+def test_draw_sass_counts_the_draws_of_the_loop():
+    """draw_sass reads the launcher's instance alone and counts its loop's
+    draws by the update's 1e-3; the issue bound is one warp's slots a
+    clock while the warps have a scheduler each, a share of the card's
+    schedulers beyond."""
+    code = gates_sass.parse_sass(_DRAW_SASS, draw_sass.kernel(2))
+    counts = gates_sass.loop_counts(code, draw_sass.DRAW_FACTOR)
+    assert (counts["instructions"], counts["path"], counts["evaluations"],
+            counts["mufu"]) == (8, 7, 2, 2)
+    with pytest.raises(RuntimeError, match="no SASS"):
+        gates_sass.parse_sass(_DRAW_SASS, draw_sass.kernel(1))
+    assert draw_sass.issue_ms(100, 256, 2, 64, 132, 2e9) == pytest.approx(
+        100 * 64 / 2e9 * 1e3)
+    assert draw_sass.issue_ms(100, 768, 2, 64, 132, 2e9) == pytest.approx(
+        768 * 2 * 100 * 64 / (4 * 132 * 2e9) * 1e3)
+
+
+# a loop as nvcc lays out the draw's: an if (to 0x60, the rare arm)
+# whose common arm ends in a branch over the rare one, a BRA.DIV to a
+# shuffle's out-of-line path, and that path's unpredicated branch back,
+# which spans more code than the loop
+_ARMS_SASS = """
+        Function : _ZN12_GLOBAL__N_111draw_kernelILi1ELi1ELi0EEEvPKfS2_S2_Pfii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   VOTE.ANY P0, !P0 ;
+        /*0020*/              @P0 BRA 0x60 ;
+        /*0030*/                   FADD R5, R4, R4 ;
+        /*0040*/                   FADD R5, R5, R4 ;
+        /*0050*/                   BRA 0xa0 ;
+        /*0060*/                   SHFL.BFLY PT, R6, R5, 0x1, 0x1f ;
+        /*0070*/                   SHFL.BFLY PT, R6, R5, 0x2, 0x1f ;
+        /*0080*/                   SHFL.BFLY PT, R6, R5, 0x4, 0x1f ;
+        /*0090*/                   FADD R5, R6, R5 ;
+        /*00a0*/                   BRA.DIV UR4, 0xe0 ;
+        /*00b0*/                   FMUL R6, R5, 0x3a83126f ;
+        /*00c0*/              @!P1 BRA 0x10 ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   WARPSYNC.COLLECTIVE R2, 0xf0 ;
+        /*00f0*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_pass_takes_the_common_arm_of_an_if():
+    """The loop is the predicated backward branch's, not the out-of-line
+    path's; its shortest pass takes the shorter arm of the if, jumps
+    over the other with the common arm's own branch, and falls through
+    the BRA.DIV: 8 of the body's 12 instructions."""
+    code = gates_sass.parse_sass(_ARMS_SASS, draw_sass.kernel(1))
+    counts = gates_sass.loop_counts(code, draw_sass.DRAW_FACTOR)
+    assert (counts["instructions"], counts["path"], counts["branches"]) == \
+        (12, 8, 4)
+    assert counts["skipped_ranges"] == [(0x60, 0x90)]
+    assert gates_sass.skipped_text(counts) == "0x60-0x90"
 
 
 def test_draw_tail_check_counts_flips():
@@ -619,8 +780,15 @@ def test_probe_bounds_follow_the_shapes():
     assert pim.bound("i8", 1152, 384, 128)[0] == pytest.approx(ms * 989 / 1979)
     assert pim.bound("onehot", 1152, 384, 128)[0] == pytest.approx(
         2 * 1152 * 256 * 128 * 64 / 1979e12 * 1e3)
-    assert pws.bound("per_row", 768, 2048) == pytest.approx(
+    terms = pws.bound_terms("per_row", 768, 2048)
+    assert terms["bytes"] == pytest.approx((8 + 2048) * 768 * 4 / 3.35e12 * 1e3)
+    assert terms["chain"] == pytest.approx(2048 * 4 / 1.98e9 * 1e3)
+    assert pws.bound("per_row", 768, 2048) == (terms["chain"], "chain")
+    assert pws.rate_bound("per_row", 768, 2048) == (terms["bytes"], "bytes")
+    assert pws.bound("block8", 768, 2048) == pytest.approx(
         ((8 + 2048) * 768 * 4 / 3.35e12 * 1e3, "bytes"))
+    assert pws.bound("none", 768, 2048) == pytest.approx(
+        (256 * 4 / 1.98e9 * 1e3, "chain"))
     assert pws.bound("none", 768, 2048)[0] < pws.bound("block8", 768, 2048)[0]
     ms, by = pg.bound("gates_f32", 768, 512)
     assert by == "operations" and ms == pytest.approx(
@@ -630,3 +798,6 @@ def test_probe_bounds_follow_the_shapes():
     assert by == "operations" and ms == pytest.approx(
         13 * 256 * 768 * 64 / 67e12 * 1e3)
     assert pdt.bound("tri_bf16", 768, 64) == pdt.bound("full", 768, 64)
+    # the kernels line's bound is each probe's published-rate bound
+    for probe in (pg, pdt, pim):
+        assert probe.rate_bound is probe.bound
