@@ -8,7 +8,10 @@ Phases, in order; a failure in any of them ends the run with a non-zero
 exit and no result line:
 
 1. toolchain: build every kernel under fpsc_tpu_torch/csrc/ with nvcc,
-   one process per source, all started together, and print versions;
+   one process per source, all started together, and beside them the
+   host range coder (csrc/range_coder.cpp) with g++; fail when the
+   native coder does not load (a decode would run the Python coder);
+   print versions;
 2. numerics: TF32 off for matmuls and for cuDNN (frame_net's conv1d);
    `lpcnet_sampler.prepare` turns both off around the conditioning
    itself, so that a user's decode with PyTorch's defaults computes it
@@ -42,6 +45,12 @@ exit and no result line:
    excitations reversed; with int8 weights one weight's scales set to
    1, and in f32 GRU_A's recurrent row scales reversed; in the sparse
    forms in f32 one live block dropped from the pattern;
+3c. the native range coder against the Python coder, at the reference
+   geometry with seeded priors: the flagship's 8 x 200 frames and a wide
+   bucket's 256 x 50 frames as whole utterances, and the flagship's
+   first two utterances in 5-frame packets; both coders must write the
+   same bytes and give back the written symbols; each coder's host
+   milliseconds a payload are printed (the card machine's CPU);
 4. the flagship main path (scripts/validate_flagship.py's deployment):
    8 utterances of 2 s (UTT_FRAMES, 200 frames) of random symbols
    at the reference codebook geometry, range-coded with seeded random
@@ -52,8 +61,9 @@ exit and no result line:
    so the cepstra lie in the range of speech; vocoder bunch=2, GRU_B
    32, GRU_A block-sparse at 0.2 in (64, 64) blocks.  The bunch=2
    sparse kernel must be launched, auto_block_pattern must pick 22 live
-   blocks of 108, the range decoder must give back the written
-   symbols, every frame's LPC synthesis filter must be stable
+   blocks of 108, the range decoder (the native coder, as decode_file
+   takes it) must give back the written symbols, every frame's LPC
+   synthesis filter must be stable
    (reflection coefficients inside (-1, 1)), and the audio must be
    finite, not silent, and peak below PEAK_LIMIT;
 6. kernel vs plain at the flagship's shape: the operands of its sampler
@@ -67,6 +77,15 @@ exit and no result line:
    other forms timed on the same inputs; at the flagship the fold alone
    (both tables, one launch) against fold_plain and one torch.matmul a
    table;
+6b. the packet-loss main path: as 4, the flagship over a lossy
+   transport (codec.packet_ms=50 codec.fec=true codec.sim_drop=0.1
+   codec.sim_seed=0): 8 x 200 frames in 5-frame packets written by
+   pack_packets_fec, each carrying the previous span's random
+   lean-geometry redundancy symbols; the counts of frames concealed and
+   recovered from FEC that decode_file reports must be those the drop
+   mask (RandomState(0), drawn per utterance in container order, packet
+   0 kept) implies, and every received span's symbols and every
+   recovered span's redundancy symbols must come back as written;
 7. int8 weights at the flagship's shape: lpcnet_sampler.generate(...,
    weights_int8=True) on the flagship's features and vocoder must launch
    the bunch=2 sparse int8 form and give what sample(*prepare(...))
@@ -86,7 +105,10 @@ exit and no result line:
    its shape;
 11. decode_file on the card against decode_file on the CPU on small
    inputs (2 x 20 frames), for the flagship, bunch=4 and slice-1
-   configurations: the same coded features and LPC.
+   configurations, the flagship's packets with FEC under drops (both
+   decodes reporting what the drop mask implies), and a range-coded
+   codec.preset=ultra stream (scalar books of 64 and 8 entries, one VQ
+   stage): the same coded features and LPC.
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -100,6 +122,8 @@ graph's time stands in the kernels line.  Then the `kernels` JSON line,
 the card's name and power limit as nvidia-smi prints them, and the
 result line.
 """
+import contextlib
+import io
 import json
 import os
 import re
@@ -107,19 +131,21 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from fpsc_tpu_torch.codec import bitstream as bs
-from fpsc_tpu_torch.codec import cli, container
+from fpsc_tpu_torch.codec import cli, container, native_rc, rate_control
 from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
-from fpsc_tpu_torch.ops import build, lpcnet_sampler, sampler_faults
+from fpsc_tpu_torch.models.frame_predictor import Codebooks
+from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
 
@@ -140,6 +166,17 @@ BUNCH4 = ["lpcnet.bunch=4", "lpcnet.gru_b_units=64",
           "codec.entropy_coding=true"]
 SLICE1 = ["lpcnet.bunch=1", "lpcnet.gru_b_units=16",
           "codec.entropy_coding=false"]
+# The flagship over a lossy transport: 50 ms packets with in-band FEC,
+# 10% of the packets dropped (iid, seed 0) before the decode.
+PACKET_LOSS = FLAGSHIP + ["codec.packet_ms=50", "codec.fec=true",
+                          "codec.sim_drop=0.1", "codec.sim_seed=0"]
+# The card against the CPU on a small lossy stream: a drop rate and seed
+# that drop packets of its 2 x 4.
+SMALL_LOSS = FLAGSHIP + ["codec.packet_ms=50", "codec.fec=true",
+                         "codec.sim_drop=0.3", "codec.sim_seed=1"]
+ULTRA = FLAGSHIP + ["codec.preset=ultra"]
+# a packet of the native coder phase, as codec.packet_ms=50 cuts them
+PACKET_FRAMES = 5
 DENSITY, SPARSE_BLOCK = 0.2, (64, 64)
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32
 # outside them, HBM3 bandwidth.
@@ -203,9 +240,21 @@ def phase(name):
 def toolchain():
     phase("toolchain")
     t0 = time.perf_counter()
-    paths = build.build(build.sources())
-    print(f"built {', '.join(p.name for p in paths.values())} in "
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_build.build, native_rc.SOURCE)
+        paths = build.build(build.sources())
+        host = host.result()
+    print(f"built {', '.join(p.name for p in paths.values())} (nvcc) and "
+          f"{host.name} (g++, {host.parent}) in "
           f"{time.perf_counter() - t0:.1f} s")
+    if not native_rc.available() or native_rc.best() is not native_rc:
+        raise RuntimeError("the native range coder does not load: the "
+                           "decode would run the Python coder")
+    if host_build.build_logs.get(native_rc.SOURCE, "").strip():
+        print(f"  g++: {host_build.build_logs[native_rc.SOURCE].strip()}")
+    gxx = subprocess.run([host_build.gxx(), "--version"], capture_output=True,
+                         text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if re.search(r"registers|spill|error", line):
@@ -225,6 +274,7 @@ def toolchain():
     print(json.dumps({"torch": torch.__version__,
                       "cuda": torch.version.cuda,
                       "nvcc": release.group(1) if release else nvcc,
+                      "g++": gxx,
                       "triton": triton_version,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}))
@@ -540,15 +590,57 @@ def _priors(rng, sizes):
     return priors
 
 
+def _symbols(rng, sizes, frames: int, ind=None):
+    """Random symbols in the JAX encoder's layout: -1 where a stream is
+    not coded, vq_bl (frames, 1) of -1 where the geometry has none; the
+    indicators drawn, or `ind` (ind1, ind2) given."""
+    ind1, ind2 = ind or (rng.rand(frames) > 0.5, rng.rand(frames) > 0.5)
+    idx = {"scl": np.where(ind1, rng.randint(0, sizes["scl"], frames), -1),
+           "scl_bl": np.where(ind1, -1,
+                              rng.randint(0, sizes["scl_bl"], frames)),
+           "vq": np.where(ind2[:, None], np.stack(
+               [rng.randint(0, e, frames) for e in sizes["vq"]], 1), -1),
+           "vq_bl": np.where(ind2[:, None], -1, np.stack(
+               [rng.randint(0, e, frames) for e in sizes["vq_bl"]], 1))
+           if sizes["vq_bl"] else np.full((frames, 1), -1)}
+    return ind1, ind2, idx
+
+
+def _pitch(rng, frames: int):
+    return np.stack([rng.uniform(-1.3, 3.7, frames),
+                     rng.uniform(-0.5, 0.5, frames)], 1)
+
+
+class Written(NamedTuple):
+    """An utterance's symbols as written: pitch dequantised, and the
+    lean-geometry redundancy symbols of a stream with FEC."""
+    ind1: np.ndarray
+    ind2: np.ndarray
+    idx: dict
+    pitch: np.ndarray
+    fec_idx: Optional[dict]
+
+
+def _fec_books(books):
+    """The redundancy's books: the lean preset of the (reduced) books."""
+    return rate_control.preset_codebooks(books,
+                                         **rate_control.PRESETS["lean"])
+
+
 def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
                   tag: str):
-    """Random symbols at the reference codebook geometry, range-coded
-    with seeded priors when cfg.codec.entropy_coding, else fixed-layout
-    -> (.fpsc path, codebook .npz path, {name: written symbols})."""
+    """Random symbols at the reference codebook geometry, reduced to
+    cfg.codec.preset, range-coded with seeded priors when
+    cfg.codec.entropy_coding (in packets of cfg.codec.packet_ms when it
+    is set, each carrying the previous span's random lean-geometry
+    redundancy symbols when cfg.codec.fec), else fixed-layout -> (.fpsc
+    path, codebook .npz path, {name: Written} when range-coded).  The
+    .npz holds the full books; the priors are at the preset's geometry,
+    and those of the stages the preset drops at the full one."""
     rng = np.random.RandomState(2)
     cc = cfg.codec
-    sizes = {"scl": cc.scl_entries, "scl_bl": cc.scl_entries_bl,
-             "vq": list(cc.vq_entries), "vq_bl": list(cc.vq_entries_bl)}
+    full = {"scl": cc.scl_entries, "scl_bl": cc.scl_entries_bl,
+            "vq": list(cc.vq_entries), "vq_bl": list(cc.vq_entries_bl)}
     books = {"scl": np.sort(rng.randn(cc.scl_entries)) * 0.05,
              "scl_bl": np.sort(rng.randn(cc.scl_entries_bl)) * 0.02}
     for s, e in enumerate(cc.vq_entries):
@@ -556,37 +648,60 @@ def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
     for s, e in enumerate(cc.vq_entries_bl):
         books[f"vq_bl_{s}"] = rng.randn(e, cc.code_dims) * 0.02
     books = {k: v.astype(np.float32) for k, v in books.items()}
+
+    def t(k):
+        return torch.as_tensor(books[k])
+
+    reduced = rate_control.preset_codebooks(Codebooks(
+        scl=t("scl"), vq=tuple(t(f"vq_{s}") for s in range(len(full["vq"]))),
+        scl_bl=t("scl_bl"),
+        vq_bl=tuple(t(f"vq_bl_{s}") for s in range(len(full["vq_bl"])))),
+        **rate_control.PRESETS[cc.preset])
+    sizes = cli.codebook_sizes(reduced)
     entropy = cc.entropy_coding
     priors = _priors(rng, sizes) if entropy else {}
+    if entropy and cc.preset != "full":
+        priors.update({k: v for k, v in _priors(rng, full).items()
+                       if k not in priors})
     cb_path = os.path.join(work, f"codebooks_{tag}.npz")
     np.savez(cb_path, **books,
              **{f"prior__{k}": v for k, v in priors.items()})
-    orders = rc.scalar_orders(types.SimpleNamespace(**books))
+    orders = rc.scalar_orders(reduced)
+    pf = cc.packet_ms // 10
+    fec_sizes = cli.codebook_sizes(_fec_books(reduced)) if cc.fec else None
 
     utts, written = [], {}
     for i in range(n_utt):
-        ind1 = rng.rand(frames) > 0.5
-        ind2 = rng.rand(frames) > 0.5
-        idx = {"scl": np.where(ind1, rng.randint(0, sizes["scl"], frames), -1),
-               "scl_bl": np.where(ind1, -1,
-                                  rng.randint(0, sizes["scl_bl"], frames)),
-               "vq": np.where(ind2[:, None], np.stack(
-                   [rng.randint(0, e, frames) for e in sizes["vq"]], 1), -1),
-               "vq_bl": np.where(ind2[:, None], -1, np.stack(
-                   [rng.randint(0, e, frames) for e in sizes["vq_bl"]], 1))}
-        pitch = np.stack([rng.uniform(-1.3, 3.7, frames),
-                          rng.uniform(-0.5, 0.5, frames)], 1)
+        ind1, ind2, idx = _symbols(rng, sizes, frames)
+        pitch = _pitch(rng, frames)
         name = f"utt{i}"
-        if entropy:
-            pcodes = bs.quantize_pitch(pitch)
+        if not entropy:
+            utts.append((name, bs.pack_utterance(ind1, ind2, idx, pitch,
+                                                 sizes)))
+            continue
+        pcodes = bs.quantize_pitch(pitch)
+        fec_idx = None
+        if cc.fec:
+            # the redundancy: lean-geometry symbols, the same indicators
+            fec_idx = _symbols(rng, fec_sizes, frames, (ind1, ind2))[2]
+            payload = rc.pack_packets_fec(
+                ind1, ind2, idx, pcodes, sizes, fec_idx, fec_sizes,
+                packet_frames=pf, priors=priors, orders=orders)
+        elif pf:
+            payload = rc.pack_packets(ind1, ind2, idx, pcodes, sizes,
+                                      packet_frames=pf, priors=priors,
+                                      orders=orders)
+        else:
             payload = rc.pack_utterance_rc(ind1, ind2, idx, pcodes, sizes,
                                            priors=priors, orders=orders)
-            written[name] = (ind1, ind2, idx, bs.dequantize_pitch(pcodes))
-        else:
-            payload = bs.pack_utterance(ind1, ind2, idx, pitch, sizes)
+        written[name] = Written(ind1, ind2, idx, bs.dequantize_pitch(pcodes),
+                                fec_idx)
         utts.append((name, payload))
     path = os.path.join(work, f"{tag}.fpsc")
-    container.write_fpsc(path, utts, sizes, entropy=entropy)
+    container.write_fpsc(path, utts, sizes, entropy=entropy,
+                         preset=cc.preset, packet_frames=pf, fec=cc.fec,
+                         frame_counts={n: frames for n, _ in utts}
+                         if pf else None)
     return path, cb_path, written
 
 
@@ -610,23 +725,108 @@ def _artifacts(cfg: Config, dev, sparse: bool):
     return artifacts, model
 
 
-def _check_symbols(stream, artifacts, written):
-    """The range decoder gives back the written symbols."""
-    _, _, sizes, priors, orders = artifacts
-    for name, payload in container.read_fpsc(stream)["utterances"]:
-        got = rc.unpack_utterance_rc(payload, sizes, priors=priors,
-                                     orders=orders)
-        ind1, ind2, idx, pitch = written[name]
-        same = (np.array_equal(got["ind1"], ind1)
-                and np.array_equal(got["ind2"], ind2)
-                and np.array_equal(got["pitch"], pitch)
-                and all(np.array_equal(got["indices"][k], idx[k])
-                        for k in idx))
-        if not same:
-            raise RuntimeError(f"{name}: the range decoder did not give "
-                               "back the written symbols")
-    print(f"range decoder: the symbols of all {len(written)} utterances "
-          "came back as written")
+def _same(got, want: Written, rows) -> bool:
+    """The unpacked symbols of `rows` are the written ones."""
+    return (np.array_equal(got["ind1"][rows], want.ind1[rows])
+            and np.array_equal(got["ind2"][rows], want.ind2[rows])
+            and np.array_equal(got["pitch"][rows], want.pitch[rows])
+            and all(np.array_equal(got["indices"][k][rows], v[rows])
+                    for k, v in want.idx.items()))
+
+
+def _check_symbols(stream, cfg: Config, artifacts, written):
+    """The range decoder gives back the written symbols: of every
+    utterance; of a packetized stream every received span's, and the
+    lean redundancy symbols of every span recovered from FEC, under the
+    drop mask decode_file draws (one RandomState(codec.sim_seed) drawn
+    per utterance in container order, packet 0 kept) -> {name: (frames
+    concealed, frames recovered from FEC)} that mask implies, for the
+    utterances of a packetized stream that lost a packet."""
+    _, books, sizes, priors, orders, rcmod = artifacts
+    box = container.read_fpsc(stream)
+    pf, fec = box["meta"]["packet_frames"], box["meta"]["fec"]
+    fec_sizes = cli.codebook_sizes(_fec_books(books)) if fec else None
+    drop_rng = np.random.RandomState(cfg.codec.sim_seed)
+    implied, dropped, packets = {}, 0, 0
+    for name, payload in box["utterances"]:
+        want = written[name]
+        frames = len(want.ind1)
+        if not pf:
+            got = rcmod.unpack_utterance_rc(payload, sizes, priors=priors,
+                                            orders=orders)
+            if not _same(got, want, slice(None)):
+                raise RuntimeError(f"{name}: the range decoder did not give "
+                                   "back the written symbols")
+            continue
+        keep = np.ones(len(payload), bool)
+        if cfg.codec.sim_drop > 0:
+            keep = drop_rng.rand(len(payload)) >= cfg.codec.sim_drop
+            keep[0] = True
+        # a dropped span comes back from the next packet's redundancy
+        saved = ~keep & np.append(keep[1:], False) & fec
+        spans = [p[0] for p in payload]
+        lost = np.repeat(~keep & ~saved, spans)
+        from_fec = np.repeat(saved, spans)
+        received = np.repeat(keep, spans)
+        masked = [p if k else None for p, k in zip(payload, keep)]
+        kw = dict(packet_frames=pf, total_frames=frames, priors=priors,
+                  orders=orders)
+        got = (rc.unpack_packets_fec(masked, sizes, fec_sizes, **kw) if fec
+               else rc.unpack_packets(masked, sizes, **kw))
+        if not (np.array_equal(got["lost"], lost)
+                and np.array_equal(got.get("from_fec", from_fec), from_fec)
+                and _same(got, want, received)):
+            raise RuntimeError(f"{name}: the packets' range decoder did not "
+                               "give back the received spans as written")
+        if fec and not _same(dict(got, indices=got["fec_indices"]),
+                             want._replace(idx=want.fec_idx), from_fec):
+            raise RuntimeError(f"{name}: the recovered spans' redundancy "
+                               "symbols are not the written ones")
+        dropped += int((~keep).sum())
+        packets += len(payload)
+        if (~keep).any():
+            implied[name] = (int(lost.sum()), int(from_fec.sum()))
+    if pf:
+        print(f"packet decoder: {dropped} of {packets} packets dropped; every "
+              "received span's symbols and every recovered span's "
+              "redundancy came back as written")
+    else:
+        print(f"range decoder ({rcmod.__name__}): the symbols of all "
+              f"{len(written)} utterances came back as written")
+    return implied
+
+
+REPORT = re.compile(r"^(\S+): (\d+) frame\(s\) concealed"
+                    r"(?:, (\d+) recovered from FEC)?$")
+
+
+def _decode(cfg: Config, stream: str, out_dir: str, artifacts, model, dev,
+            timings=None):
+    """decode_file with its standard output passed through -> (results,
+    {name: (frames concealed, frames recovered from FEC)} as its
+    recovery report says)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = cli.decode_file(cfg, stream, out_dir, artifacts=artifacts,
+                                  vocoder=model, device=dev, timings=timings)
+    sys.stdout.write(out.getvalue())
+    reported = {}
+    for line in out.getvalue().splitlines():
+        m = REPORT.match(line)
+        if m:
+            reported[m.group(1)] = (int(m.group(2)), int(m.group(3) or 0))
+    return results, reported
+
+
+def _check_report(reported, implied):
+    if reported != implied:
+        raise RuntimeError(f"decode_file reported {reported} frames "
+                           f"(concealed, from FEC); the drop mask implies "
+                           f"{implied}")
+    lost, saved = (sum(v[i] for v in implied.values()) for i in (0, 1))
+    print(f"decode_file's recovery report: {lost} frames concealed, {saved} "
+          f"recovered from FEC, in {len(implied)} utterances, as the drop "
+          "mask implies")
 
 
 def main_path(dev, work: str, overrides, frames: int, sparse: bool,
@@ -654,9 +854,8 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
     timings = {}
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    results = cli.decode_file(cfg, stream, os.path.join(work, f"wav_{tag}"),
-                              artifacts=artifacts, vocoder=model,
-                              device=dev, timings=timings)
+    results, reported = _decode(cfg, stream, os.path.join(work, f"wav_{tag}"),
+                                artifacts, model, dev, timings)
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
     # the form JAX's decoder takes: the cdf as a product above 128 items
@@ -668,7 +867,11 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
             raise RuntimeError(f"the main path did not launch {kernel}: "
                                f"{launches}")
     if written:
-        _check_symbols(stream, artifacts, written)
+        implied = _check_symbols(stream, cfg, artifacts, written)
+        if cfg.codec.packet_ms:
+            if not implied:
+                raise RuntimeError("the simulated channel dropped no packet")
+            _check_report(reported, implied)
     wav = np.stack([r["wav"] for r in results])
     if wav.shape != (n_utt, frames * C.FRAME_SIZE):
         raise RuntimeError(f"audio of shape {wav.shape}")
@@ -704,18 +907,29 @@ def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
     f32 sampler) on a small input: the same coded features at rtol 1e-4,
     atol 1e-5 (tests/test_file_codec.py:131) and the same LPC at rtol
     1e-4, atol 1e-3 (tests/test_torch_codec.py), and finite audio;
-    bf16 against f32 sampling flips within a few hundred samples."""
+    bf16 against f32 sampling flips within a few hundred samples.  A
+    lossy packetized stream must lose packets, and both decodes must
+    report what the drop mask implies."""
     phase(f"decode_file on the card against the CPU ({tag}), 2 x 20 frames")
-    stream, cb_path, _ = _write_stream(work, _config(overrides, ""), 2, 20,
-                                       f"small_{tag}")
+    cfg = _config(overrides, "")
+    stream, cb_path, written = _write_stream(work, cfg, 2, 20, f"small_{tag}")
+    meta = container.read_fpsc(stream)["meta"]
+    print(f"stream: preset {meta['preset']}, geometry {meta['sizes']}, "
+          f"packets of {meta['packet_frames']} frames, fec {meta['fec']}")
     cfg = _config(overrides, cb_path)
     runs = {}
     for name, d in (("card", dev), ("cpu", "cpu")):
         artifacts, model = _artifacts(cfg, d, sparse)
-        runs[name] = cli.decode_file(cfg, stream,
-                                     os.path.join(work, f"{tag}_{name}"),
-                                     artifacts=artifacts, vocoder=model,
-                                     device=d)
+        runs[name], reported = _decode(cfg, stream,
+                                       os.path.join(work, f"{tag}_{name}"),
+                                       artifacts, model, d)
+        if written:
+            implied = _check_symbols(stream, cfg, artifacts, written)
+            if cfg.codec.sim_drop > 0:
+                if not implied:
+                    raise RuntimeError("the simulated channel dropped no "
+                                       "packet")
+                _check_report(reported, implied)
     for g, w in zip(runs["card"], runs["cpu"]):
         np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
                                    atol=1e-5)
@@ -726,6 +940,75 @@ def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
                   for g, w in zip(runs["card"], runs["cpu"]))
            for k in ("coded", "lpc")}
     print(f"coded features and LPC agree, max |card - cpu| {err}")
+
+
+def _unpack_ms(coder, payloads, sizes, priors, orders, streams):
+    """Host ms a payload of `coder`'s unpack, which must give back each
+    stream's symbols."""
+    t0 = time.perf_counter()
+    got = [coder.unpack_utterance_rc(p, sizes, priors=priors, orders=orders)
+           for p in payloads]
+    ms = (time.perf_counter() - t0) * 1e3 / len(payloads)
+    for g, s in zip(got, streams):
+        if not _same(g, Written(*s[:3], bs.dequantize_pitch(s[3]), None),
+                     slice(None)):
+            raise RuntimeError(f"{coder.__name__} did not give back the "
+                               "written symbols")
+    return ms
+
+
+def native_coder():
+    """The native range coder (csrc/range_coder.cpp, host C++) against
+    the Python coder at the reference geometry with seeded priors: the
+    flagship's N_UTT x UTT_FRAMES and a wide bucket's WIDE_UTT x
+    WIDE_FRAMES whole utterances, and the flagship's first two in
+    PACKET_FRAMES-frame spans, as codec.packet_ms=50 packs them: the
+    same bytes from both and the written symbols back from both; each
+    coder's host milliseconds a payload."""
+    phase("native range coder against the Python coder")
+    cc = Config().codec
+    sizes = {"scl": cc.scl_entries, "scl_bl": cc.scl_entries_bl,
+             "vq": list(cc.vq_entries), "vq_bl": list(cc.vq_entries_bl)}
+    rng = np.random.RandomState(5)
+    priors = _priors(rng, sizes)
+    orders = {"scl": rng.permutation(sizes["scl"]),
+              "scl_bl": rng.permutation(sizes["scl_bl"])}
+    kw = dict(priors=priors, orders=orders)
+    for label, n, frames in (("flagship", N_UTT, UTT_FRAMES),
+                             ("wide bucket", WIDE_UTT, WIDE_FRAMES)):
+        streams = [(*_symbols(rng, sizes, frames),
+                    bs.quantize_pitch(_pitch(rng, frames)))
+                   for _ in range(n)]
+        cases = [(label, f"an utterance of {frames} frames", streams)]
+        if label == "flagship":
+            spans = [tuple(x[s:s + PACKET_FRAMES] if not isinstance(x, dict)
+                           else {k: v[s:s + PACKET_FRAMES]
+                                 for k, v in x.items()} for x in st)
+                     for st in streams[:2]
+                     for s in range(0, frames, PACKET_FRAMES)]
+            cases.append((label, f"a packet of {PACKET_FRAMES} frames", spans))
+        for what, unit, items in cases:
+            # the native coder seeds its tables once for these priors
+            native_rc.pack_utterance_rc(*items[0], sizes, **kw)
+            t0 = time.perf_counter()
+            native = [native_rc.pack_utterance_rc(*s, sizes, **kw)
+                      for s in items]
+            t1 = time.perf_counter()
+            plain = [rc.pack_utterance_rc(*s, sizes, **kw) for s in items]
+            t2 = time.perf_counter()
+            if native != plain:
+                raise RuntimeError(f"{what}: the native coder wrote other "
+                                   "bytes than the Python coder")
+            ms = {c.__name__.rsplit(".", 1)[-1]: _unpack_ms(
+                c, native, sizes, priors, orders, items)
+                for c in (native_rc, rc)}
+            pack = ((t1 - t0) * 1e3 / len(items), (t2 - t1) * 1e3 / len(items))
+            print(f"{what}, {len(items)} payloads of {unit}, "
+                  f"{sum(map(len, native))} bytes: the same bytes from both "
+                  "coders and the written symbols back from both; host ms "
+                  "a payload (the card machine's CPU, not the card): native "
+                  f"pack {pack[0]:.4f}, unpack {ms['native_rc']:.4f}; Python "
+                  f"pack {pack[1]:.4f}, unpack {ms['range_coder']:.4f}")
 
 
 def _step_us(ms: float, meta) -> float:
@@ -1026,6 +1309,7 @@ def main() -> int:
     fold_check(dev)
     short_window(dev)
     probe_rows = probes(dev)
+    native_coder()
     rows = []
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
         run = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True, "flagship")
@@ -1034,6 +1318,7 @@ def main() -> int:
                                             (1, True, False, False)]))
         rows.append(fold_row(dev, run))
         rows.append(int8_path(dev, run, UTT_FRAMES))
+        main_path(dev, work, PACKET_LOSS, UTT_FRAMES, True, "packet_loss")
         run = main_path(dev, work, BUNCH4, UTT_FRAMES, False, "bunch4")
         rows.append(main_shape(dev, run, UTT_FRAMES,
                                other_forms=[(4, True, False, False),
@@ -1048,6 +1333,8 @@ def main() -> int:
         card_against_cpu(dev, work, FLAGSHIP, True, "flagship")
         card_against_cpu(dev, work, BUNCH4, False, "bunch4")
         card_against_cpu(dev, work, SLICE1, False, "slice1")
+        card_against_cpu(dev, work, SMALL_LOSS, True, "fec_drops")
+        card_against_cpu(dev, work, ULTRA, True, "ultra")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -5,18 +5,28 @@
         train.vocoder_model=<label_s> [key=value ...] [--device=cpu]
 
 Port of fpsc_tpu/codec/cli.py:54-117, 256-415 (decode only): unpack
-the symbols (range-coded, the default, or fixed-layout) -> closed-loop
-feature decode -> ceps2lpc -> frame-rate prologue -> the CUDA LPCNet
-sampler, bunch=1, 2 or 4 (lpcnet.bunch=2 with for example
-lpcnet.gru_b_units=32; lpcnet.bunch=4 with lpcnet.gru_b_units=64), dense
-or with GRU_A's block-sparse product where the checkpoint's recurrent
-weights are block-sparse.  Utterances are bucketed by frame count and
-each bucket runs as one batch; a bucket of more than 128 utterances
-takes the sampler's cdf_matmul form, as the JAX decoder does.
+the symbols -> closed-loop feature decode -> ceps2lpc -> frame-rate
+prologue -> the CUDA LPCNet sampler, bunch=1, 2 or 4 (lpcnet.bunch=2
+with for example lpcnet.gru_b_units=32; lpcnet.bunch=4 with
+lpcnet.gru_b_units=64), dense or with GRU_A's block-sparse product
+where the checkpoint's recurrent weights are block-sparse.  Utterances
+are bucketed by frame count and each bucket runs as one batch; a
+bucket of more than 128 utterances takes the sampler's cdf_matmul
+form, as the JAX decoder does.
 
-Not decoded yet, each refused with a ValueError: packetized streams
-with or without FEC (and so packet-loss concealment) and rate presets
-other than `full`.
+Every container the JAX CLI writes decodes: fixed-layout or range-coded
+(the default; the range decoder is the native C++ runtime of
+codec/native_rc.py, which g++ builds into build/host/ at first use, or
+the Python coder where it does not build); whole utterances or packets
+of `codec.packet_ms` (codec/range_coder.py's packet paths), with or
+without in-band FEC; and every rate preset of codec/rate_control.py
+(`codec.preset=lean` etc. reduces the codebooks before the geometry is
+checked against the container's).  On a packetized stream
+`codec.sim_drop=0.1 codec.sim_seed=0` simulates an iid channel that
+drops 10% of the packets (never the first): lost spans recover from
+the next packet's redundancy (FEC) or are concealed by the closed-loop
+predictor (codec/plc.py), and the decoder prints each utterance's
+recovery report.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import numpy as np
 import torch
 
 from fpsc_tpu_torch.codec import bitstream as bs
-from fpsc_tpu_torch.codec import container
+from fpsc_tpu_torch.codec import container, native_rc, plc, rate_control
 from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.codec.codec import decode
 from fpsc_tpu_torch.config.config import Config, apply_overrides
@@ -60,15 +70,19 @@ def codebook_sizes(codebooks) -> dict:
 
 
 def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
-    """[predictor, codebooks, sizes, priors, orders(, vocoder)] from the
-    checkpoint and codebook paths in cfg: the entropy-model priors
-    stored beside the codebooks (None when there are none) and the
-    value ranks of the scalar codebooks, which the range decoder needs.
+    """[predictor, codebooks, sizes, priors, orders, rcmod(, vocoder)]
+    from the checkpoint and codebook paths in cfg.  The rate preset
+    (cfg.codec.preset) is applied to the codebooks here, so that sizes,
+    the value ranks of the scalar books (orders) and every later layer
+    see the reduced geometry; the entropy-model priors stored beside the
+    codebooks (None when there are none) lose the stages the preset
+    drops.  rcmod is native_rc.best(), the range coder that decodes.
     Weights are seeded random where cfg names no checkpoint."""
     dev = resolve_device(device)
-    if cfg.codec.preset != "full":
-        raise ValueError(f"rate preset {cfg.codec.preset!r}: the port "
-                         "decodes the 'full' preset only")
+    preset = cfg.codec.preset
+    if preset not in rate_control.PRESETS:
+        raise ValueError(f"unknown rate preset {preset!r}: one of "
+                         f"{sorted(rate_control.PRESETS)}")
     gen = torch.Generator().manual_seed(cfg.train.seed)
     predictor = FramePredictor(FramePredictorConfig(
         in_features=cfg.predictor.in_features,
@@ -82,9 +96,20 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
             cfg.train.transfer_epoch))
         ckpt.restore(predictor, payload, "predictor")
     codebooks = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
-    out = [predictor.to(dev), codebooks, codebook_sizes(codebooks),
-           ckpt.load_priors(cfg.codec.codebook_path),
-           rc.scalar_orders(codebooks)]
+    if preset != "full":
+        codebooks = rate_control.preset_codebooks(
+            codebooks, **rate_control.PRESETS[preset])
+    sizes = codebook_sizes(codebooks)
+    priors = ckpt.load_priors(cfg.codec.codebook_path)
+    if priors is not None and preset != "full":
+        # priors are collected at the full geometry; a preset drops
+        # vector stages, whose priors go (fpsc_tpu/codec/cli.py:80-88)
+        dropped = {f"vq_{s}" for s in range(len(sizes["vq"]), 9)}
+        dropped |= {f"vq_bl_{s}" for s in range(len(sizes["vq_bl"]), 9)}
+        priors = {k: v for k, v in priors.items() if k not in dropped}
+    rcmod = native_rc.best()
+    out = [predictor.to(dev), codebooks, sizes, priors,
+           rcmod.scalar_orders(codebooks), rcmod]
     if need_vocoder:
         out.append(_load_vocoder(cfg, dev))
     return out
@@ -125,15 +150,6 @@ def save_wav(path: str, x: np.ndarray, sr: int = C.SAMPLE_RATE) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def _refuse_unsupported(meta: Dict) -> None:
-    if meta["packet_frames"] or meta["fec"]:
-        raise ValueError("packetized .fpsc streams (codec.packet_ms, "
-                         "codec.fec) are not decoded by the port yet")
-    if meta["preset"] != "full":
-        raise ValueError(f"rate preset {meta['preset']!r}: the port "
-                         "decodes the 'full' preset only")
-
-
 class _Phases:
     """Wall time per decode phase, the device synchronised at each
     boundary; only when the caller passed a dict to fill."""
@@ -157,10 +173,16 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
                 artifacts=None, vocoder=None,
                 device=None, uniforms: Optional[UniformSource] = None,
                 timings: Optional[Dict[str, float]] = None) -> List[dict]:
-    """Decode every utterance of a .fpsc container, range-coded or
-    fixed-layout, to out_dir/<name>.wav; returns [{name, coded, lpc,
-    wav}] in container order.  `artifacts` and `vocoder` are what
+    """Decode every utterance of a .fpsc container to
+    out_dir/<name>.wav; returns [{name, coded, lpc, wav}] in container
+    order.  `artifacts` and `vocoder` are what
     load_artifacts(cfg, need_vocoder=True) returns.
+
+    A packetized container decodes packet by packet; with
+    cfg.codec.sim_drop > 0 its packets are dropped first, by one
+    RandomState(cfg.codec.sim_seed) drawn per utterance in container
+    order, the first packet always kept; lost frames are recovered from
+    FEC where the container has it, and concealed otherwise.
 
     Runs on the card unless device="cpu".  Each bucket's uniforms come
     from a torch.Generator seeded with 0 (the JAX decoder uses
@@ -175,22 +197,56 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     if artifacts is None:
         *artifacts, vocoder = load_artifacts(cfg, need_vocoder=True,
                                              device=dev)
-    predictor, codebooks, sizes, priors, orders = artifacts
+    predictor, codebooks, sizes, priors, orders, rcmod = artifacts
     box = container.read_fpsc(in_path)
     meta = box["meta"]
-    _refuse_unsupported(meta)
     container.check_geometry(meta, sizes)
     scale = C.MAXI if cfg.data.normalize else 1.0
     os.makedirs(out_dir, exist_ok=True)
 
+    pf, fec = meta["packet_frames"], meta["fec"]
+    fec_books = fec_sizes = None
+    if fec:
+        # the redundancy is coded at the lean preset of the (already
+        # reduced) books, with the primary priors and orders
+        fec_books = rate_control.preset_codebooks(
+            codebooks, **rate_control.PRESETS["lean"])
+        fec_sizes = codebook_sizes(fec_books)
+    drop_rng = np.random.RandomState(cfg.codec.sim_seed)
+
     unpacked, buckets, order = {}, {}, []
     for name, payload in box["utterances"]:
-        if meta["entropy"]:
-            got = rc.unpack_utterance_rc(payload, sizes, priors=priors,
-                                         orders=orders)
+        if pf:
+            nbytes = sum(len(p) for p in payload)
+            total_frames = meta["frame_counts"].get(name)
+            if cfg.codec.sim_drop > 0:
+                keep = drop_rng.rand(len(payload)) >= cfg.codec.sim_drop
+                keep[0] = True          # session start always arrives
+                payload = [p if keep[j] else None
+                           for j, p in enumerate(payload)]
+            if fec:
+                got = rc.unpack_packets_fec(
+                    payload, sizes, fec_sizes, packet_frames=pf,
+                    total_frames=total_frames, priors=priors,
+                    orders=orders)
+            else:
+                got = rc.unpack_packets(payload, sizes, packet_frames=pf,
+                                        total_frames=total_frames,
+                                        priors=priors, orders=orders)
+            if got["lost"].any() or got.get(
+                    "from_fec", np.zeros(1, bool)).any():
+                print(f"{name}: {int(got['lost'].sum())} frame(s) "
+                      f"concealed"
+                      + (f", {int(got['from_fec'].sum())} recovered "
+                         "from FEC" if fec else ""))
+        elif meta["entropy"]:
+            got = rcmod.unpack_utterance_rc(payload, sizes, priors=priors,
+                                            orders=orders)
+            nbytes = len(payload)
         else:
             got = bs.unpack_utterance(payload, sizes)
-        unpacked[name] = (got, len(payload))
+            nbytes = len(payload)
+        unpacked[name] = (got, nbytes)
         buckets.setdefault(len(got["ind1"]), []).append(name)
         order.append(name)
     phases.mark("unpack")
@@ -202,11 +258,20 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
                 np.stack([f(unpacked[n][0]) for n in names]), device=dev)
 
         g0 = unpacked[names[0]][0]
-        coded = decode(predictor, codebooks,
-                       stack(lambda g: g["ind1"]), stack(lambda g: g["ind2"]),
+        pitch = stack(lambda g: g["pitch"]) / scale
+        if pf and fec:
+            merged = [plc.fec_merge_residual(codebooks, fec_books,
+                                             unpacked[n][0]) for n in names]
+            coded = plc.conceal_decode_residual(
+                predictor, torch.cat([m[0] for m in merged]), pitch,
+                torch.cat([m[2] for m in merged]))
+        else:
+            symbols = (stack(lambda g: g["ind1"]), stack(lambda g: g["ind2"]),
                        {k: stack(lambda g, k=k: g["indices"][k]).long()
-                        for k in g0["indices"]},
-                       stack(lambda g: g["pitch"]) / scale)
+                        for k in g0["indices"]}, pitch)
+            coded = (plc.conceal_decode(predictor, codebooks, *symbols,
+                                        stack(lambda g: g["lost"]))
+                     if pf else decode(predictor, codebooks, *symbols))
         phases.mark("feature_decode")
         coded_un = coded * scale
         periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)

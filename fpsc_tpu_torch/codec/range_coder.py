@@ -1,12 +1,16 @@
 """Range (arithmetic) coder for entropy-coded codec bitstreams.
 
-A copy of the single-utterance path of fpsc_tpu/codec/range_coder.py
-(lines 16-137, 139-586 and 1055-1065; the PyTorch port keeps its own):
-a carry-less 32-bit range coder, the adaptive frequency models, the
-`_Transcoder` that drives both pack and unpack, `pack_utterance_rc`,
-`unpack_utterance_rc` and `scalar_orders`.  Host code in numpy; it gives
-the JAX module's bytes and symbols exactly.  Not copied: packets and
-FEC, the streaming coders, `collect_priors` and `entropy_pack`.
+A copy of the offline paths of fpsc_tpu/codec/range_coder.py (lines
+16-137, 139-586, 589-838 and 1055-1065; the PyTorch port keeps its
+own): a carry-less 32-bit range coder, the adaptive frequency models,
+the `_Transcoder` that drives both pack and unpack, `pack_utterance_rc`,
+`unpack_utterance_rc`, the packets of a lossy transport with and
+without in-band FEC (`pack_packets`, `unpack_packets`,
+`pack_packets_fec`, `unpack_packets_fec`, each span coded by
+native_rc.best()) and `scalar_orders`.  Host code in numpy; it gives
+the JAX module's bytes and symbols exactly.  Not copied yet: the
+streaming coders and `FecPacketReceiver` (streaming serving),
+`collect_priors`, `build_models` and `entropy_pack` (encode).
 
 `scalar_orders` ranks the scalar codebooks with numpy's argsort on their
 float32 values, as the JAX module does, never with torch.argsort: the
@@ -556,6 +560,255 @@ def unpack_utterance_rc(data: bytes, sizes: Dict,
             "indices": {"scl": tc.iscl, "scl_bl": tc.iscl_bl,
                         "vq": tc.ivq, "vq_bl": tc.ivq_bl},
             "pitch": dequantize_pitch(tc.pcodes)}
+
+
+def pack_packets(ind1, ind2, indices: Dict, pcodes, sizes: Dict,
+                 packet_frames: int, static_models: Dict = None,
+                 priors: Dict = None, orders: Dict = None) -> list:
+    """Pack one utterance as INDEPENDENTLY decodable packets of
+    `packet_frames` frames each (the last may be short).
+
+    Every packet restarts the entropy models from the shared priors
+    and its cross-frame contexts from scratch (pitch is coded absolute
+    on each packet's first frame), so the loss of any packet leaves
+    every other packet exactly decodable — the property a lossy
+    transport needs (codec/plc.py).  The cost is the per-packet model
+    restart + 4-byte range-coder flush + 1-byte frame-count header;
+    measured as a rate-vs-packet-size curve in
+    scripts/validate_plc.py.  Returns a list of payload bytes.
+    """
+    length = len(np.asarray(ind1))
+    assert 1 <= packet_frames <= 255, packet_frames
+    out = []
+    for s in range(0, length, packet_frames):
+        e = min(s + packet_frames, length)
+        out.append(bytes([e - s]) + _pack_span(
+            ind1, ind2, indices, pcodes, sizes, s, e,
+            static_models, priors, orders))
+    return out
+
+
+def unpack_packets(payloads: list, sizes: Dict, packet_frames: int,
+                   total_frames: int = None,
+                   static_models: Dict = None, priors: Dict = None,
+                   orders: Dict = None) -> Dict:
+    """Inverse of pack_packets over a lossy transport.
+
+    payloads: list with None for packets the transport dropped.
+    packet_frames / total_frames reconstruct the frame positions of
+    lost packets (total_frames is only needed when the LAST packet —
+    the one that may be short — was itself lost).  Returns the
+    unpack_utterance_rc layout plus `lost` (L,) bool; lost frames
+    carry placeholder rows (ind False, indices -1, pitch 0) that
+    codec/plc.conceal_decode ignores.
+    """
+    spans = []           # (n_frames, payload-or-None)
+    pos = 0
+    for i, p in enumerate(payloads):
+        if p is not None:
+            n = p[0]
+        elif i < len(payloads) - 1 or total_frames is None:
+            n = packet_frames
+        else:
+            n = total_frames - pos
+        spans.append((n, p))
+        pos += n
+    length = pos
+    n_vq = max(len(sizes["vq"]), 1)
+    n_vq_bl = max(len(sizes.get("vq_bl", [])), 1)
+    ind1 = np.zeros(length, bool)
+    ind2 = np.zeros(length, bool)
+    iscl = np.full(length, -1, np.int32)
+    iscl_bl = np.full(length, -1, np.int32)
+    ivq = np.full((length, n_vq), -1, np.int32)
+    ivq_bl = np.full((length, n_vq_bl), -1, np.int32)
+    # lost frames keep the code-0 placeholder pitch (ignored by
+    # conceal_decode's pitch hold)
+    pitch = np.tile(dequantize_pitch(np.zeros((1, 2), np.int64)),
+                    (length, 1))
+    lost = np.zeros(length, bool)
+    pos = 0
+    for n, p in spans:
+        if p is None:
+            lost[pos:pos + n] = True
+        else:
+            got = _unpack_span(bytes(p[1:]), n, sizes, static_models,
+                               priors, orders)
+            ind1[pos:pos + n] = got["ind1"]
+            ind2[pos:pos + n] = got["ind2"]
+            iscl[pos:pos + n] = got["indices"]["scl"]
+            iscl_bl[pos:pos + n] = got["indices"]["scl_bl"]
+            ivq[pos:pos + n] = got["indices"]["vq"]
+            ivq_bl[pos:pos + n] = got["indices"]["vq_bl"]
+            pitch[pos:pos + n] = got["pitch"]
+        pos += n
+    return {"ind1": ind1, "ind2": ind2,
+            "indices": {"scl": iscl, "scl_bl": iscl_bl,
+                        "vq": ivq, "vq_bl": ivq_bl},
+            "pitch": pitch, "lost": lost}
+
+
+def _pack_span(ind1, ind2, indices: Dict, pcodes, sizes: Dict, s, e,
+               static_models, priors, orders) -> bytes:
+    """Self-contained range coding of frames [s, e) (fresh models),
+    routed through the fastest backend (the native C++ runtime is
+    byte-identical, so packetized payloads do not depend on which
+    side built the library)."""
+    from fpsc_tpu_torch.codec import native_rc
+    payload = native_rc.best().pack_utterance_rc(
+        np.asarray(ind1)[s:e], np.asarray(ind2)[s:e],
+        {"scl": np.asarray(indices["scl"])[s:e],
+         "scl_bl": np.asarray(indices["scl_bl"])[s:e],
+         "vq": np.atleast_2d(np.asarray(indices["vq"]))[s:e],
+         "vq_bl": np.atleast_2d(np.asarray(indices["vq_bl"]))[s:e]},
+        np.asarray(pcodes)[s:e], sizes, static_models=static_models,
+        priors=priors, orders=orders)
+    return payload[2:]               # strip the 2-byte length header
+
+
+def _unpack_span(body: bytes, n: int, sizes: Dict, static_models,
+                 priors, orders) -> Dict:
+    """Inverse of _pack_span (fastest backend)."""
+    from fpsc_tpu_torch.codec import native_rc
+    return native_rc.best().unpack_utterance_rc(
+        int(n).to_bytes(2, "big") + body, sizes,
+        static_models=static_models, priors=priors, orders=orders)
+
+
+def pack_packets_fec(ind1, ind2, indices: Dict, pcodes, sizes: Dict,
+                     fec_indices: Dict, fec_sizes: Dict,
+                     packet_frames: int, static_models: Dict = None,
+                     priors: Dict = None, fec_priors: Dict = None,
+                     orders: Dict = None, fec_orders: Dict = None,
+                     fec_mask=None) -> list:
+    """pack_packets with in-band redundancy (Opus-LBRR style).
+
+    Packet i carries its primary span (full-preset streams) PLUS a
+    redundant coding of span i-1 under the lean preset
+    (`fec_indices` from the encoder's plc.fec_requantize, `fec_sizes`
+    from the lean codebook set; indicators and pitch ride again in the
+    redundant body so a receiver holding ONLY packet i+1 decodes span
+    i completely).  An isolated packet loss is then fully recovered
+    one packet late; concealment remains for back-to-back losses.
+    Packet layout: [1B primary n | 1B fec n | 2B primary body len |
+    primary body | fec body], every body self-contained.
+
+    `fec_mask` (per-packet bools, adaptive senders) gates the
+    redundancy: packet i ships span i-1's redundant body only when
+    fec_mask[i] is truthy (fn=0 otherwise — the format every receiver
+    already handles, so FEC can toggle mid-stream with no signalling;
+    the sender's loss-feedback controller is plc.AdaptiveFecPolicy of
+    the JAX package).
+    """
+    length = len(np.asarray(ind1))
+    assert 1 <= packet_frames <= 255, packet_frames
+    kw = (static_models, priors, orders)
+    # the redundancy stream may use its own codebook geometry (e.g.
+    # ultra-preset coarse scalars): its priors AND its value-rank
+    # orders must match ITS books, not the primary's — a full-book
+    # rank permutation applied to coarse-book codes emits ranks past
+    # the coarse bucket tables (caught by the size guard below)
+    fkw = (static_models,
+           fec_priors if fec_priors is not None else priors,
+           fec_orders if fec_orders is not None else orders)
+    out = []
+    spans = [(s, min(s + packet_frames, length))
+             for s in range(0, length, packet_frames)]
+    for i, (s, e) in enumerate(spans):
+        body = _pack_span(ind1, ind2, indices, pcodes, sizes, s, e,
+                          *kw)
+        if i == 0 or (fec_mask is not None and not fec_mask[i]):
+            fec = b""
+            fn = 0
+        else:
+            ps, pe = spans[i - 1]
+            fec = _pack_span(ind1, ind2, fec_indices, pcodes,
+                             fec_sizes, ps, pe, *fkw)
+            fn = pe - ps
+        out.append(bytes([e - s, fn])
+                   + len(body).to_bytes(2, "big") + body + fec)
+    return out
+
+
+def unpack_packets_fec(payloads: list, sizes: Dict, fec_sizes: Dict,
+                       packet_frames: int, total_frames: int = None,
+                       static_models: Dict = None, priors: Dict = None,
+                       fec_priors: Dict = None,
+                       orders: Dict = None,
+                       fec_orders: Dict = None) -> Dict:
+    """Inverse of pack_packets_fec over a lossy transport.
+
+    Per span, in order of preference: the primary body (its own
+    packet), else the redundant body (the NEXT packet), else lost.
+    Returns the unpack_packets layout plus `fec_indices` (lean-layout
+    index streams for the recovered frames) and `from_fec` (L,) bool;
+    merge with codec/plc.fec_merge_residual.
+    """
+    kw = (static_models, priors, orders)
+    fkw = (static_models,
+           fec_priors if fec_priors is not None else priors,
+           fec_orders if fec_orders is not None else orders)
+    spans = []          # (n_frames, primary-body-or-None)
+    pos = 0
+    for i, p in enumerate(payloads):
+        if p is not None:
+            n = p[0]
+        elif i < len(payloads) - 1 or total_frames is None:
+            n = packet_frames
+        else:
+            n = total_frames - pos
+        spans.append(n)
+        pos += n
+    length = pos
+    n_vq = max(len(sizes["vq"]), 1)
+    n_vq_bl = max(len(sizes.get("vq_bl", [])), 1)
+    fn_vq = max(len(fec_sizes["vq"]), 1)
+    fn_vq_bl = max(len(fec_sizes.get("vq_bl", [])), 1)
+    out = {
+        "ind1": np.zeros(length, bool), "ind2": np.zeros(length, bool),
+        "indices": {"scl": np.full(length, -1, np.int32),
+                    "scl_bl": np.full(length, -1, np.int32),
+                    "vq": np.full((length, n_vq), -1, np.int32),
+                    "vq_bl": np.full((length, n_vq_bl), -1, np.int32)},
+        "fec_indices": {
+            "scl": np.full(length, -1, np.int32),
+            "scl_bl": np.full(length, -1, np.int32),
+            "vq": np.full((length, fn_vq), -1, np.int32),
+            "vq_bl": np.full((length, fn_vq_bl), -1, np.int32)},
+        "lost": np.zeros(length, bool),
+        "from_fec": np.zeros(length, bool),
+    }
+    pitch = np.tile(dequantize_pitch(np.zeros((1, 2), np.int64)),
+                    (length, 1))
+
+    def fill(got, pos, n, idx_key):
+        out["ind1"][pos:pos + n] = got["ind1"]
+        out["ind2"][pos:pos + n] = got["ind2"]
+        d = out[idx_key]
+        for k in ("scl", "scl_bl", "vq", "vq_bl"):
+            d[k][pos:pos + n] = got["indices"][k]
+        pitch[pos:pos + n] = got["pitch"]
+
+    pos = 0
+    for i, n in enumerate(spans):
+        p = payloads[i]
+        if p is not None:
+            blen = int.from_bytes(p[2:4], "big")
+            fill(_unpack_span(bytes(p[4:4 + blen]), n, sizes,
+                              kw[0], kw[1], orders), pos, n, "indices")
+        elif (i + 1 < len(payloads) and payloads[i + 1] is not None
+              and payloads[i + 1][1] == n):
+            nxt = payloads[i + 1]
+            blen = int.from_bytes(nxt[2:4], "big")
+            fill(_unpack_span(bytes(nxt[4 + blen:]), n, fec_sizes,
+                              fkw[0], fkw[1], fkw[2]),
+                 pos, n, "fec_indices")
+            out["from_fec"][pos:pos + n] = True
+        else:
+            out["lost"][pos:pos + n] = True
+        pos += n
+    out["pitch"] = pitch
+    return out
 
 
 def scalar_orders(codebooks) -> Dict:

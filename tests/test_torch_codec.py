@@ -431,13 +431,12 @@ def test_cli_main_decodes_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("container_kw,cfg_extra,match", [
-    (dict(entropy=True, packet_frames=5), (), "packetized"),
-    (dict(entropy=True, packet_frames=5, fec=True), (), "packetized"),
-    (dict(entropy=False, preset="lean"), (), "rate preset 'lean'"),
-    (dict(entropy=False), ("codec.preset=lean",), "rate preset 'lean'"),
     # bunch=3 is no vocoder; the refusal names those that run, up to
     # bunch=4
     (dict(entropy=False), ("lpcnet.bunch=3",), "bunch=4"),
+    # a preset name rate_control.PRESETS does not know
+    (dict(entropy=False), ("codec.preset=nonesuch",),
+     "unknown rate preset 'nonesuch'"),
 ])
 def test_decode_refuses_what_it_does_not_decode(tmp_path, container_kw,
                                                 cfg_extra, match):
@@ -467,6 +466,10 @@ for m in pkgutil.walk_packages(fpsc_tpu_torch.__path__, "fpsc_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("fpsc_tpu_torch.codec.range_coder",
+             "fpsc_tpu_torch.codec.native_rc",
+             "fpsc_tpu_torch.codec.rate_control",
+             "fpsc_tpu_torch.codec.plc",
+             "fpsc_tpu_torch.ops.host_build",
              "fpsc_tpu_torch.models.lpcnet_bunched",
              "fpsc_tpu_torch.probes.timing",
              *(f"fpsc_tpu_torch.probes.probe_{p}" for p in
@@ -484,7 +487,7 @@ print(len([n for n in sys.modules if n.startswith("fpsc_tpu_torch")]))
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert run.returncode == 0, run.stderr
-    assert int(run.stdout.split()[-1]) >= 37
+    assert int(run.stdout.split()[-1]) >= 41
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -496,3 +499,232 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
         tcli.decode_file(cfg, path, str(tmp_path / "wav"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.load_artifacts(cfg, need_vocoder=True)
+
+
+# Every stream JAX's CLI decodes beyond the whole-utterance `full` one:
+# packets (codec.packet_ms), with in-band FEC, under simulated loss, and
+# the rate presets.  The codebooks' scalar book has 128 entries, so that
+# `ultra` coarsens it (to 64) and its value ranks; the priors JAX
+# collects at the full geometry ride beside the books, except for
+# `ultra` (JAX's coder refuses full-geometry scalar priors on coarsened
+# books).
+PRESET_SIZES = {"scl": 128, "scl_bl": 16, "vq": [32, 16], "vq_bl": [8]}
+# case: (encoder overrides, decoder overrides, codebook file)
+EVERY_STREAM = {
+    "packets": (["codec.packet_ms=50"], [], "priors"),
+    "packets_lossy": (["codec.packet_ms=50"],
+                      ["codec.sim_drop=0.25", "codec.sim_seed=3"], "priors"),
+    "fec_lossy": (["codec.packet_ms=50", "codec.fec=true"],
+                  ["codec.sim_drop=0.25", "codec.sim_seed=3"], "priors"),
+    "lean": (["codec.preset=lean"], [], "priors"),
+    "ultra": (["codec.preset=ultra"], [], "plain"),
+}
+
+
+def _preset_books(rng):
+    return jfp.Codebooks(
+        scl=jnp.asarray(np.sort(rng.randn(128)).astype(np.float32) * 0.1),
+        vq=(jnp.asarray(rng.randn(32, 17).astype(np.float32) * 0.1),
+            jnp.asarray(rng.randn(16, 17).astype(np.float32) * 0.03)),
+        scl_bl=jnp.asarray(np.sort(rng.randn(16)).astype(np.float32) * 0.02),
+        vq_bl=(jnp.asarray(rng.randn(8, 17).astype(np.float32) * 0.02),))
+
+
+def _random_symbols(rng, sizes, frames):
+    ind1, ind2 = rng.rand(frames) > 0.5, rng.rand(frames) > 0.5
+    idx = {"scl": np.where(ind1, rng.randint(0, sizes["scl"], frames), -1),
+           "scl_bl": np.where(ind1, -1,
+                              rng.randint(0, sizes["scl_bl"], frames)),
+           "vq": np.where(ind2[:, None], np.stack(
+               [rng.randint(0, e, frames) for e in sizes["vq"]], 1), -1),
+           "vq_bl": np.where(ind2[:, None], -1, np.stack(
+               [rng.randint(0, e, frames) for e in sizes["vq_bl"]], 1))}
+    pcodes = np.stack([rng.randint(0, 256, frames),
+                       rng.randint(0, 8, frames)], 1)
+    return ind1, ind2, idx, pcodes
+
+
+@pytest.fixture(scope="module")
+def every_stream(tmp_path_factory):
+    """Codebooks with and without priors, JAX predictor and vocoder
+    checkpoints, two wavs of different lengths."""
+    tmp = tmp_path_factory.mktemp("every")
+    rng = np.random.RandomState(21)
+    books = _preset_books(rng)
+    cb = {"plain": str(tmp / "cb.npz"), "priors": str(tmp / "cb_priors.npz")}
+    for path in cb.values():
+        jckpt.save_codebooks(path, books)
+    jckpt.save_priors(cb["priors"], jrc.collect_priors(
+        [_random_symbols(rng, PRESET_SIZES, 60) for _ in range(3)],
+        PRESET_SIZES, orders=jrc.scalar_orders(books)))
+    save_dir = str(tmp / "runs")
+    pred = jfp.init_frame_predictor(
+        jax.random.PRNGKey(11),
+        jfp.FramePredictorConfig(gru_units1=32, gru_units2=16))
+    pred = pred._replace(fc=pred.fc._replace(w=pred.fc.w * 0.05,
+                                             b=pred.fc.b * 0.05))
+    voc = jlpcnet.init_lpcnet(
+        jax.random.PRNGKey(12),
+        jlpcnet.LPCNetConfig(gru_a_units=32, gru_b_units=8, embed_dim=16,
+                             cond_units=16))
+    for label, params in (("pred", pred), ("voc", voc)):
+        jckpt.save(jckpt.checkpoint_path(save_dir, label, 1), params,
+                   opt_state=optax.adam(1e-3).init(params), step=3)
+    base = TINY + [f"train.save_dir={save_dir}", "train.transfer_model=pred",
+                   "train.transfer_epoch=1", "train.vocoder_model=voc",
+                   "train.vocoder_epoch=1", "codec.entropy_coding=true"]
+    wavs = [_write_wav(tmp, "p1", seconds=0.3, seed=7),
+            _write_wav(tmp, "p2", seconds=0.45, seed=8)]
+    return dict(tmp=tmp, cb=cb, base=base, wavs=wavs, vocoder=voc)
+
+
+def _recovery_report(out: str):
+    return [line for line in out.splitlines() if "concealed" in line]
+
+
+def _assert_decode_matches(got, want, vocoder):
+    """The port's decode_file results against JAX's: coded features at
+    the closed-loop tolerance, LPC against JAX's ceps2lpc of the port's
+    features, audio under the trajectory contract against JAX's CPU
+    sampler on the port's features and LPC, bucket by bucket."""
+    assert [g["name"] for g in got] == [w["name"] for w in want]
+    buckets = {}
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["coded"], w["coded"], rtol=1e-4,
+                                   atol=1e-5)
+        _, lpc, _ = jceps.ceps2lpc(jnp.asarray(g["coded"][:, :18] * C.MAXI))
+        np.testing.assert_allclose(g["lpc"], np.asarray(lpc), rtol=1e-4,
+                                   atol=1e-3)
+        assert g["wav"].shape == w["wav"].shape
+        buckets.setdefault(len(g["coded"]), []).append(g)
+    for items in buckets.values():
+        coded = np.stack([g["coded"] for g in items])
+        coded_un = coded * C.MAXI
+        periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).astype(np.int32)
+        ref = np.asarray(jlpcnet.generate(
+            vocoder, jnp.asarray(coded), jnp.asarray(periods),
+            jnp.asarray(np.stack([g["lpc"] for g in items])),
+            jax.random.PRNGKey(0), corr=jnp.asarray(coded_un[..., 19])))
+        flips, _ = ts.trajectory_flips(np.stack([g["wav"] for g in items]),
+                                       ref, atol=1e-5 * np.abs(ref).max())
+        assert all(f is None or f >= C.FRAME_SIZE for f in flips), flips
+
+
+@pytest.mark.parametrize("case", list(EVERY_STREAM))
+def test_decode_file_matches_jax_on_every_stream(every_stream, case,
+                                                 capsys):
+    """A stream JAX's encode_paths writes, decoded by JAX's
+    decode_file(use_pallas=False) and by the port's on the CPU: JAX's
+    features, LPC and audio, and JAX's recovery report word for word.
+    Lossless packets decode to the whole-utterance stream's features bit
+    for bit, as JAX pins."""
+    enc, dec, cb = EVERY_STREAM[case]
+    tmp = every_stream["tmp"]
+    overrides = every_stream["base"] + [
+        f"codec.codebook_path={every_stream['cb'][cb]}", *enc]
+    jcfg = japply(JConfig(), overrides)
+    *arts, jvoc = jcli.load_artifacts(jcfg, need_vocoder=True)
+    path = str(tmp / f"{case}.fpsc")
+    jcli.encode_paths(jcfg, every_stream["wavs"], path, artifacts=arts)
+    meta = jcontainer.read_fpsc(path)["meta"]
+    capsys.readouterr()
+    want = jcli.decode_file(japply(JConfig(), overrides + dec), path,
+                            str(tmp / f"jax_{case}"), use_pallas=False,
+                            artifacts=arts, vocoder_params=jvoc)
+    jax_report = _recovery_report(capsys.readouterr().out)
+    got = tcli.decode_file(tapply(TConfig(), overrides + dec), path,
+                           str(tmp / f"port_{case}"), device="cpu",
+                           uniforms=_jax_uniforms)
+    assert _recovery_report(capsys.readouterr().out) == jax_report
+    assert bool(jax_report) == bool(dec)
+    if "codec.fec=true" in enc:
+        assert any(" 0 recovered" not in line for line in jax_report)
+    _assert_decode_matches(got, want, every_stream["vocoder"])
+    if case == "packets":
+        plain_cfg = every_stream["base"] + [
+            f"codec.codebook_path={every_stream['cb'][cb]}"]
+        plain = str(tmp / "plain.fpsc")
+        jcli.encode_paths(japply(JConfig(), plain_cfg), every_stream["wavs"],
+                          plain, artifacts=arts)
+        whole = tcli.decode_file(tapply(TConfig(), plain_cfg), plain,
+                                 str(tmp / "port_plain"), device="cpu",
+                                 uniforms=_jax_uniforms)
+        for g, w in zip(got, whole):
+            np.testing.assert_array_equal(g["coded"], w["coded"])
+    if case in ("lean", "ultra"):
+        assert meta["preset"] == case
+        assert meta["sizes"]["vq"] == [32] and meta["sizes"]["vq_bl"] == []
+        assert meta["sizes"]["scl"] == (64 if case == "ultra" else 128)
+
+
+def test_presets_are_jaxs():
+    from fpsc_tpu.codec import rate_control as jrate
+    from fpsc_tpu_torch.codec import rate_control as trate
+    assert trate.PRESETS == jrate.PRESETS
+
+
+@pytest.mark.parametrize("preset", ["full", "vq1", "novqbl", "lean", "ultra",
+                                    "ultra2"])
+def test_preset_codebooks_and_artifacts_are_jaxs(every_stream, preset):
+    """preset_codebooks gives JAX's books exactly (the coarse scalar books
+    by numpy's ranks of the sorted book), and load_artifacts JAX's
+    sizes, value ranks and priors, those of dropped stages pruned."""
+    from fpsc_tpu.codec import rate_control as jrate
+    from fpsc_tpu_torch.codec import native_rc as tnative
+    from fpsc_tpu_torch.codec import rate_control as trate
+    overrides = every_stream["base"] + [
+        f"codec.codebook_path={every_stream['cb']['priors']}",
+        f"codec.preset={preset}"]
+    jframe, jbooks, jpriors, jorders, _, jsizes = jcli.load_artifacts(
+        japply(JConfig(), overrides))
+    _, books, sizes, priors, orders, rcmod = tcli.load_artifacts(
+        tapply(TConfig(), overrides), device="cpu")
+    assert sizes == jsizes
+    assert rcmod is tnative.best()
+    assert sorted(orders) == sorted(jorders)
+    for k in jorders:
+        np.testing.assert_array_equal(orders[k], jorders[k])
+    assert sorted(priors) == sorted(jpriors)
+    for k in jpriors:
+        np.testing.assert_array_equal(priors[k], jpriors[k])
+    full = tckpt.load_codebooks(every_stream["cb"]["priors"])
+    direct = trate.preset_codebooks(full, **trate.PRESETS[preset])
+    for loaded in (books, direct):
+        np.testing.assert_array_equal(loaded.scl.numpy(), jbooks.scl)
+        np.testing.assert_array_equal(loaded.scl_bl.numpy(), jbooks.scl_bl)
+        assert len(loaded.vq) == len(jbooks.vq)
+        for a, b in zip(loaded.vq, jbooks.vq):
+            np.testing.assert_array_equal(a.numpy(), b)
+        assert (loaded.vq_bl is None) == (jbooks.vq_bl is None)
+        for a, b in zip(loaded.vq_bl or (), jbooks.vq_bl or ()):
+            np.testing.assert_array_equal(a.numpy(), b)
+    coarse = jrate.PRESETS[preset].get("scl_entries")
+    assert sizes["scl"] == (coarse or 128)
+    # a book no larger than the entries asked for is kept as it is
+    assert trate.coarsen_scalar(full.scl_bl, 16) is full.scl_bl
+
+
+@pytest.mark.parametrize("config,n_utt,frames", [
+    ("FLAGSHIP", 2, 20), ("PACKET_LOSS", 8, 200), ("SMALL_LOSS", 2, 20),
+    ("ULTRA", 2, 20)])
+def test_smoke_streams_come_back_as_written(tmp_path, config, n_utt, frames):
+    """chip_smoke.py's streams at the reference geometry (whole
+    utterances; packets with FEC at its main path's and its card-vs-CPU
+    size and drop rate; the ultra preset) give the written symbols back
+    through the port's coders, and its lossy channels drop packets."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    overrides = getattr(cs, config)
+    cfg = cs._config(overrides, "")
+    stream, cb_path, written = cs._write_stream(str(tmp_path), cfg, n_utt,
+                                                frames, config)
+    cfg = cs._config(overrides, cb_path)
+    artifacts = tcli.load_artifacts(cfg, device="cpu")
+    implied = cs._check_symbols(stream, cfg, artifacts, written)
+    assert bool(implied) == (cfg.codec.sim_drop > 0)
+    meta = tcontainer.read_fpsc(stream)["meta"]
+    assert meta["preset"] == cfg.codec.preset
+    assert meta["packet_frames"] == cfg.codec.packet_ms // 10
+    if config == "ULTRA":
+        assert meta["sizes"] == {"scl": 64, "scl_bl": 8, "vq": [1024],
+                                 "vq_bl": []}
