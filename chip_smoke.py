@@ -108,7 +108,36 @@ exit and no result line:
    configurations, the flagship's packets with FEC under drops (both
    decodes reporting what the drop mask implies), and a range-coded
    codec.preset=ultra stream (scalar books of 64 and 8 entries, one VQ
-   stage): the same coded features and LPC.
+   stage): the same coded features and LPC;
+12. the encode paths: speech-like wavs made here (`_speech`: a glottal
+   pulse train at an f0 gliding within 90-250 Hz, unvoiced stretches,
+   three formant resonators, a noise floor) encoded by
+   fpsc_tpu_torch.codec.cli.encode_paths on the card with the seeded
+   full-width predictor of 4 and speech-sized random books at the
+   reference geometry (scalar 256 / 16, VQ (1024, 1024), VQ_bl (512,))
+   with seeded priors, then decoded by decode_file on the card: the
+   flagship's 8 x 200 frames (range-coded, `full`; the process's first
+   call reported on its own line, then a second timed), the same in 50
+   ms packets with FEC (decoded without loss, and through PACKET_LOSS's
+   channel, whose recovery report must be what the drop mask implies),
+   the learned-mask path, and a wide bucket of 256 x 50 frames decoded at
+   bunch=4; each prints its phase seconds (read, analysis, encode, fec,
+   pack, write), wall, real-time factor and peak device memory; the
+   stream's pitch codes must be the frontend's, a lossless decode must
+   give the encoder's coded features (rtol 1e-4, atol 1e-5; the largest
+   difference printed), each decode must launch its sampler form and the
+   fold, and the audio must be finite and peak below PEAK_LIMIT;
+13. encode_paths on the card against encode_paths on the CPU, 2 x 20
+   frames, for the threshold path, the mask path, packets with FEC and
+   `codec.preset=ultra` with priors at the preset's geometry: the same
+   .fpsc bytes, or every differing symbol traced to a knife edge of the
+   CPU run (a pitch code whose correlations agree within 1e-5 and whose
+   search on the card's correlations gives the card's code; the first
+   differing encoder symbols of an utterance within 4 ulp of a tie of the
+   CPU's scalar or VQ search, or from a residual within 1e-5 of the
+   CPU's that the CPU's search takes to the card's symbols; the symbols
+   after it carried by the closed loop); the count of knife-edge symbols
+   is printed.
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -142,12 +171,15 @@ from fpsc_tpu_torch.codec import cli, container, native_rc, rate_control
 from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.dsp import emphasis, frontend
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
+from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.models.frame_predictor import Codebooks
 from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
+from fpsc_tpu_torch.quant import vq
 
 N_UTT, UTT_FRAMES = 8, 200
 # slice 1's path, cut in depth (200 frames in its own slice) to keep the
@@ -175,6 +207,11 @@ PACKET_LOSS = FLAGSHIP + ["codec.packet_ms=50", "codec.fec=true",
 SMALL_LOSS = FLAGSHIP + ["codec.packet_ms=50", "codec.fec=true",
                          "codec.sim_drop=0.3", "codec.sim_seed=1"]
 ULTRA = FLAGSHIP + ["codec.preset=ultra"]
+# The encoder's paths: the flagship's (threshold, range-coded), its
+# packets with FEC (decoded without loss and through PACKET_LOSS's
+# channel), the learned mask, and a wide bucket of BUNCH4's.
+ENC_FEC = FLAGSHIP + ["codec.packet_ms=50", "codec.fec=true"]
+MASK = FLAGSHIP + ["codec.use_mask=true"]
 # a packet of the native coder phase, as codec.packet_ms=50 cuts them
 PACKET_FRAMES = 5
 DENSITY, SPARSE_BLOCK = 0.2, (64, 64)
@@ -627,17 +664,13 @@ def _fec_books(books):
                                          **rate_control.PRESETS["lean"])
 
 
-def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
-                  tag: str):
-    """Random symbols at the reference codebook geometry, reduced to
-    cfg.codec.preset, range-coded with seeded priors when
-    cfg.codec.entropy_coding (in packets of cfg.codec.packet_ms when it
-    is set, each carrying the previous span's random lean-geometry
-    redundancy symbols when cfg.codec.fec), else fixed-layout -> (.fpsc
-    path, codebook .npz path, {name: Written} when range-coded).  The
-    .npz holds the full books; the priors are at the preset's geometry,
-    and those of the stages the preset drops at the full one."""
-    rng = np.random.RandomState(2)
+def _books(work: str, cfg: Config, tag: str, rng):
+    """Speech-sized random codebooks at the reference geometry, written
+    with seeded priors (when cfg.codec.entropy_coding) to an .npz ->
+    (its path, the books reduced to cfg.codec.preset, their sizes, the
+    priors).  The .npz holds the full books; the priors are at the
+    preset's geometry, and those of the stages the preset drops at the
+    full one."""
     cc = cfg.codec
     full = {"scl": cc.scl_entries, "scl_bl": cc.scl_entries_bl,
             "vq": list(cc.vq_entries), "vq_bl": list(cc.vq_entries_bl)}
@@ -658,14 +691,28 @@ def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
         vq_bl=tuple(t(f"vq_bl_{s}") for s in range(len(full["vq_bl"])))),
         **rate_control.PRESETS[cc.preset])
     sizes = cli.codebook_sizes(reduced)
-    entropy = cc.entropy_coding
-    priors = _priors(rng, sizes) if entropy else {}
-    if entropy and cc.preset != "full":
+    priors = _priors(rng, sizes) if cc.entropy_coding else {}
+    if cc.entropy_coding and cc.preset != "full":
         priors.update({k: v for k, v in _priors(rng, full).items()
                        if k not in priors})
     cb_path = os.path.join(work, f"codebooks_{tag}.npz")
     np.savez(cb_path, **books,
              **{f"prior__{k}": v for k, v in priors.items()})
+    return cb_path, reduced, sizes, priors
+
+
+def _write_stream(work: str, cfg: Config, n_utt: int, frames: int,
+                  tag: str):
+    """Random symbols at the reference codebook geometry (`_books`),
+    range-coded with seeded priors when cfg.codec.entropy_coding (in
+    packets of cfg.codec.packet_ms when it is set, each carrying the
+    previous span's random lean-geometry redundancy symbols when
+    cfg.codec.fec), else fixed-layout -> (.fpsc path, codebook .npz
+    path, {name: Written} when range-coded)."""
+    rng = np.random.RandomState(2)
+    cc = cfg.codec
+    cb_path, reduced, sizes, priors = _books(work, cfg, tag, rng)
+    entropy = cc.entropy_coding
     orders = rc.scalar_orders(reduced)
     pf = cc.packet_ms // 10
     fec_sizes = cli.codebook_sizes(_fec_books(reduced)) if cc.fec else None
@@ -734,30 +781,14 @@ def _same(got, want: Written, rows) -> bool:
                     for k, v in want.idx.items()))
 
 
-def _check_symbols(stream, cfg: Config, artifacts, written):
-    """The range decoder gives back the written symbols: of every
-    utterance; of a packetized stream every received span's, and the
-    lean redundancy symbols of every span recovered from FEC, under the
-    drop mask decode_file draws (one RandomState(codec.sim_seed) drawn
-    per utterance in container order, packet 0 kept) -> {name: (frames
-    concealed, frames recovered from FEC)} that mask implies, for the
-    utterances of a packetized stream that lost a packet."""
-    _, books, sizes, priors, orders, rcmod = artifacts
-    box = container.read_fpsc(stream)
-    pf, fec = box["meta"]["packet_frames"], box["meta"]["fec"]
-    fec_sizes = cli.codebook_sizes(_fec_books(books)) if fec else None
+def _channel(box, cfg: Config):
+    """The drop mask decode_file draws for a packetized container (one
+    RandomState(codec.sim_seed) drawn per utterance in container order,
+    packet 0 kept) -> per utterance (name, payload, packets kept, frames
+    lost, frames recovered from FEC, frames received)."""
+    fec = box["meta"]["fec"]
     drop_rng = np.random.RandomState(cfg.codec.sim_seed)
-    implied, dropped, packets = {}, 0, 0
     for name, payload in box["utterances"]:
-        want = written[name]
-        frames = len(want.ind1)
-        if not pf:
-            got = rcmod.unpack_utterance_rc(payload, sizes, priors=priors,
-                                            orders=orders)
-            if not _same(got, want, slice(None)):
-                raise RuntimeError(f"{name}: the range decoder did not give "
-                                   "back the written symbols")
-            continue
         keep = np.ones(len(payload), bool)
         if cfg.codec.sim_drop > 0:
             keep = drop_rng.rand(len(payload)) >= cfg.codec.sim_drop
@@ -765,12 +796,45 @@ def _check_symbols(stream, cfg: Config, artifacts, written):
         # a dropped span comes back from the next packet's redundancy
         saved = ~keep & np.append(keep[1:], False) & fec
         spans = [p[0] for p in payload]
-        lost = np.repeat(~keep & ~saved, spans)
-        from_fec = np.repeat(saved, spans)
-        received = np.repeat(keep, spans)
+        yield (name, payload, keep, np.repeat(~keep & ~saved, spans),
+               np.repeat(saved, spans), np.repeat(keep, spans))
+
+
+def _implied(channel):
+    """{name: (frames concealed, frames recovered from FEC)} that a drop
+    mask implies, for the utterances that lost a packet."""
+    return {name: (int(lost.sum()), int(from_fec.sum()))
+            for name, _, keep, lost, from_fec, _ in channel
+            if (~keep).any()}
+
+
+def _check_symbols(stream, cfg: Config, artifacts, written):
+    """The range decoder gives back the written symbols: of every
+    utterance; of a packetized stream every received span's, and the
+    lean redundancy symbols of every span recovered from FEC, under the
+    drop mask decode_file draws (`_channel`) -> {name: (frames
+    concealed, frames recovered from FEC)} that mask implies, for the
+    utterances of a packetized stream that lost a packet."""
+    _, books, sizes, priors, orders, rcmod = artifacts
+    box = container.read_fpsc(stream)
+    pf, fec = box["meta"]["packet_frames"], box["meta"]["fec"]
+    if not pf:
+        for name, payload in box["utterances"]:
+            got = rcmod.unpack_utterance_rc(payload, sizes, priors=priors,
+                                            orders=orders)
+            if not _same(got, written[name], slice(None)):
+                raise RuntimeError(f"{name}: the range decoder did not give "
+                                   "back the written symbols")
+        print(f"range decoder ({rcmod.__name__}): the symbols of all "
+              f"{len(written)} utterances came back as written")
+        return {}
+    fec_sizes = cli.codebook_sizes(_fec_books(books)) if fec else None
+    channel = list(_channel(box, cfg))
+    for name, payload, keep, lost, from_fec, received in channel:
+        want = written[name]
         masked = [p if k else None for p, k in zip(payload, keep)]
-        kw = dict(packet_frames=pf, total_frames=frames, priors=priors,
-                  orders=orders)
+        kw = dict(packet_frames=pf, total_frames=len(want.ind1),
+                  priors=priors, orders=orders)
         got = (rc.unpack_packets_fec(masked, sizes, fec_sizes, **kw) if fec
                else rc.unpack_packets(masked, sizes, **kw))
         if not (np.array_equal(got["lost"], lost)
@@ -782,18 +846,12 @@ def _check_symbols(stream, cfg: Config, artifacts, written):
                              want._replace(idx=want.fec_idx), from_fec):
             raise RuntimeError(f"{name}: the recovered spans' redundancy "
                                "symbols are not the written ones")
-        dropped += int((~keep).sum())
-        packets += len(payload)
-        if (~keep).any():
-            implied[name] = (int(lost.sum()), int(from_fec.sum()))
-    if pf:
-        print(f"packet decoder: {dropped} of {packets} packets dropped; every "
-              "received span's symbols and every recovered span's "
-              "redundancy came back as written")
-    else:
-        print(f"range decoder ({rcmod.__name__}): the symbols of all "
-              f"{len(written)} utterances came back as written")
-    return implied
+    dropped = sum(int((~c[2]).sum()) for c in channel)
+    packets = sum(len(c[2]) for c in channel)
+    print(f"packet decoder: {dropped} of {packets} packets dropped; every "
+          "received span's symbols and every recovered span's redundancy "
+          "came back as written")
+    return _implied(channel)
 
 
 REPORT = re.compile(r"^(\S+): (\d+) frame\(s\) concealed"
@@ -940,6 +998,378 @@ def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
                   for g, w in zip(runs["card"], runs["cpu"]))
            for k in ("coded", "lpc")}
     print(f"coded features and LPC agree, max |card - cpu| {err}")
+
+
+# ---------------------------------------------------------------- encode
+
+def _speech(rng, n: int) -> np.ndarray:
+    """n samples of a speech-like 16 kHz signal: a glottal pulse train at
+    an f0 gliding within 90-250 Hz, unvoiced stretches of noise (a
+    quarter of the time), through three formant resonators, over a noise
+    floor; peak 0.9."""
+    from scipy.signal import lfilter
+    t = np.arange(n) / C.SAMPLE_RATE
+    f0 = 170.0 + 80.0 * np.sin(2 * np.pi * rng.uniform(0.5, 1.5) * t
+                               + rng.uniform(0, 2 * np.pi))
+    pulses = np.diff(np.floor(np.cumsum(f0) / C.SAMPLE_RATE), prepend=0.0)
+    glottal = lfilter([1.0], [1.0, -0.95], pulses)
+    voiced = (t * rng.uniform(2.5, 4.0) + rng.uniform()) % 1.0 < 0.75
+    y = np.where(voiced, glottal, 0.3 * rng.randn(n))
+    for lo, hi, bw in ((500, 800, 80), (1100, 1800, 100), (2300, 3000, 150)):
+        r = np.exp(-np.pi * bw / C.SAMPLE_RATE)
+        theta = 2 * np.pi * rng.uniform(lo, hi) / C.SAMPLE_RATE
+        y = lfilter([1 - r], [1.0, -2 * r * np.cos(theta), r * r], y)
+    y = y + 1e-3 * np.abs(y).max() * rng.randn(n)
+    return 0.9 * y / np.abs(y).max()
+
+
+def _speech_wavs(work: str, tag: str, n_utt: int, frames: int, seed: int):
+    """n_utt 16-bit wavs of `frames` frames each -> their paths."""
+    rng = np.random.RandomState(seed)
+    paths = [os.path.join(work, f"in_{tag}", f"utt{i}.wav")
+             for i in range(n_utt)]
+    for path in paths:
+        cli.save_wav(path, _speech(rng, (frames + 1) * C.FRAME_SIZE))
+    return paths
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, store: list):
+    """module.name appends each call's result to `store` inside the
+    block."""
+    real = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        store.append(out)
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _encode(cfg: Config, wavs, stream: str, artifacts, dev, timings=None):
+    """cli.encode_paths, the rate report summed up -> (codec.encode's
+    output of its one bucket, plc.fec_requantize's or None, the
+    frontend's rows)."""
+    enc, fec, rows, out = [], [], [], io.StringIO()
+    with _recording(cli, "encode", enc), \
+            _recording(cli.plc, "fec_requantize", fec), \
+            _recording(cli, "extract_features_batch", rows), \
+            contextlib.redirect_stdout(out):
+        cli.encode_paths(cfg, wavs, stream, artifacts=artifacts, device=dev,
+                         timings=timings)
+    lines = out.getvalue().splitlines()
+    rates = [float(line.split()[1]) for line in lines[:-1]]
+    print(f"{lines[-1]}; {min(rates):.0f}-{max(rates):.0f} b/s, mean "
+          f"{np.mean(rates):.0f}")
+    if len(enc) != 1:
+        raise RuntimeError(f"{len(enc)} encode buckets, not one")
+    return enc[0], (fec[0] if fec else None), rows[0]
+
+
+def _stream_pitch(stream: str, artifacts):
+    """The dequantised pitch of every utterance of a container, unpacked
+    by the port's decoders (no packet lost) -> {name: (L, 2)}."""
+    _, books, sizes, priors, orders, rcmod = artifacts
+    box = container.read_fpsc(stream)
+    meta, out = box["meta"], {}
+    for name, payload in box["utterances"]:
+        kw = dict(priors=priors, orders=orders)
+        if meta["fec"]:
+            got = rc.unpack_packets_fec(
+                payload, sizes, cli.codebook_sizes(_fec_books(books)),
+                packet_frames=meta["packet_frames"], **kw)
+        elif meta["packet_frames"]:
+            got = rc.unpack_packets(payload, sizes,
+                                    packet_frames=meta["packet_frames"], **kw)
+        elif meta["entropy"]:
+            got = rcmod.unpack_utterance_rc(payload, sizes, **kw)
+        else:
+            got = bs.unpack_utterance(payload, sizes)
+        out[name] = got["pitch"]
+    return out
+
+
+def encode_path(dev, work: str, overrides, n_utt: int, frames: int,
+                tag: str, sparse: bool, decodes=(None,),
+                first_call: bool = False):
+    """cli.encode_paths on n_utt speech-like wavs of `frames` frames at
+    full width, then decode_file of the stream on the card with each of
+    `decodes` (overrides; None for the encoder's): the stream's pitch
+    codes are the frontend's, a decode without loss gives the encoder's
+    coded features, a lossy one reports what the drop mask implies, and
+    the audio is finite and peaks below PEAK_LIMIT.  The launch counts
+    are reset just before the encode and each decode and read just
+    after; each decode must launch its sampler form and the fold."""
+    phase(f"encode ({tag}): encode_paths then decode_file, {n_utt} x "
+          f"{frames} frames, full width")
+    cfg = _config(overrides, "")
+    cb_path, *_ = _books(work, cfg, f"enc_{tag}", np.random.RandomState(2))
+    cfg = _config(overrides, cb_path)
+    artifacts, model = _artifacts(cfg, dev, sparse)
+    wavs = _speech_wavs(work, tag, n_utt, frames, seed=7)
+    stream = os.path.join(work, f"enc_{tag}.fpsc")
+    audio_s = n_utt * (frames + 1) * C.FRAME_SIZE / C.SAMPLE_RATE
+
+    def report(what, timings, wall):
+        print(f"{what}: phase seconds " + ", ".join(
+            f"{k} {v:.4f}" for k, v in timings.items())
+            + f"; encode wall {wall:.3f} s for {audio_s:.2f} s of audio: "
+            f"real-time factor {audio_s / wall:.2f}x")
+
+    if first_call:
+        timings, t0 = {}, time.perf_counter()
+        _encode(cfg, wavs, stream, artifacts, dev, timings)
+        report("the process's first encode_paths call", timings,
+               time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    timings, t0 = {}, time.perf_counter()
+    enc, _, rows = _encode(cfg, wavs, stream, artifacts, dev, timings)
+    wall = time.perf_counter() - t0
+    report("encode", timings, wall)
+    if any(build.launch_counts.values()):
+        raise RuntimeError(f"the encode launched {dict(build.launch_counts)}"
+                           ": its path reaches no kernel of the port")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory in the encode {peak / 2**20:.1f} MiB, "
+          f"{(peak - base) / 2**20:.1f} MiB above what was allocated before "
+          "it; no kernel of the port launched (the encode path reaches "
+          "none)")
+    got = _stream_pitch(stream, artifacts)
+    for i, name in enumerate(got):
+        want = bs.dequantize_pitch(bs.quantize_pitch(rows[i][:, 18:20]))
+        if not np.array_equal(got[name], want):
+            raise RuntimeError(f"{name}: the stream's pitch codes are not "
+                               "the frontend's")
+    print(f"the stream's pitch codes are the frontend's, {len(got)} "
+          f"utterances; indicators above threshold "
+          f"{float(enc['ind1'].float().mean()):.3f} (c0), "
+          f"{float(enc['ind2'].float().mean()):.3f} (c1-c17)")
+    coded = enc["coded"].cpu().numpy()
+    for extra in decodes:
+        dcfg = _config(extra or overrides, cb_path)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        results, reported = _decode(dcfg, stream, os.path.join(
+            work, f"wav_enc_{tag}"), artifacts, model, dev)
+        launches = dict(build.launch_counts)
+        name = lpcnet_sampler.KERNELS[(
+            dcfg.lpcnet.bunch, sparse, False,
+            n_utt > lpcnet_sampler.CDF_MATMUL_ABOVE)]
+        for kernel in (name, lpcnet_sampler.FOLD_KERNEL):
+            if launches.get(kernel, 0) < 1:
+                raise RuntimeError(f"the decode did not launch {kernel}: "
+                                   f"{launches}")
+        if dcfg.codec.sim_drop > 0:
+            implied = _implied(_channel(container.read_fpsc(stream), dcfg))
+            if not implied:
+                raise RuntimeError("the simulated channel dropped no packet")
+            _check_report(reported, implied)
+        else:
+            dec = np.stack([r["coded"] for r in results])
+            np.testing.assert_allclose(dec, coded, rtol=1e-4, atol=1e-5)
+            print(f"decode_file gives the encoder's coded features, max "
+                  f"|decoded - encoded| {float(np.abs(dec - coded).max()):.3g}")
+        wav = np.stack([r["wav"] for r in results])
+        peak = float(np.abs(wav).max())
+        if not np.isfinite(wav).all() or not peak < PEAK_LIMIT:
+            raise RuntimeError(f"the decoded audio is not finite, or peaks "
+                               f"at {peak:.4g}, above {PEAK_LIMIT}")
+        print(f"decode ({'lossy' if dcfg.codec.sim_drop else 'no loss'}): "
+              f"launches {launches}; audio peak {peak:.4g}")
+
+
+# A decision of the card's encode may differ from the CPU's only at a knife
+# edge: where inputs that agree within KNIFE_ABS lead the same decision
+# function to the other side.
+KNIFE_ABS = 1e-5
+
+
+def _ulps(values) -> float:
+    """The least gap between neighbours of sorted float32 values, in
+    float32 ulps of the larger."""
+    v = np.asarray(values, np.float64)
+    return float(np.min((v[1:] - v[:-1]) / np.spacing(np.float32(v[1:]))))
+
+
+def _search_ulps(x: torch.Tensor, books, survivors: int = vq.SURVIVORS):
+    """The least gap, in ulps, between neighbouring candidate distances
+    among the first survivors + 1 of each stage of the m-best search of
+    x (D,)."""
+    gaps, recon = [], None
+    for cb in books:
+        dist = vq._sq_dist(x if recon is None else x - recon, cb).reshape(-1)
+        vals, idx = torch.sort(dist, stable=True)
+        gaps.append(_ulps(vals[:survivors + 1].numpy()))
+        sel = idx[:survivors]
+        recon = cb[sel] if recon is None else \
+            recon[sel // cb.shape[0]] + cb[sel % cb.shape[0]]
+    return min(gaps)
+
+
+def _frame_symbols(run, i: int) -> np.ndarray:
+    """Utterance i's encoder symbols, a row a frame: indicators, index
+    streams, redundancy indices."""
+    enc, fec = run["enc"], run["fec"]
+    cols = [enc["ind1"][i, :, None].long(), enc["ind2"][i, :, None].long()]
+    for d in (enc["indices"], fec or {}):
+        cols += [v[i].reshape(v.shape[1], -1) for v in d.values()]
+    return torch.cat([c.cpu() for c in cols], 1).numpy()
+
+
+def _encoder_knife(cfg: Config, runs, i: int, t: int):
+    """Whether the first differing frame t of utterance i is a knife edge
+    -> (bool, the margins).  The inputs of frame t's decisions (the raw
+    residual; the masks on the mask path) must agree within KNIFE_ABS,
+    and the CPU's decisions on the card's inputs (indicators, scalar and
+    VQ searches, the FEC requantisation) must be the card's symbols.
+    The CPU's own margins are reported: thresholds or masks, and the
+    scalar and VQ searches' closest candidates in f32 ulps."""
+    cpu, card = runs["cpu"], runs["card"]
+    books = cpu["artifacts"][1]
+    r_cpu, r_card = (run["enc"]["r"][i, t].cpu() for run in (cpu, card))
+    gap = float((r_cpu - r_card).abs().max())
+    margins = {"|r card - r cpu|": gap}
+    if cfg.codec.use_mask:
+        m_cpu, m_card = (run["masks"][i, t] for run in (cpu, card))
+        margins["|mask - 0.5|"] = float((m_cpu - 0.5).abs().min())
+        gap = max(gap, float((m_cpu - m_card).abs().max()))
+        ind = m_card > 0.5
+    else:
+        margins["|threshold|"] = min(
+            abs(float(r_cpu[0].abs()) - cfg.codec.l1),
+            abs(float(fp._abs_sum(r_cpu[1:])) - cfg.codec.l2))
+        ind = torch.stack([r_card[0].abs() > cfg.codec.l1,
+                           fp._abs_sum(r_card[1:]) > cfg.codec.l2])
+    margins["scalar ulps"] = min(_ulps(np.sort(((r_cpu[0] - cb) ** 2).numpy()))
+                                 for cb in (books.scl, books.scl_bl))
+    margins["vq ulps"] = min(_search_ulps(r_cpu[1:], b)
+                             for b in (books.vq, books.vq_bl))
+    same = torch.equal(ind, card["ind"][i, t])
+
+    def same_search(books, got):
+        _, idx = fp._quantize_residual(books, r_card[None], ind[:1], ind[1:])
+        return all(torch.equal(v[0].reshape(-1), got[k][i, t].cpu()
+                               .reshape(-1)) for k, v in idx.items())
+
+    same = same and same_search(books, card["enc"]["indices"])
+    if cpu["fec"] is not None:
+        margins["fec vq ulps"] = _search_ulps(r_cpu[1:],
+                                              _fec_books(books).vq)
+        same = same and same_search(_fec_books(books), card["fec"])
+    return gap <= KNIFE_ABS and same, margins
+
+
+def _pitch_knife(runs, i: int, f: int):
+    """Frame f's pitch code differs: its correlations must agree within
+    KNIFE_ABS between card and CPU, and the CPU's search on the card's
+    correlations must give the card's code -> (bool, the gap)."""
+    rows = [frontend.corr_table(run["wave"][i][None], run["t_pad"])[0, f]
+            .cpu() for run in (runs["cpu"], runs["card"])]
+    codes = [bs.quantize_pitch(frontend._pitch_from_corr_table(
+        row[None]).numpy()) for row in rows]
+    want = [bs.quantize_pitch(runs[n]["rows"][i][f:f + 1, 18:20])
+            for n in ("cpu", "card")]
+    if not np.array_equal(codes[0], want[0]):
+        raise RuntimeError("the replayed pitch search does not give the "
+                           "CPU's code")
+    gap = float((rows[0] - rows[1]).abs().max())
+    return gap <= KNIFE_ABS and np.array_equal(codes[1], want[1]), gap
+
+
+def encode_card_against_cpu(dev, work: str, overrides, tag: str):
+    """encode_paths on the card against encode_paths on the CPU, 2 x 20
+    frames: the same .fpsc bytes, or every differing symbol traced to a
+    knife edge of the CPU run (`_encoder_knife`, `_pitch_knife`): a pitch
+    code on its own, an encoder symbol as the first difference of its
+    utterance or after it, where the closed loop carries it."""
+    phase(f"encode_paths on the card against the CPU ({tag}), 2 x 20 "
+          "frames")
+    cfg = _config(overrides, "")
+    cb_path, *_ = _books(work, cfg, f"small_enc_{tag}",
+                         np.random.RandomState(2))
+    cfg = _config(overrides, cb_path)
+    wavs = _speech_wavs(work, f"small_{tag}", 2, 20, seed=11)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        artifacts, _ = _artifacts(cfg, d, False)
+        stream = os.path.join(work, f"small_enc_{tag}_{name}.fpsc")
+        enc, fec, rows = _encode(cfg, wavs, stream, artifacts, d)
+        with open(stream, "rb") as f:
+            runs[name] = dict(bytes=f.read(), enc=enc, fec=fec, rows=rows,
+                              artifacts=artifacts)
+    meta = container.read_fpsc(stream)["meta"]
+    print(f"stream: preset {meta['preset']}, geometry {meta['sizes']}, "
+          f"packets of {meta['packet_frames']} frames, fec {meta['fec']}, "
+          f"mask {meta['use_mask']}")
+    if runs["card"]["bytes"] == runs["cpu"]["bytes"]:
+        print(f"the same {len(runs['cpu']['bytes'])} bytes from the card and "
+              "the CPU: 0 knife-edge symbols")
+        return
+    scale = C.MAXI if cfg.data.normalize else 1.0
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        run = runs[name]
+        run["ind"] = torch.stack([run["enc"]["ind1"], run["enc"]["ind2"]],
+                                 -1).cpu()
+        # the frontend's input: the bucket's zero-padded waves,
+        # pre-emphasised
+        run["t_pad"] = frontend.PITCH_SLAB
+        wave = np.zeros((len(wavs), C.FRAME_SIZE * (run["t_pad"] + 1)),
+                        np.float32)
+        for j, w in enumerate(wavs):
+            x = cli.read_wav(w)
+            wave[j, :len(x)] = x
+        run["wave"] = emphasis.preemphasis_torch(torch.as_tensor(
+            wave, device=d))
+        if cfg.codec.use_mask:
+            feat = np.stack([np.concatenate([r[:, :18], bs.dequantize_pitch(
+                bs.quantize_pitch(r[:, 18:20]))], 1) for r in run["rows"]])
+            with torch.no_grad():
+                run["masks"] = fp.mask_forward(
+                    run["artifacts"][0], torch.as_tensor(feat / scale,
+                                                         device=d),
+                    cfg.codec.mask_scale).cpu()
+    knife = downstream = 0
+    for i in range(len(wavs)):
+        pitch = [bs.quantize_pitch(runs[n]["rows"][i][:, 18:20])
+                 for n in ("cpu", "card")]
+        bad = np.flatnonzero((pitch[0] != pitch[1]).any(1))
+        for f in bad:
+            ok, gap = _pitch_knife(runs, i, int(f))
+            print(f"utt{i} frame {f}: pitch codes {pitch[0][f]} (cpu) and "
+                  f"{pitch[1][f]} (card), correlations within {gap:.3g}")
+            if not ok:
+                raise RuntimeError(f"utt{i} frame {f}: a pitch code differs "
+                                   "with no knife edge")
+            knife += 1
+        syms = [_frame_symbols(runs[n], i) for n in ("cpu", "card")]
+        diff = np.flatnonzero((syms[0] != syms[1]).any(1))
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        n_diff = int((syms[0][t:] != syms[1][t:]).sum())
+        if len(bad) and bad[0] <= t:
+            print(f"utt{i}: {n_diff} encoder symbols differ from frame {t} "
+                  f"on, after the pitch's knife edge at frame {bad[0]}")
+            downstream += n_diff
+            continue
+        ok, margins = _encoder_knife(cfg, runs, i, t)
+        print(f"utt{i} frame {t}: the first differing encoder symbols, "
+              f"{n_diff} from there on; margins on the CPU {margins}")
+        if not ok:
+            raise RuntimeError(f"utt{i} frame {t}: encoder symbols differ "
+                               "with no knife edge")
+        knife += 1
+        downstream += n_diff - 1
+    print(f"card and CPU bytes differ: {knife} knife-edge symbols, "
+          f"{downstream} more carried by the closed loop after them")
 
 
 def _unpack_ms(coder, payloads, sizes, priors, orders, streams):
@@ -1335,6 +1765,15 @@ def main() -> int:
         card_against_cpu(dev, work, SLICE1, False, "slice1")
         card_against_cpu(dev, work, SMALL_LOSS, True, "fec_drops")
         card_against_cpu(dev, work, ULTRA, True, "ultra")
+        encode_path(dev, work, FLAGSHIP, N_UTT, UTT_FRAMES, "flagship", True,
+                    first_call=True)
+        encode_path(dev, work, ENC_FEC, N_UTT, UTT_FRAMES, "packet_loss",
+                    True, decodes=(None, PACKET_LOSS))
+        encode_path(dev, work, MASK, N_UTT, UTT_FRAMES, "mask", True)
+        encode_path(dev, work, BUNCH4, WIDE_UTT, WIDE_FRAMES, "wide", False)
+        for tag, overrides in (("threshold", FLAGSHIP), ("mask", MASK),
+                               ("fec", ENC_FEC), ("ultra", ULTRA)):
+            encode_card_against_cpu(dev, work, overrides, tag)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -1,27 +1,42 @@
-"""File codec CLI of the port: `.fpsc` bitstream file -> wav, on the card.
+"""File codec CLI of the port: wav -> `.fpsc` -> wav, on the card.
 
+    # encode: wav in, one .fpsc out
+    python -m fpsc_tpu_torch.codec.cli encode OUT.fpsc IN.wav [IN2.wav ...] \
+        train.transfer_model=<label> codec.codebook_path=cb.npz \
+        [codec.preset=lean] [codec.use_mask=true] [key=value ...] \
+        [--device=cpu]
+
+    # decode: .fpsc in, wavs out
     python -m fpsc_tpu_torch.codec.cli decode IN.fpsc OUT_DIR \
         train.transfer_model=<label> codec.codebook_path=cb.npz \
         train.vocoder_model=<label_s> [key=value ...] [--device=cpu]
 
-Port of fpsc_tpu/codec/cli.py:54-117, 256-415 (decode only): unpack
-the symbols -> closed-loop feature decode -> ceps2lpc -> frame-rate
-prologue -> the CUDA LPCNet sampler, bunch=1, 2 or 4 (lpcnet.bunch=2
-with for example lpcnet.gru_b_units=32; lpcnet.bunch=4 with
-lpcnet.gru_b_units=64), dense or with GRU_A's block-sparse product
-where the checkpoint's recurrent weights are block-sparse.  Utterances
-are bucketed by frame count and each bucket runs as one batch; a
-bucket of more than 128 utterances takes the sampler's cdf_matmul
-form, as the JAX decoder does.
+Port of fpsc_tpu/codec/cli.py.  Encode (`encode_paths`, cli.py:120-253):
+read the wavs (mono, 16 kHz, resampled otherwise) -> the batched
+analysis frontend (dsp/frontend.py) -> the closed-loop encoder with
+in-loop m-best VQ (codec/codec.py::encode), conditioned on the
+dequantised pitch, threshold or learned-mask path -> in-band FEC
+requantisation when asked (codec/plc.py::fec_requantize) -> the coders
+-> one container; it writes the bytes JAX's encoder writes.  Decode
+(`decode_file`, cli.py:256-415): unpack the symbols -> closed-loop
+feature decode -> ceps2lpc -> frame-rate prologue -> the CUDA LPCNet
+sampler, bunch=1, 2 or 4 (lpcnet.bunch=2 with for example
+lpcnet.gru_b_units=32; lpcnet.bunch=4 with lpcnet.gru_b_units=64),
+dense or with GRU_A's block-sparse product where the checkpoint's
+recurrent weights are block-sparse.  Both sides bucket utterances by
+frame count and run each bucket as one batch; a decode bucket of more
+than 128 utterances takes the sampler's cdf_matmul form, as the JAX
+decoder does.
 
-Every container the JAX CLI writes decodes: fixed-layout or range-coded
-(the default; the range decoder is the native C++ runtime of
-codec/native_rc.py, which g++ builds into build/host/ at first use, or
-the Python coder where it does not build); whole utterances or packets
-of `codec.packet_ms` (codec/range_coder.py's packet paths), with or
-without in-band FEC; and every rate preset of codec/rate_control.py
-(`codec.preset=lean` etc. reduces the codebooks before the geometry is
-checked against the container's).  On a packetized stream
+Every container the JAX CLI writes decodes, and the encoder writes each
+of them: fixed-layout or range-coded (the default; the range coder is
+the native C++ runtime of codec/native_rc.py, which g++ builds into
+build/host/ at first use; where it does not build, the decoder falls
+back to the Python coder and the encoder fails); whole utterances or
+packets of `codec.packet_ms` (codec/range_coder.py's packet paths), with
+or without in-band FEC (`codec.fec=true`); and every rate preset of
+codec/rate_control.py (`codec.preset=lean` etc. reduces the codebooks
+before the geometry is derived or checked).  On a packetized stream
 `codec.sim_drop=0.1 codec.sim_seed=0` simulates an iid channel that
 drops 10% of the packets (never the first): lost spans recover from
 the next packet's redundancy (FEC) or are concealed by the closed-loop
@@ -34,7 +49,8 @@ import os
 import sys
 import time
 import wave
-from typing import Callable, Dict, List, Optional
+from math import gcd
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,10 +58,12 @@ import torch
 from fpsc_tpu_torch.codec import bitstream as bs
 from fpsc_tpu_torch.codec import container, native_rc, plc, rate_control
 from fpsc_tpu_torch.codec import range_coder as rc
-from fpsc_tpu_torch.codec.codec import decode
+from fpsc_tpu_torch.codec.codec import decode, encode
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
+from fpsc_tpu_torch.dsp.frontend import extract_features_batch
+from fpsc_tpu_torch.eval.stoi import resample_poly
 from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
@@ -151,8 +169,9 @@ def save_wav(path: str, x: np.ndarray, sr: int = C.SAMPLE_RATE) -> None:
 
 
 class _Phases:
-    """Wall time per decode phase, the device synchronised at each
-    boundary; only when the caller passed a dict to fill."""
+    """Wall time per phase of an encode or a decode, the device
+    synchronised at each boundary; only when the caller passed a dict to
+    fill."""
 
     def __init__(self, out: Optional[Dict[str, float]], device):
         self.out, self.device = out, device
@@ -166,6 +185,141 @@ class _Phases:
         now = time.perf_counter()
         self.out[name] = self.out.get(name, 0.0) + (now - self.t)
         self.t = now
+
+
+def read_wav(path: str) -> np.ndarray:
+    """16 kHz mono float32 waveform: the channels' mean, int16 divided by
+    32768, other rates resampled (eval/stoi.py::resample_poly)."""
+    from scipy.io import wavfile
+    sr, x = wavfile.read(path)
+    if x.ndim > 1:
+        x = x.mean(axis=1)
+    if x.dtype == np.int16:
+        x = x.astype(np.float32) / 32768.0
+    x = np.asarray(x, np.float32)
+    if sr != C.SAMPLE_RATE:
+        g = gcd(C.SAMPLE_RATE, int(sr))
+        x = resample_poly(x, C.SAMPLE_RATE // g,
+                          int(sr) // g).astype(np.float32)
+    return x
+
+
+def _stem(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+@torch.no_grad()
+def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
+                 artifacts=None, device=None,
+                 timings: Optional[Dict[str, float]] = None) -> dict:
+    """Encode wav files into one .fpsc container at out_path -> {rates
+    (b/s per utterance), bytes (the container's), sizes}.  `artifacts`
+    is what load_artifacts(cfg) returns.  Utterances are bucketed by
+    frame count and each bucket is encoded as one batch; the closed loop
+    is conditioned on the dequantised pitch, what the decoder
+    reconstructs, so that the two loops track bit for bit.  Runs on the
+    card unless device="cpu"; `timings`, when given, collects the wall
+    seconds of the read, analysis, encode, fec, pack and write phases.
+    """
+    dev = resolve_device(device)
+    phases = _Phases(timings, dev)
+    if artifacts is None:
+        artifacts = load_artifacts(cfg, device=dev)
+    predictor, codebooks, sizes, priors, orders, _ = artifacts
+    scale = C.MAXI if cfg.data.normalize else 1.0
+
+    names = [_stem(p) for p in wav_paths]
+    if len(set(names)) != len(names):
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        raise ValueError(
+            "duplicate wav basenames would silently collide in the "
+            f"container: {dupes} — rename the inputs")
+    waves = [read_wav(p) for p in wav_paths]
+    phases.mark("read")
+    all_rows = extract_features_batch(waves, device=dev)
+    phases.mark("analysis")
+    feats, buckets = {}, {}
+    for path, name, rows in zip(wav_paths, names, all_rows):
+        if rows.shape[0] == 0:
+            raise ValueError(f"{path}: too short to code (<2 frames)")
+        pitch_dq = bs.dequantize_pitch(bs.quantize_pitch(rows[:, 18:20]))
+        feats[name] = np.concatenate([rows[:, :18], pitch_dq], axis=1)
+        buckets.setdefault(rows.shape[0], []).append(name)
+
+    packet_frames = cfg.codec.packet_ms // 10
+    if cfg.codec.packet_ms and not cfg.codec.entropy_coding:
+        raise ValueError("codec.packet_ms requires entropy_coding")
+    if cfg.codec.fec and not packet_frames:
+        raise ValueError("codec.fec requires codec.packet_ms > 0")
+    fec_books = fec_sizes = None
+    if cfg.codec.fec:
+        fec_books = rate_control.preset_codebooks(
+            codebooks, **rate_control.PRESETS["lean"])
+        fec_sizes = codebook_sizes(fec_books)
+
+    coded = {}
+    for names_b in buckets.values():
+        feat = torch.as_tensor(np.stack([feats[n] for n in names_b]) / scale,
+                               device=dev)
+        enc = encode(predictor, codebooks, feat, l1=cfg.codec.l1,
+                     l2=cfg.codec.l2, use_mask=cfg.codec.use_mask,
+                     scale=cfg.codec.mask_scale)
+        phases.mark("encode")
+        fidx = (plc.fec_requantize(fec_books, enc["r"], enc["ind1"],
+                                   enc["ind2"]) if cfg.codec.fec else None)
+        phases.mark("fec")
+
+        def host(d):
+            return None if d is None else {k: v.cpu().numpy()
+                                           for k, v in d.items()}
+
+        ind1, ind2 = enc["ind1"].cpu().numpy(), enc["ind2"].cpu().numpy()
+        idx, fidx = host(enc["indices"]), host(fidx)
+        for i, name in enumerate(names_b):
+            coded[name] = (ind1[i], ind2[i], {k: v[i] for k, v in idx.items()},
+                           None if fidx is None else
+                           {k: v[i] for k, v in fidx.items()})
+
+    if cfg.codec.entropy_coding:
+        native_rc.load()              # the native coder, or fail
+    utts, rates = [], {}
+    for name in names:                # the command line's order
+        ind1, ind2, idx, fidx = coded[name]
+        pitch_raw = feats[name][:, 18:20]
+        if cfg.codec.fec:
+            payload = rc.pack_packets_fec(
+                ind1, ind2, idx, bs.quantize_pitch(pitch_raw), sizes, fidx,
+                fec_sizes, packet_frames=packet_frames, priors=priors,
+                orders=orders)
+            nbytes = sum(len(p) for p in payload)
+        elif packet_frames:
+            payload = rc.pack_packets(
+                ind1, ind2, idx, bs.quantize_pitch(pitch_raw), sizes,
+                packet_frames=packet_frames, priors=priors, orders=orders)
+            nbytes = sum(len(p) for p in payload)
+        elif cfg.codec.entropy_coding:
+            payload = native_rc.pack_utterance_rc(
+                ind1, ind2, idx, bs.quantize_pitch(pitch_raw), sizes,
+                priors=priors, orders=orders)
+            nbytes = len(payload)
+        else:
+            payload = bs.pack_utterance(ind1, ind2, idx, pitch_raw, sizes)
+            nbytes = len(payload)
+        utts.append((name, payload))
+        rates[name] = bs.bitrate_bps(nbytes, feats[name].shape[0])
+    phases.mark("pack")
+    total = container.write_fpsc(
+        out_path, utts, sizes, entropy=cfg.codec.entropy_coding,
+        use_mask=cfg.codec.use_mask, l1=cfg.codec.l1, l2=cfg.codec.l2,
+        mask_scale=cfg.codec.mask_scale, preset=cfg.codec.preset,
+        sample_rate=C.SAMPLE_RATE, packet_frames=packet_frames,
+        fec=cfg.codec.fec,
+        frame_counts={n: f.shape[0] for n, f in feats.items()})
+    phases.mark("write")
+    for name, bps in rates.items():
+        print(f"{name}: {bps:.0f} b/s")
+    print(f"wrote {out_path}: {len(utts)} utterance(s), {total} bytes")
+    return {"rates": rates, "bytes": total, "sizes": sizes}
 
 
 @torch.no_grad()
@@ -258,7 +412,9 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
                 np.stack([f(unpacked[n][0]) for n in names]), device=dev)
 
         g0 = unpacked[names[0]][0]
-        pitch = stack(lambda g: g["pitch"]) / scale
+        # normalised on the host, as the encoder's conditioning is: a
+        # division on the card may round otherwise
+        pitch = stack(lambda g: g["pitch"] / scale)
         if pf and fec:
             merged = [plc.fec_merge_residual(codebooks, fec_books,
                                              unpacked[n][0]) for n in names]
@@ -322,20 +478,27 @@ def _synthesize(vocoder, coded, periods, lpc, corr, u,
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "decode":
+    if not argv or argv[0] not in ("encode", "decode"):
         print(__doc__)
         return 2
-    rest = argv[1:]
+    cmd, rest = argv[0], argv[1:]
     device = None
     for a in [a for a in rest if a.startswith("--device=")]:
         device = a.split("=", 1)[1]
         rest.remove(a)
     paths = [a for a in rest if "=" not in a]
-    if len(paths) != 2:
-        print("decode IN.fpsc OUT_DIR [key=value] [--device=cpu]")
-        return 2
     cfg = apply_overrides(Config(), [a for a in rest if "=" in a])
-    decode_file(cfg, paths[0], paths[1], device=device)
+    if cmd == "encode":
+        if len(paths) < 2:
+            print("encode OUT.fpsc IN.wav [IN2.wav ...] [key=value] "
+                  "[--device=cpu]")
+            return 2
+        encode_paths(cfg, paths[1:], paths[0], device=device)
+    else:
+        if len(paths) != 2:
+            print("decode IN.fpsc OUT_DIR [key=value] [--device=cpu]")
+            return 2
+        decode_file(cfg, paths[0], paths[1], device=device)
     return 0
 
 

@@ -1,8 +1,10 @@
-"""Utterance-level decode: transmitted indices -> coded feature frames.
+"""Utterance-level codec: features -> index streams -> coded frames.
 
-Port of fpsc_tpu/codec/codec.py:70-105 (the reference's dec_features
-path, src/generate_qtz_features.py:49-91).  The encode half waits for
-the encode slice.
+Port of fpsc_tpu/codec/codec.py:37-105 (the reference's enc_features /
+dec_features path, src/generate_qtz_features.py:49-91): `encode` runs
+the closed-loop predictor with in-loop scalar and m-best VQ
+quantisation, on the threshold or the learned-mask path; `decode`
+rebuilds the same coded frames from the transmitted symbols alone.
 """
 from __future__ import annotations
 
@@ -13,6 +15,34 @@ import torch
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.quant.scalar import scl_dequantize
 from fpsc_tpu_torch.quant.vq import vq_dequantize
+
+
+def encode(model: fp.FramePredictor, codebooks: fp.Codebooks,
+           feat: torch.Tensor, l1: float = 0.09, l2: float = 0.28,
+           use_mask: bool = False, scale: float = 1000.0,
+           pitch_lag: int = 0, send=None) -> Dict:
+    """feat: (B, L, 20) normalised [ceps | pitch] frames -> coded
+    (B, L, 20) normalised coded frames, r_qtz (B, L, 18) the quantised
+    residual, r the raw one, ind1 / ind2 (B, L) bool, indices (the index
+    streams, -1 = unused) and counts (per-codebook usage).  `send`
+    (threshold path only): the frame-decimation pattern of
+    frame_predictor.encoder."""
+    if use_mask:
+        if send is not None:
+            raise ValueError("decimation rides the threshold path")
+        out = fp.mask_enc(model, feat, scale=scale, codebooks=codebooks,
+                          qtz=True, pitch_lag=pitch_lag)
+        ind1 = out["scl_mask"][..., 0] > 0.5
+        ind2 = out["vct_mask"][..., 0] > 0.5
+        r_qtz, r = out["r"], out["r_orig"]   # mask_enc's key layout
+    else:
+        out = fp.encoder(model, feat, l1=l1, l2=l2, codebooks=codebooks,
+                         qtz=True, pitch_lag=pitch_lag, send=send)
+        ind1, ind2 = out["ind1"], out["ind2"]
+        r_qtz, r = out["r_qtz"], out["r"]
+    return {"coded": out["c_in"], "r_qtz": r_qtz, "r": r, "ind1": ind1,
+            "ind2": ind2, "indices": out["indices"],
+            "counts": fp.usage_counts(codebooks, out["indices"])}
 
 
 def dequantize_residual(codebooks: fp.Codebooks, ind1: torch.Tensor,

@@ -1,8 +1,8 @@
 """Packet-loss concealment for the closed-loop feature codec, decode side.
 
-Port of fpsc_tpu/codec/plc.py:69-152 (`conceal_decode`,
-`conceal_decode_residual`), 176-204 (`fec_merge_residual`) and 256-288
-(the numpy loss masks).  The decoder is the encoder's closed-loop
+Port of fpsc_tpu/codec/plc.py:69-204 (`conceal_decode`,
+`conceal_decode_residual`, the sender's `fec_requantize` and the
+receiver's `fec_merge_residual`) and 256-288 (the numpy loss masks).  The decoder is the encoder's closed-loop
 predictor, so a lost frame lets the predictor free-run (residual 0)
 with the pitch held, and the GRU state keeps flowing; received
 residuals then pull the loop back.  Policy, as in the JAX module:
@@ -18,8 +18,8 @@ residuals then pull the loop back.  Policy, as in the JAX module:
 The JAX `lax.scan` is a Python loop over frames here, batched over
 utterances, as models/frame_predictor.py::decoder is; it holds no
 kernel.  With `lost` all False it computes frame_predictor.decoder's
-frames exactly.  Not ported yet: `fec_requantize` (it runs the
-encoder's VQ search) and `AdaptiveFecPolicy` (the sender's controller).
+frames exactly.  Not ported yet: `AdaptiveFecPolicy` (the sender's
+controller, which streaming serving brings).
 """
 from __future__ import annotations
 
@@ -92,6 +92,30 @@ def conceal_decode_residual(model: fp.FramePredictor, r: torch.Tensor,
         prev, prev_pitch = frame, pit
         frames.append(torch.cat([frame, pit], -1))
     return torch.stack(frames, 1)
+
+
+# Rows of one fec_requantize search: its (rows, E, 17) float64 squared
+# differences stay under 0.6 GB at a 1024-entry book.  Each row is its
+# own search, so the chunking changes no index.
+FEC_ROWS = 4096
+
+
+@torch.no_grad()
+def fec_requantize(fec_codebooks: fp.Codebooks, r: torch.Tensor,
+                   ind1: torch.Tensor, ind2: torch.Tensor) -> Dict:
+    """The in-band redundancy of the primary encoder's residual stream:
+    encode()['r'] (B, L, 18) requantised with the lean preset's books
+    under the same indicators, frame by frame with no state -> the
+    lean-layout index dict (B, L, ...)."""
+    b, length, d = r.shape
+    r, ind1, ind2 = (r.reshape(b * length, d), ind1.reshape(-1),
+                     ind2.reshape(-1))
+    parts = [fp._quantize_residual(fec_codebooks, r[s:s + FEC_ROWS],
+                                   ind1[s:s + FEC_ROWS],
+                                   ind2[s:s + FEC_ROWS])[1]
+             for s in range(0, b * length, FEC_ROWS)]
+    return {k: torch.cat([p[k] for p in parts]).reshape(
+        (b, length) + parts[0][k].shape[1:]) for k in parts[0]}
 
 
 def fec_merge_residual(codebooks: fp.Codebooks,

@@ -1,22 +1,29 @@
-"""Frame-rate feature predictor, decode half.
+"""Frame-rate feature predictor: the closed-loop encoder and decoder.
 
-Port of fpsc_tpu/models/frame_predictor.py:51-111, 207-224, 389-417:
-GRU(20->G1) -> GRU(G1->G2) -> ReLU -> 2*tanh(Linear(G2->18)), run as a
-closed loop over frames.  The loop is a plain Python loop over frames,
-batched over utterances; it holds no kernel.  The encoder and the
-learned-mask passes belong to the encode slice; their parameters
-(`mask_*`) are still carried so that checkpoints map one to one.
+Port of fpsc_tpu/models/frame_predictor.py:51-417 but `forward` (the
+training pass): GRU(20->G1) -> GRU(G1->G2) -> ReLU ->
+2*tanh(Linear(G2->18)), run as a closed loop over frames; the
+threshold-split `encoder` with in-loop scalar and m-best VQ
+quantisation, the learned-mask `mask_forward` / `mask_enc`, and the
+`decoder`.  Each loop is a plain Python loop over frames, batched over
+utterances, with no host synchronisation inside it (no `.item()`, no
+branch on a tensor's value: the `send`, `mask` and `qtz` branches are
+fixed before the loop); it holds no kernel.  The encode passes run
+their products under `no_tf32`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from fpsc_tpu_torch.models.common import Dense
-from fpsc_tpu_torch.models.gru import GRU, gru_step
+from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_step
+from fpsc_tpu_torch.quant.vq import mbest_search
+from fpsc_tpu_torch.utils.device import no_tf32
 
 NB_CEPS = 18
 
@@ -72,6 +79,100 @@ def step(model: FramePredictor, h1: torch.Tensor, h2: torch.Tensor,
     return _head(model, h2), h1, h2
 
 
+def mask_forward(model: FramePredictor, feat: torch.Tensor,
+                 scale) -> torch.Tensor:
+    """Learned keep-masks (B, L, 2) in (0, 1): the bidirectional mask
+    GRU -> Linear(2 * units -> 2) -> tanh -> sigmoid(mask * scale)."""
+    y = bigru_scan(model.mask_fwd, model.mask_bwd, feat)
+    return torch.sigmoid(torch.tanh(model.mask_fc(y)) * scale)
+
+
+# --------------------------------------------------------------------------
+# In-loop quantisation
+# --------------------------------------------------------------------------
+
+def _scl_nearest(codes: torch.Tensor, x: torch.Tensor):
+    """x: (B,) -> (quantised (B,), index (B,)); ties to the lowest
+    index."""
+    idx = torch.argmin(torch.square(x[:, None] - codes[None, :]), dim=1)
+    return codes[idx], idx
+
+
+def _quantize_residual(cbs: Codebooks, r_s: torch.Tensor,
+                       ind1: torch.Tensor, ind2: torch.Tensor):
+    """One frame's residuals (B, 18) under the above / below split by
+    ind1 (c0) and ind2 (c1..c17), (B,) bool -> (r_qtz (B, 18), index
+    dict with -1 where a book was not used; vq_bl is (B, 1) of -1 when
+    there are no below-threshold books)."""
+    b = r_s.shape[0]
+    none = torch.full((b,), -1, dtype=torch.long, device=r_s.device)
+    q_above, i_above = _scl_nearest(cbs.scl, r_s[:, 0])
+    if cbs.scl_bl is not None:
+        q_bl, i_bl = _scl_nearest(cbs.scl_bl, r_s[:, 0])
+        r0 = torch.where(ind1, q_above, q_bl)
+        i_scl_bl = torch.where(ind1, -1, i_bl)
+    else:
+        r0 = torch.where(ind1, q_above, 0.0)
+        i_scl_bl = none
+    i_scl = torch.where(ind1, i_above, -1)
+
+    qv_above, iv_above = mbest_search(r_s[:, 1:], cbs.vq)
+    if cbs.vq_bl is not None:
+        qv_bl, iv_bl = mbest_search(r_s[:, 1:], cbs.vq_bl)
+        rv = torch.where(ind2[:, None], qv_above, qv_bl)
+        i_vq_bl = torch.where(ind2[:, None], -1, iv_bl)
+    else:
+        rv = torch.where(ind2[:, None], qv_above, 0.0)
+        i_vq_bl = none[:, None]
+    i_vq = torch.where(ind2[:, None], iv_above, -1)
+    r_qtz = torch.cat([r0[:, None], rv], dim=1)
+    return r_qtz, {"scl": i_scl, "scl_bl": i_scl_bl, "vq": i_vq,
+                   "vq_bl": i_vq_bl}
+
+
+def usage_counts(cbs: Codebooks, indices: Dict) -> List[torch.Tensor]:
+    """Per-codebook usage histograms (int32) of the encoder's index
+    streams; entries of -1 (book not used) are not counted."""
+    def hist(idx, size):
+        idx = idx.reshape(-1)
+        valid = idx >= 0
+        return torch.zeros(size, dtype=torch.int32,
+                           device=idx.device).index_add_(
+            0, torch.where(valid, idx, 0), valid.to(torch.int32))
+
+    out = [hist(indices["scl"], cbs.scl.shape[0])]
+    if cbs.scl_bl is not None:
+        out.append(hist(indices["scl_bl"], cbs.scl_bl.shape[0]))
+    for s, cb in enumerate(cbs.vq):
+        out.append(hist(indices["vq"][..., s], cb.shape[0]))
+    if cbs.vq_bl is not None:
+        for s, cb in enumerate(cbs.vq_bl):
+            out.append(hist(indices["vq_bl"][..., s], cb.shape[0]))
+    return out
+
+
+def _abs_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(|x|, -1) in index order, one f32 rounding a term, as XLA's CPU
+    reduction sums it."""
+    a = torch.abs(x)
+    acc = a[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k]
+    return acc
+
+
+def _stack_outputs(frames: List[Dict]) -> Dict:
+    """Per-frame output dicts -> one dict of (B, L, ...) tensors."""
+    out = {}
+    for key, first in frames[0].items():
+        if isinstance(first, dict):
+            out[key] = {k: torch.stack([f[key][k] for f in frames], dim=1)
+                        for k in first}
+        else:
+            out[key] = torch.stack([f[key] for f in frames], dim=1)
+    return out
+
+
 def _lag_pitch(pitch: torch.Tensor, pitch_lag: int) -> torch.Tensor:
     """Shift the pitch conditioning track right by pitch_lag frames
     (zeros enter at t=0); pitch_lag=1 is the reference-checkpoint
@@ -99,3 +200,126 @@ def decoder(model: FramePredictor, pitch: torch.Tensor, r: torch.Tensor,
         prev = f_out + r[:, t]
         coded.append(prev)
     return torch.cat([torch.stack(coded, dim=1), pitch], dim=-1)
+
+
+@torch.no_grad()
+def encoder(model: FramePredictor, feat: torch.Tensor, l1: float, l2: float,
+            codebooks: Optional[Codebooks] = None,
+            mask: Optional[torch.Tensor] = None, qtz: bool = True,
+            pitch_lag: int = 0, send=None) -> Dict:
+    """Closed-loop threshold-split encode.
+
+    feat: (B, L, 20) normalised [ceps(18) | pitch(2)] frames.
+    mask: optional (B, L, 2) indicators overriding the thresholds.
+    pitch_lag: 1 = the reference-checkpoint pitch convention.
+    send: optional (L,) or (B, L) bool frame-decimation pattern; on a
+    frame not sent nothing is coded (indices -1, indicators False), the
+    pitch conditioning is held and the prediction fed back.
+
+    Returns c_in (B, L, 20) coded frames (pitch passed through), r
+    (B, L, 18) raw residual (qtz) or indicator-masked one (not qtz),
+    r_qtz (quantised; zeros when not qtz), r_under (below-threshold
+    residual when not qtz), ind1 / ind2 (B, L) bool, and with qtz the
+    index streams (B, L) / (B, L, stages).
+    """
+    if send is not None and not qtz:
+        raise ValueError("decimation needs the quantised path")
+    b, length, _ = feat.shape
+    ceps, pitch = feat[..., :NB_CEPS], feat[..., NB_CEPS:]
+    pit_in = _lag_pitch(pitch, pitch_lag)
+    h1 = feat.new_zeros((b, model.rnn1.units))
+    h2 = feat.new_zeros((b, model.rnn2.units))
+    prev = feat.new_zeros((b, NB_CEPS))
+    if send is not None:
+        snd = torch.as_tensor(np.asarray(send, bool), device=feat.device
+                              ).broadcast_to((b, length))
+        prev_pitch = feat.new_zeros((b, pitch.shape[-1]))
+    frames = []
+    with no_tf32():
+        for t in range(length):
+            pit = pit_in[:, t]
+            if send is not None:
+                pit = torch.where(snd[:, t, None], pit, prev_pitch)
+                prev_pitch = pit
+            f_out, h1, h2 = step(model, h1, h2, torch.cat([prev, pit], -1))
+            r_s = ceps[:, t] - f_out
+            if mask is None:
+                ind1 = torch.abs(r_s[:, 0]) > l1
+                ind2 = _abs_sum(r_s[:, 1:]) > l2
+            else:
+                ind1 = mask[:, t, 0] > 0.5
+                ind2 = mask[:, t, 1] > 0.5
+            if send is not None:
+                ind1 = ind1 & snd[:, t]
+                ind2 = ind2 & snd[:, t]
+            if qtz:
+                r_qtz, indices = _quantize_residual(codebooks, r_s, ind1,
+                                                    ind2)
+                if send is not None:
+                    s_t = snd[:, t]
+                    r_qtz = r_qtz * s_t[:, None].to(r_qtz.dtype)
+                    indices = {k: torch.where(
+                        s_t[:, None] if v.ndim == 2 else s_t, v, -1)
+                        for k, v in indices.items()}
+                prev = f_out + r_qtz
+                frames.append({"c_in": prev, "r": r_s, "r_qtz": r_qtz,
+                               "r_under": torch.zeros_like(r_s),
+                               "ind1": ind1, "ind2": ind2,
+                               "indices": indices})
+            else:
+                keep = torch.cat([ind1[:, None], ind2[:, None].expand(
+                    -1, NB_CEPS - 1)], dim=1).to(r_s.dtype)
+                r_keep = r_s * keep
+                prev = f_out + r_keep
+                frames.append({"c_in": prev, "r": r_keep,
+                               "r_qtz": torch.zeros_like(r_s),
+                               "r_under": r_s * (1.0 - keep),
+                               "ind1": ind1, "ind2": ind2})
+    out = _stack_outputs(frames)
+    out["c_in"] = torch.cat([out["c_in"], pitch], dim=-1)
+    return out
+
+
+@torch.no_grad()
+def mask_enc(model: FramePredictor, feat: torch.Tensor, scale=1.0,
+             codebooks: Optional[Codebooks] = None, qtz: bool = False,
+             pitch_lag: int = 0) -> Dict:
+    """Learned-mask closed-loop pass.  qtz=False: residuals soft-kept by
+    the sigmoid masks; qtz=True: the masks harden to indicators (> 0.5)
+    and the kept residuals are quantised in the loop.
+
+    Returns c_in, r_orig (the raw residual), r (kept / quantised), r_bl,
+    scl_mask and vct_mask (B, L, 1), and with qtz the index streams.
+    """
+    b, length, _ = feat.shape
+    ceps, pitch = feat[..., :NB_CEPS], feat[..., NB_CEPS:]
+    pit_in = _lag_pitch(pitch, pitch_lag)
+    h1 = feat.new_zeros((b, model.rnn1.units))
+    h2 = feat.new_zeros((b, model.rnn2.units))
+    prev = feat.new_zeros((b, NB_CEPS))
+    frames = []
+    with no_tf32():
+        masks = mask_forward(model, feat, scale)               # (B, L, 2)
+        for t in range(length):
+            f_out, h1, h2 = step(model, h1, h2,
+                                 torch.cat([prev, pit_in[:, t]], -1))
+            r_s = ceps[:, t] - f_out
+            scl_m, vct_m = masks[:, t, 0:1], masks[:, t, 1:2]
+            out = {"r_orig": r_s}
+            if qtz:
+                r_mask, out["indices"] = _quantize_residual(
+                    codebooks, r_s, scl_m[:, 0] > 0.5, vct_m[:, 0] > 0.5)
+                out["r_bl"] = torch.zeros_like(r_s)
+            else:
+                r_mask = torch.cat([r_s[:, 0:1] * scl_m,
+                                    r_s[:, 1:] * vct_m], dim=1)
+                out["r_bl"] = torch.cat([r_s[:, 0:1] * (1 - scl_m),
+                                         r_s[:, 1:] * (1 - vct_m)], dim=1)
+            prev = f_out + r_mask
+            out["c_in"], out["r"] = prev, r_mask
+            frames.append(out)
+    out = _stack_outputs(frames)
+    out["c_in"] = torch.cat([out["c_in"], pitch], dim=-1)
+    out["scl_mask"] = masks[..., 0:1]
+    out["vct_mask"] = masks[..., 1:2]
+    return out

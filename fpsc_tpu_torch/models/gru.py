@@ -1,6 +1,6 @@
 """GRU cell with explicit parameters in the torch `[r|z|n]` layout.
 
-Port of fpsc_tpu/models/gru.py:53-70 (the gate math of the reference's
+Port of fpsc_tpu/models/gru.py:53-104 (the gate math of the reference's
 nn.GRU, reference src/models/wavernn.py:37-38):
 
     r = sigmoid(x Wir^T + bir + h Whr^T + bhr)
@@ -11,6 +11,7 @@ nn.GRU, reference src/models/wavernn.py:37-38):
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -57,3 +58,27 @@ def _gates(pre_x: torch.Tensor, h: torch.Tensor, wh: torch.Tensor,
 def gru_step(gru: GRU, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """One step. x: (B, I), h: (B, H) -> new h (B, H)."""
     return _gates(x @ gru.wi.T + gru.bi, h, gru.wh, gru.bh)
+
+
+def gru_scan(gru: GRU, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
+             reverse: bool = False):
+    """Full sequence. xs: (B, L, I) -> (ys (B, L, H), last state (B, H)).
+    The input projection is one product before the loop over frames,
+    which carries only the recurrent term; reverse=True runs the frames
+    last to first (ys stays in frame order)."""
+    b, length, _ = xs.shape
+    h = xs.new_zeros((b, gru.units)) if h0 is None else h0
+    pre = xs @ gru.wi.T + gru.bi
+    ys = [None] * length
+    for t in (reversed(range(length)) if reverse else range(length)):
+        h = _gates(pre[:, t], h, gru.wh, gru.bh)
+        ys[t] = h
+    return torch.stack(ys, dim=1), h
+
+
+def bigru_scan(fwd: GRU, bwd: GRU, xs: torch.Tensor) -> torch.Tensor:
+    """Bidirectional GRU: the forward and backward features side by
+    side, (B, L, 2H)."""
+    yf, _ = gru_scan(fwd, xs)
+    yb, _ = gru_scan(bwd, xs, reverse=True)
+    return torch.cat([yf, yb], dim=-1)

@@ -1,5 +1,6 @@
 """The LPCNet sampler's wrapper, the replay check, and the kernel against
-the plain version; the probe kernels against their plain versions.
+the plain version; the probe kernels against their plain versions; the
+encoder's f32 arithmetic on the card with TF32 turned on.
 
 This file imports no JAX, so that it runs on a CUDA host without it:
 
@@ -666,3 +667,54 @@ def test_probe_wrappers_refuse_an_operand_on_the_cpu(cuda_device, name):
             wrong = (*ops[:i], x.cpu(), *ops[i + 1:])
             with pytest.raises(ValueError, match="is on"):
                 probe.run(arm, *wrong)
+
+
+def _chip_smoke():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def _encode_on(device, work, overrides, tag, tf32: bool):
+    """chip_smoke's speech-like wavs encoded by encode_paths at full
+    width, with TF32 on or off for matmuls and cuDNN -> (pitch codes,
+    indicators and index streams, the settings after)."""
+    from fpsc_tpu_torch.codec import bitstream
+    cs = _chip_smoke()
+    cfg = cs._config(overrides, "")
+    cb_path, *_ = cs._books(str(work), cfg, tag, np.random.RandomState(2))
+    cfg = cs._config(overrides, cb_path)
+    artifacts, _ = cs._artifacts(cfg, device, False)
+    wavs = cs._speech_wavs(str(work), tag, 2, 50, seed=5)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    enc, _, rows = cs._encode(cfg, wavs, os.path.join(work, f"{tag}.fpsc"),
+                              artifacts, device)
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    streams = {k: enc[k].cpu().numpy() for k in ("ind1", "ind2")}
+    streams.update({k: v.cpu().numpy() for k, v in enc["indices"].items()})
+    return ([bitstream.quantize_pitch(r[:, 18:20]) for r in rows], streams,
+            after)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [False, True])
+def test_encode_with_tf32_on_computes_f32(cuda_device, tmp_path, mask):
+    """encode_paths with TF32 turned on for matmuls and cuDNN (PyTorch's
+    default leaves it on for cuDNN only) gives the pitch codes, indicators
+    and index streams of a run with it off: the frontend's band and
+    correlation products and the encoder's GRU products run under
+    no_tf32, and the caller's settings stand after."""
+    cs = _chip_smoke()
+    overrides = cs.MASK if mask else cs.FLAGSHIP
+    on = _encode_on(cuda_device, tmp_path, overrides, "on", True)
+    off = _encode_on(cuda_device, tmp_path, overrides, "off", False)
+    assert on[2] == (True, True) and off[2] == (False, False)
+    for a, b in zip(on[0], off[0]):
+        np.testing.assert_array_equal(a, b)
+    for k in off[1]:
+        np.testing.assert_array_equal(on[1][k], off[1][k], err_msg=k)

@@ -430,6 +430,20 @@ def test_cli_main_decodes_on_cpu(tmp_path):
     assert tcli.main(["encode", path]) == 2
 
 
+def test_cli_main_encodes_on_cpu(tmp_path):
+    """The encode drive: a wav in, a .fpsc out that JAX's decode_file
+    reads, at the JAX CLI's default range-coded layout."""
+    cfg_args = TINY + [f"codec.codebook_path={_write_artifacts(tmp_path)}"]
+    wav = _write_wav(tmp_path, "x", seconds=0.2, seed=5)
+    path = str(tmp_path / "x.fpsc")
+    assert tcli.main(["encode", path, wav, *cfg_args, "--device=cpu"]) == 0
+    assert tcontainer.read_fpsc(path)["meta"]["entropy"]
+    got = jcli.decode_file(japply(JConfig(), cfg_args), path,
+                           str(tmp_path / "wav"), use_pallas=False)
+    assert [r["name"] for r in got] == ["x"]
+    assert got[0]["wav"].shape == (19 * C.FRAME_SIZE,)
+
+
 @pytest.mark.parametrize("container_kw,cfg_extra,match", [
     # bunch=3 is no vocoder; the refusal names those that run, up to
     # bunch=4
