@@ -137,7 +137,52 @@ exit and no result line:
    CPU's scalar or VQ search, or from a residual within 1e-5 of the
    CPU's that the CPU's search takes to the card's symbols; the symbols
    after it carried by the closed loop); the count of knife-edge symbols
-   is printed.
+   is printed;
+14. streaming serving (fpsc_tpu_torch/codec/streaming.py, each tick a
+   replayed CUDA graph) at full width (`_stream_models`: predictor
+   384/128 with its head scaled by HEAD_SCALE, the reference books with
+   seeded priors and their lean preset for FEC, the plain bunch=1
+   LPCNet): the transmitter, the receiver with FEC books and the duplex
+   codec from PCM, batch 8 for 50 ticks of `_speech`, captured against
+   the same classes run eagerly on the card (graph=False), the same
+   uniforms: the symbols equal exactly, the audio bit for bit (or, the
+   first differing tick and the largest difference printed, the
+   trajectory contract with B - 1 items flip-free);
+15. the duplex codec from PCM on the card against the CPU, 2 x 20
+   frames: on each side the codec's symbols are its frontend's and
+   encoder's steps' run eagerly, exactly; the card's symbols the CPU's
+   but for counted knife edges (`_compare_streams`: a pitch lag whose
+   correlations agree within KNIFE_ABS and whose search on the other
+   side's correlations gives the other's lag, or encoder symbols whose
+   raw residuals agree within KNIFE_ABS and which the CPU's decisions on
+   the card's residual give; the symbols after one carried by the closed
+   loop), the cepstra within 1e-4;
+16. the transmitter against the batch encoder on the card: 8 x 2 s wavs
+   (N_UTT x UTT_FRAMES), frame k-1's symbols at tick k against
+   codec.encode of extract_features_batch's features behind the
+   frontend's warmup row (the first frame the transmitter's closed loop
+   sees), knife edges counted as in 15;
+17. the entropy layer: those symbols, tick by tick, through the native
+   encoder bank and then the decoder bank (the decoded rows the sent
+   rows; each stream's bytes the Python StreamingRangeEncoder's and the
+   offline pack_utterance_rc body); then 50 ms packets with FEC (the
+   lean requantisation of the transmitter's residuals) through a channel
+   dropping 10% of the packets (RandomState(0)), a FecPacketReceiver a
+   stream and StreamingReceiver(fec_codebooks=...): recovered frames
+   flagged from_fec, frames of two dropped packets in a row lost and
+   concealed, every received and recovered row the sent one, the audio
+   finite and below PEAK_LIMIT;
+18. timing, a JSON line each, with the card's name and power limit: the
+   per-tick wall (host clock; a tick ends with its one readback) p50 and
+   p99 over 200 ticks at batch 1, 8, 128 and 512 of the duplex codec
+   from PCM and the transmitter (each with the encoder bank's push) and
+   the receiver (with the decoder bank's tick), stream-frames per 10 ms,
+   the capture time; the eager tick beside the graph at batch 1 and 8;
+   the eager tick's kernels and launch calls counted once by
+   torch.profiler at batch 8 (also the encoder's alone: the closed loop
+   of the encode path a frame); the time to first audio at batch 1 (a
+   captured codec after reset(), its first two blocks) beside the 10 ms
+   algorithmic lookahead.
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -167,8 +212,10 @@ import numpy as np
 import torch
 
 from fpsc_tpu_torch.codec import bitstream as bs
-from fpsc_tpu_torch.codec import cli, container, native_rc, rate_control
+from fpsc_tpu_torch.codec import cli, container, native_rc, plc, rate_control
+from fpsc_tpu_torch.codec import codec as codec_mod
 from fpsc_tpu_torch.codec import range_coder as rc
+from fpsc_tpu_torch.codec import streaming
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp import emphasis, frontend
@@ -180,6 +227,7 @@ from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
 from fpsc_tpu_torch.quant import vq
+from fpsc_tpu_torch.utils.device import no_tf32
 
 N_UTT, UTT_FRAMES = 8, 200
 # slice 1's path, cut in depth (200 frames in its own slice) to keep the
@@ -1728,6 +1776,670 @@ def int8_path(dev, flagship, frames: int):
                       weights_int8=True)
 
 
+# ---------------------------------------------------------------- streaming
+
+STREAM_B, STREAM_TICKS = 8, 50
+STREAM_BATCHES = (1, 8, 128, 512)
+TIMED_TICKS, EAGER_TICKS = 200, 20
+# the drop rate of the lossy receive path (as PACKET_LOSS's channel)
+STREAM_DROP = 0.1
+
+
+class StreamModels(NamedTuple):
+    """The streaming classes' full-width weights on one device."""
+    predictor: fp.FramePredictor
+    books: Codebooks
+    fec_books: Codebooks
+    vocoder: lpcnet.LPCNet
+    sizes: dict
+    fec_sizes: dict
+    priors: dict
+    orders: dict
+    l1: float
+    l2: float
+
+
+def _stream_models(work: str, dev) -> StreamModels:
+    """Seeded full-width weights (scripts/bench_streaming.py:52-62): the
+    predictor GRU 384/128, its head scaled by HEAD_SCALE; speech-sized
+    books at the reference geometry, scalar 256 / 16, VQ (1024, 1024),
+    VQ_bl (512,), with seeded priors (`_books`), and their lean preset
+    for FEC; the plain bunch=1 LPCNet of config.py (GRU_A 384, GRU_B 16,
+    embedding and conditioning 128, 256 levels, f32), the one vocoder
+    the streaming classes take."""
+    cfg = _config(FLAGSHIP, "")
+    _, books, sizes, priors = _books(work, cfg, "stream",
+                                     np.random.RandomState(3))
+    g = torch.Generator().manual_seed(7)
+    pred = fp.FramePredictor(fp.FramePredictorConfig(), g)
+    with torch.no_grad():
+        pred.fc.w.mul_(HEAD_SCALE)
+        pred.fc.b.mul_(HEAD_SCALE)
+    voc = lpcnet.LPCNet(lpcnet.LPCNetConfig(), g)
+    fec = _fec_books(books)
+    return StreamModels(pred.to(dev), streaming._books_to(books, dev),
+                        streaming._books_to(fec, dev), voc.to(dev), sizes,
+                        cli.codebook_sizes(fec), priors,
+                        rc.scalar_orders(books), cfg.codec.l1, cfg.codec.l2)
+
+
+def _stream_pcm(n: int, ticks: int, seed: int) -> np.ndarray:
+    """n streams of `ticks` 10 ms blocks of `_speech`, as read_wav reads
+    them (16-bit)."""
+    rng = np.random.RandomState(seed)
+    return np.stack([np.round(_speech(rng, ticks * C.FRAME_SIZE) * 32767)
+                     / 32768.0 for _ in range(n)]).astype(np.float32)
+
+
+def _block(pcm, k: int) -> np.ndarray:
+    return pcm[:, k * C.FRAME_SIZE:(k + 1) * C.FRAME_SIZE]
+
+
+def _sym_rows(out: dict) -> np.ndarray:
+    """A tick's symbol dict -> (B, 22 + S + S') rows [coded | ind1 | ind2
+    | scl | scl_bl | vq | vq_bl] (the packed layout)."""
+    idx = out["indices"]
+    b = out["coded"].shape[0]
+    return np.concatenate([np.asarray(out["coded"], np.float64),
+                           np.asarray(out["ind1"]).reshape(b, 1),
+                           np.asarray(out["ind2"]).reshape(b, 1),
+                           idx["scl"].reshape(b, 1), idx["scl_bl"].reshape(b, 1),
+                           idx["vq"].reshape(b, -1),
+                           idx["vq_bl"].reshape(b, -1)], 1)
+
+
+def _rows_symbols(rows, n_vq: int):
+    """(N, 22+S+S') symbol rows (a stream's frames, or a tick's streams)
+    -> (ind1, ind2, indices, pitch codes)."""
+    ints = rows[:, 22:].astype(np.int64)
+    return (rows[:, 20] > 0.5, rows[:, 21] > 0.5,
+            {"scl": ints[:, 0], "scl_bl": ints[:, 1],
+             "vq": ints[:, 2:2 + n_vq], "vq_bl": ints[:, 2 + n_vq:]},
+            bs.quantize_pitch(rows[:, 18:20] * C.MAXI))
+
+
+def _receiver_inputs(tx_rows, n_vq: int, fec_sizes, seed: int):
+    """Per tick, from the transmitter's rows: (ind1, ind2, indices, pitch
+    rows, lost, fec indices, from_fec) — STREAM_DROP of the frames lost
+    (seeded), half of the others taken from random lean redundancy."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for rows in tx_rows:
+        b = rows.shape[0]
+        lost = rng.rand(b) < STREAM_DROP
+        from_fec = ~lost & (rng.rand(b) < 0.5)
+        ind1, ind2, idx, _ = _rows_symbols(rows, n_vq)
+        fidx = {"scl": rng.randint(0, fec_sizes["scl"], b),
+                "scl_bl": rng.randint(0, fec_sizes["scl_bl"], b),
+                "vq": rng.randint(0, fec_sizes["vq"][0], (b, 1)),
+                "vq_bl": (rng.randint(0, fec_sizes["vq_bl"][0], (b, 1))
+                          if fec_sizes["vq_bl"] else np.full((b, 1), -1))}
+        out.append((ind1, ind2, idx, rows[:, 18:20].astype(np.float32),
+                    lost, fidx, from_fec))
+    return out
+
+
+def _check_audio(audio: np.ndarray, what: str):
+    peak = float(np.abs(audio).max())
+    if not np.isfinite(audio).all() or not (audio.std(axis=-1) > 0).all():
+        raise RuntimeError(f"{what}: the audio is not finite, or silent")
+    if not peak < PEAK_LIMIT:
+        raise RuntimeError(f"{what}: the audio peaks at {peak:.4g}, above "
+                           f"{PEAK_LIMIT}")
+    return peak
+
+
+def _same_audio(got, want, what: str):
+    """Audio (ticks, B, 160) of the graph against the eager tick: equal
+    bit for bit, or (printed) the first tick that differs, the largest
+    difference and the trajectory contract with B - 1 items flip-free."""
+    got, want = np.stack(got), np.stack(want)
+    if np.array_equal(got, want):
+        print(f"  {what}: audio equal bit for bit ({got.size} samples)")
+        return
+    ticks = np.flatnonzero((got != want).any(axis=(1, 2)))
+    diff = float(np.abs(got - want).max())
+    flips, err = lpcnet_sampler.trajectory_flips(
+        got.transpose(1, 0, 2).reshape(got.shape[1], -1),
+        want.transpose(1, 0, 2).reshape(got.shape[1], -1),
+        min_clean=got.shape[1] - 1)
+    print(f"  {what}: audio differs from tick {ticks[0]} on, largest "
+          f"difference {diff:.3g}; trajectory contract met, first flips "
+          f"{flips}, largest prefix error {err:.3g}")
+
+
+def stream_graph_against_eager(dev, m: StreamModels):
+    """The transmitter, the receiver with FEC books and the duplex codec
+    from PCM, each captured as a CUDA graph and replayed, against the
+    same class run eagerly on the card (graph=False), batch STREAM_B for
+    STREAM_TICKS ticks on `_speech` PCM, the same uniforms in both (one
+    seed): the symbols equal exactly, the audio bit for bit (or, printed,
+    under the trajectory contract)."""
+    phase(f"streaming: graph against eager, batch {STREAM_B}, {STREAM_TICKS} "
+          "ticks, full width")
+    pcm = _stream_pcm(STREAM_B, STREAM_TICKS, seed=21)
+    runs, n_vq = [], len(m.books.vq)
+    rx_in = None
+    for graph in (True, False):
+        kw = dict(batch=STREAM_B, device=dev, graph=graph)
+        tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1, m.l2,
+                                            **kw)
+        rx = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder,
+                                         seed=5, fec_codebooks=m.fec_books,
+                                         **kw)
+        codec = streaming.StreamingCodec(m.predictor, m.books, m.vocoder,
+                                         m.l1, m.l2, seed=5, from_pcm=True,
+                                         **kw)
+        tx_rows = [_sym_rows(tx.process_pcm(_block(pcm, k)))
+                   for k in range(STREAM_TICKS)]
+        if rx_in is None:
+            rx_in = _receiver_inputs(tx_rows, n_vq, m.fec_sizes, seed=6)
+        rx_out = [rx.process_symbols(i1, i2, idx, pit, lost=lost,
+                                     fec_indices=fidx, from_fec=ff)
+                  for i1, i2, idx, pit, lost, fidx, ff in rx_in]
+        co_out = [codec.process_pcm(_block(pcm, k))
+                  for k in range(STREAM_TICKS)]
+        runs.append(dict(
+            tx=np.stack(tx_rows),
+            rx_coded=np.stack([o["coded"] for o in rx_out]),
+            rx_audio=[o["audio"] for o in rx_out],
+            co=np.stack([_sym_rows(o) for o in co_out]),
+            co_audio=[o["audio"] for o in co_out],
+            capture=(tx._tick.capture_s, rx._tick.capture_s,
+                     codec._tick.capture_s)))
+    graph, eager = runs
+    for key, what in (("tx", "transmitter symbols"),
+                      ("rx_coded", "receiver coded frames"),
+                      ("co", "codec symbols")):
+        if not np.array_equal(graph[key], eager[key]):
+            bad = np.flatnonzero((graph[key] != eager[key]).any(
+                axis=tuple(range(1, graph[key].ndim))))
+            raise RuntimeError(f"{what}: the replayed graph differs from the "
+                               f"eager tick from tick {bad[0]} on")
+        print(f"  {what}: replayed graph equal to the eager tick "
+              f"({graph[key].shape[0]} ticks x {STREAM_B} streams)")
+    _same_audio(graph["rx_audio"], eager["rx_audio"], "receiver")
+    _same_audio(graph["co_audio"], eager["co_audio"], "codec")
+    for a in (graph["rx_audio"], graph["co_audio"]):
+        _check_audio(np.stack(a), "streaming")
+    lost = sum(int(x[4].sum()) for x in rx_in)
+    fec = sum(int(x[6].sum()) for x in rx_in)
+    print(f"  receiver inputs: {lost} frames lost (concealed), {fec} from "
+          f"FEC books; capture s (transmitter, receiver, codec): "
+          f"{', '.join(f'{c:.3f}' for c in graph['capture'])}")
+
+
+def _stream_features(pcm, dev):
+    """StreamingFrontend (eager) over pcm (B, ticks * 160) on dev -> the
+    features of every tick (B, ticks, 20) and the ring after it (B,
+    ticks, 576), on the host."""
+    sf = streaming.StreamingFrontend(batch=pcm.shape[0], device=dev,
+                                     graph=False)
+    feats, rings = [], []
+    for k in range(pcm.shape[1] // C.FRAME_SIZE):
+        feats.append(sf.process_block(_block(pcm, k)))
+        rings.append(sf.state[0].cpu().numpy().copy())
+    return np.stack(feats, 1), np.stack(rings, 1)
+
+
+@torch.no_grad()
+def _stream_residuals(m: StreamModels, feats, dev):
+    """The streaming encoder's step over feats (B, T, 20) on dev, eagerly
+    -> (its raw residuals (B, T, 18), its symbol rows (B, T, 22+S+S'))."""
+    step = streaming._encoder_step(m.predictor, m.books, m.l1, m.l2)
+    b, frames, _ = feats.shape
+    model = m.predictor
+    state = (torch.zeros((b, model.rnn1.units), device=dev),
+             torch.zeros((b, model.rnn2.units), device=dev),
+             torch.zeros((b, fp.NB_CEPS), device=dev))
+    r, rows = [], []
+    with no_tf32():
+        for t in range(frames):
+            f = torch.as_tensor(feats[:, t], device=dev)
+            x = torch.cat([state[2], f[:, 18:]], -1)
+            f_out = fp.step(model, state[0], state[1], x)[0]
+            r.append((f[:, :18] - f_out).cpu())
+            state, packed = step(state, f)
+            rows.append(packed.cpu().numpy().astype(np.float64))
+    return torch.stack(r, 1), np.stack(rows, 1)
+
+
+def _lag(feat) -> np.ndarray:
+    return np.round(np.asarray(feat)[..., 18] * C.MAXI * 50 + 100)
+
+
+def _compare_streams(ref, got, m_ref: StreamModels, what: str):
+    """Symbols of two runs over the same audio (dicts of feats (B, T, 20),
+    corr (B, T) -> the (257,) correlations of a frame, r (B, T, 18),
+    rows (B, T, 22+S+S')): equal, or each stream's first differing frame
+    at a knife edge of `ref`, as encode_card_against_cpu traces them: a
+    pitch lag whose correlations agree within KNIFE_ABS and whose search
+    on `got`'s correlations gives `got`'s lag (the symbols from there on
+    carried by the closed loop), or encoder symbols whose raw residuals
+    agree within KNIFE_ABS and which `ref`'s decisions on `got`'s
+    residual give.  The cepstra must agree within 1e-4 (raw scale)."""
+    cep = float(np.abs(ref["feats"][..., :18] - got["feats"][..., :18]).max())
+    if not cep * C.MAXI <= 1e-4:
+        raise RuntimeError(f"{what}: cepstra differ by {cep * C.MAXI:.3g}")
+    knife = carried = flips = 0
+    b = ref["rows"].shape[0]
+    for i in range(b):
+        lag_flips = np.flatnonzero(_lag(ref["feats"][i]) != _lag(got["feats"][i]))
+        for f in lag_flips:
+            rows = [torch.as_tensor(run["corr"](i, f)) for run in (ref, got)]
+            gap = float((rows[0] - rows[1]).abs().max())
+            lags = [float(frontend._pitch_from_corr_table(row[None])[0, 0])
+                    for row in rows]
+            want = [float(run["feats"][i, f, 18] * C.MAXI) for run in (ref, got)]
+            if not (gap <= KNIFE_ABS and np.allclose(lags, want, atol=1e-4)):
+                raise RuntimeError(f"{what}: stream {i} frame {f}: the pitch "
+                                   f"lag differs with no knife edge (gap "
+                                   f"{gap:.3g}, lags {lags} vs {want})")
+            flips += 1
+        diff = np.flatnonzero((ref["rows"][i, :, 20:] != got["rows"][i, :, 20:])
+                              .any(1))
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        n_diff = int((ref["rows"][i, t:, 20:] != got["rows"][i, t:, 20:]).sum())
+        if len(lag_flips) and lag_flips[0] <= t:
+            carried += n_diff
+            print(f"  {what}: stream {i}: {n_diff} symbols differ from frame "
+                  f"{t} on, after the pitch's knife edge at {lag_flips[0]}")
+            continue
+        r_ref, r_got = ref["r"][i, t], got["r"][i, t]
+        gap = float((r_ref - r_got).abs().max())
+        ind = torch.stack([r_got[0].abs() > m_ref.l1,
+                           fp._abs_sum(r_got[1:]) > m_ref.l2])
+        _, idx = fp._quantize_residual(
+            streaming._books_to(m_ref.books, torch.device("cpu")),
+            r_got[None], ind[:1], ind[1:])
+        want = np.concatenate([ind.numpy().astype(np.float64)] + [
+            v.reshape(-1).numpy().astype(np.float64) for v in idx.values()])
+        ok = gap <= KNIFE_ABS and np.array_equal(want, got["rows"][i, t, 20:])
+        print(f"  {what}: stream {i} frame {t}: the first differing symbols, "
+              f"{n_diff} from there on; residuals within {gap:.3g}")
+        if not ok:
+            raise RuntimeError(f"{what}: stream {i} frame {t}: symbols differ "
+                               "with no knife edge")
+        knife += 1
+        carried += n_diff - 1
+    print(f"  {what}: {flips} pitch-lag knife edges, {knife} knife-edge "
+          f"encoder symbols, {carried} more carried by the closed loop; "
+          f"cepstra within {cep * C.MAXI:.3g} (raw)")
+
+
+def stream_card_against_cpu(dev, m: StreamModels, m_cpu: StreamModels):
+    """The duplex codec from PCM, 2 streams x 20 frames, on the card (a
+    replayed graph) and on the CPU: the same symbols but for counted knife
+    edges (`_compare_streams`); on each side the codec's symbols are its
+    frontend's and encoder's steps' run eagerly, exactly.  The uniforms
+    are the same (one host generator); the audio's largest difference is
+    printed."""
+    phase("streaming: the duplex codec on the card against the CPU, 2 x 20 "
+          "frames")
+    ticks = 21
+    pcm = _stream_pcm(2, ticks, seed=31)
+    runs = {}
+    for name, d, mm in (("card", dev, m), ("cpu", torch.device("cpu"), m_cpu)):
+        codec = streaming.StreamingCodec(mm.predictor, mm.books, mm.vocoder,
+                                         mm.l1, mm.l2, seed=9, batch=2,
+                                         from_pcm=True, device=d)
+        out = [codec.process_pcm(_block(pcm, k)) for k in range(ticks)]
+        feats, rings = _stream_features(pcm, d)
+        r, rows = _stream_residuals(mm, feats, d)
+        got = np.stack([_sym_rows(o) for o in out], 1)
+        if not np.array_equal(got, rows):
+            raise RuntimeError(f"{name}: the codec's symbols are not its "
+                               "frontend's and encoder's steps'")
+        rings_t = torch.as_tensor(rings)
+        runs[name] = dict(
+            feats=feats[:, 1:], r=r[:, 1:], rows=rows[:, 1:],
+            corr=lambda i, f, rt=rings_t, d=d: frontend._slab_corr_table(
+                rt[i, f + 1][None].to(d))[0].cpu(),
+            audio=np.stack([o["audio"] for o in out], 1))
+    _compare_streams(runs["cpu"], runs["card"], m_cpu, "card against CPU")
+    a, b = runs["card"]["audio"], runs["cpu"]["audio"]
+    print(f"  audio: largest |card - cpu| {float(np.abs(a - b).max()):.3g} "
+          f"(peak {float(np.abs(b).max()):.3g}), the same uniforms")
+
+
+def stream_against_batch(dev, m: StreamModels, work: str):
+    """8 x 2 s wavs: StreamingTransmitter (graph) on the card against the
+    port's batch path on the card: extract_features_batch's features of
+    the same audio, encoded by codec.encode behind the frontend's warmup
+    row (the tick-0 frame the transmitter's closed loop sees first); the
+    transmitter's symbols are its steps' run eagerly, exactly, and equal
+    the batch's but for counted knife edges (`_compare_streams`).  ->
+    (the transmitter's rows (B, T, 22+S+S'), their raw residuals)."""
+    phase(f"streaming: the transmitter against the batch encoder, {N_UTT} x "
+          f"{UTT_FRAMES} frames")
+    wavs = _speech_wavs(work, "stream", N_UTT, UTT_FRAMES, seed=41)
+    pcm = np.stack([cli.read_wav(w)[:(UTT_FRAMES + 1) * C.FRAME_SIZE]
+                    for w in wavs])
+    tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1, m.l2,
+                                        batch=N_UTT, device=dev)
+    ticks = UTT_FRAMES + 1
+    tx_rows = np.stack([_sym_rows(tx.process_pcm(_block(pcm, k)))
+                        for k in range(ticks)], 1)
+    feats, rings = _stream_features(pcm, dev)
+    r, rows = _stream_residuals(m, feats, dev)
+    if not np.array_equal(tx_rows, rows):
+        raise RuntimeError("the transmitter's symbols are not its frontend's "
+                           "and encoder's steps'")
+    batch_rows = frontend.extract_features_batch(list(pcm), device=dev)
+    bfeat = np.stack([row[:, :20] / np.float32(C.MAXI) for row in batch_rows])
+    bfeat = np.concatenate([feats[:, :1], bfeat], 1)
+    enc = codec_mod.encode(m.predictor, m.books,
+                           torch.as_tensor(bfeat, device=dev), m.l1, m.l2)
+    b_rows = np.concatenate([
+        enc["coded"].cpu().numpy().astype(np.float64),
+        enc["ind1"][..., None].cpu().numpy(), enc["ind2"][..., None].cpu().numpy(),
+        *[v.reshape(N_UTT, ticks, -1).cpu().numpy()
+          for v in enc["indices"].values()]], 2)
+    t_pad = frontend.PITCH_SLAB
+    wave = torch.zeros((N_UTT, C.FRAME_SIZE * (t_pad + 1)), device=dev)
+    wave[:, :pcm.shape[1]] = torch.as_tensor(pcm, device=dev)
+    table = frontend.corr_table(emphasis.preemphasis_torch(wave), t_pad).cpu()
+    rings_t = torch.as_tensor(rings, device=dev)
+    ref = dict(feats=bfeat[:, 1:], r=enc["r"][:, 1:].cpu(),
+               rows=b_rows[:, 1:], corr=lambda i, f: table[i, f])
+    got = dict(feats=feats[:, 1:], r=r[:, 1:], rows=rows[:, 1:],
+               corr=lambda i, f: frontend._slab_corr_table(
+                   rings_t[i, f + 1][None])[0].cpu())
+    _compare_streams(ref, got, m, "streaming against batch")
+    return tx_rows[:, 1:], r[:, 1:]
+
+
+def _layout(rows, sizes) -> dict:
+    """Frames' index dicts (None: a placeholder of -1) -> the batch's
+    index arrays at the geometry `sizes` ((B,) scalars, (B, S) stages)."""
+    widths = {"scl": 0, "scl_bl": 0, "vq": len(sizes["vq"]),
+              "vq_bl": max(len(sizes.get("vq_bl", [])), 1)}
+    out = {}
+    for k, w in widths.items():
+        vals = np.stack([np.full(max(w, 1), -1) if r is None
+                         else np.asarray(r[k]).reshape(max(w, 1))
+                         for r in rows])
+        out[k] = vals[:, 0] if w == 0 else vals
+    return out
+
+
+def stream_entropy(dev, m: StreamModels, tx_rows, r):
+    """The transmitter's symbols (8 x 200 frames) through the native
+    encoder bank, a tick at a time, then the decoder bank: the decoded
+    rows are the sent rows, and each stream's bytes are the Python
+    StreamingRangeEncoder's and the offline pack_utterance_rc body.
+    Then the lossy receive path: 50 ms packets with FEC (the lean
+    requantisation of the residuals, plc.fec_requantize), a channel
+    dropping STREAM_DROP of the packets (RandomState(0), stream by
+    stream), a FecPacketReceiver a stream and StreamingReceiver(
+    fec_codebooks=...) on the card: recovered frames are flagged from_fec,
+    frames of two lost packets in a row lost and concealed, every
+    received or recovered symbol row the sent one, the audio finite and
+    below PEAK_LIMIT."""
+    phase("streaming: the entropy layer, banks and the FEC jitter buffer")
+    n, frames = tx_rows.shape[:2]
+    n_vq = len(m.books.vq)
+    kw = dict(priors=m.priors, orders=m.orders)
+    streams = [_rows_symbols(tx_rows[i], n_vq) for i in range(n)]
+    ebank = native_rc.NativeRangeEncoderBank(n, m.sizes, **kw)
+    dbank = native_rc.NativeRangeDecoderBank(n, m.sizes, **kw)
+    sent = [bytearray() for _ in range(n)]
+    got = [[] for _ in range(n)]
+
+    def collect(ok, fr):
+        for i in range(n):
+            if ok[i] and len(got[i]) < frames:
+                got[i].append(np.concatenate([
+                    [fr["ind1"][i], fr["ind2"][i], fr["indices"]["scl"][i],
+                     fr["indices"]["scl_bl"][i]], fr["indices"]["vq"][i],
+                    fr["indices"]["vq_bl"][i], fr["pcodes"][i]]))
+
+    t0 = time.perf_counter()
+    for t in range(frames):
+        idx = {k: np.stack([s[2][k][t] for s in streams])
+               for k in ("scl", "scl_bl", "vq", "vq_bl")}
+        chunks, lens = ebank.push_frames(
+            [s[0][t] for s in streams], [s[1][t] for s in streams], idx,
+            np.stack([s[3][t] for s in streams]))
+        for i in range(n):
+            sent[i] += chunks[i, :lens[i]].tobytes()
+        collect(*dbank.tick(chunks, lens))
+    bank_s = time.perf_counter() - t0
+    tails = []
+    for i in range(n):
+        py = rc.StreamingRangeEncoder(m.sizes, **kw)
+        body = b"".join(py.push_frame(streams[i][0][t], streams[i][1][t],
+                                      {k: v[t] for k, v in
+                                       streams[i][2].items()},
+                                      streams[i][3][t])
+                        for t in range(frames)) + py.finish()
+        offline = native_rc.pack_utterance_rc(*streams[i], m.sizes, **kw)
+        tails.append(body[len(sent[i]):])
+        if not (body.startswith(bytes(sent[i])) and body == offline[2:]):
+            raise RuntimeError(f"stream {i}: the bank's bytes are not the "
+                               "Python coder's or the offline body")
+    collect(*dbank.tick(tails, final=True))
+    # past its last frame a decoder reads padding: stop at `frames`
+    for _ in range(8):
+        if all(len(g) >= frames for g in got):
+            break
+        collect(*dbank.tick([b""] * n, final=True))
+    for i, (i1, i2, idx, pc) in enumerate(streams):
+        want = np.concatenate([i1[:, None], i2[:, None], idx["scl"][:, None],
+                               idx["scl_bl"][:, None], idx["vq"], idx["vq_bl"],
+                               pc], 1)
+        if len(got[i]) != frames or not np.array_equal(np.stack(got[i]), want):
+            raise RuntimeError(f"stream {i}: the decoder bank did not give "
+                               "back the sent rows")
+    print(f"  banks: {n} x {frames} frames, {sum(map(len, sent))} bytes "
+          f"(+ {sum(map(len, tails))} of flush), the decoded rows the sent "
+          f"rows, each stream's bytes the Python coder's and the offline "
+          f"body's; both banks' host time {bank_s * 1e3 / frames:.4f} ms a "
+          "tick (the card machine's CPU)")
+    # the lossy receive path
+    ind1 = torch.as_tensor(np.stack([s[0] for s in streams]), device=dev)
+    ind2 = torch.as_tensor(np.stack([s[1] for s in streams]), device=dev)
+    fidx = plc.fec_requantize(m.fec_books, r.to(dev), ind1, ind2)
+    fidx = {k: v.cpu().numpy() for k, v in fidx.items()}
+    rng = np.random.RandomState(0)
+    n_pk = frames // PACKET_FRAMES
+    frames_rx = []
+    masks = []
+    for i, (i1, i2, idx, pc) in enumerate(streams):
+        packets = rc.pack_packets_fec(
+            i1, i2, idx, pc, m.sizes, {k: v[i] for k, v in fidx.items()},
+            m.fec_sizes, PACKET_FRAMES, **kw)
+        drop = plc.packet_loss_mask(rng, n_pk, STREAM_DROP)
+        masks.append(drop)
+        rx = rc.FecPacketReceiver(m.sizes, m.fec_sizes, PACKET_FRAMES, **kw)
+        out = []
+        for p, d in zip(packets, drop):
+            out += rx.push_packet(None if d else p)
+        out += rx.finish()
+        if len(out) != frames:
+            raise RuntimeError(f"stream {i}: {len(out)} frames of {frames}")
+        frames_rx.append(out)
+    rxs = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder, seed=11,
+                                      batch=n, fec_codebooks=m.fec_books,
+                                      device=dev)
+    audio, n_fec, n_lost = [], 0, 0
+    for t in range(frames):
+        fr = [frames_rx[i][t] for i in range(n)]
+        lost = np.array([f["lost"] for f in fr])
+        from_fec = np.array([f["from_fec"] for f in fr])
+        for i, f in enumerate(fr):
+            pk = t // PACKET_FRAMES
+            dropped, nxt = masks[i][pk], (masks[i][pk + 1]
+                                          if pk + 1 < n_pk else True)
+            if f["from_fec"] != (dropped and not nxt) or \
+                    f["lost"] != (dropped and nxt):
+                raise RuntimeError(f"stream {i} frame {t}: flagged lost "
+                                   f"{f['lost']}, from_fec {f['from_fec']} "
+                                   "against the drop mask")
+            i1, i2, idx, pc = streams[i]
+            if not f["lost"]:
+                if f["ind1"] != i1[t] or f["ind2"] != i2[t] or \
+                        not np.array_equal(f["pcodes"], pc[t]):
+                    raise RuntimeError(f"stream {i} frame {t}: indicators or "
+                                       "pitch differ from the sent ones")
+                src = ({k: v[i, t] for k, v in fidx.items()} if f["from_fec"]
+                       else {k: v[t] for k, v in idx.items()})
+                for k in ("scl", "scl_bl", "vq", "vq_bl"):
+                    if not np.array_equal(np.asarray(f["indices"][k]).reshape(-1),
+                                          np.asarray(src[k]).reshape(-1)):
+                        raise RuntimeError(f"stream {i} frame {t}: {k} differs "
+                                           "from the sent symbols")
+        pitch = bs.dequantize_pitch(np.stack([f["pcodes"] for f in fr]))
+        out = rxs.process_symbols(
+            np.array([f["ind1"] for f in fr]), np.array([f["ind2"] for f in fr]),
+            _layout([f["indices"] if not f["from_fec"] else None for f in fr],
+                    m.sizes),
+            (pitch / np.float32(C.MAXI)).astype(np.float32), lost=lost,
+            fec_indices=_layout([f["indices"] if f["from_fec"] else None
+                                 for f in fr], m.fec_sizes),
+            from_fec=from_fec)
+        audio.append(out["audio"])
+        n_fec += int(from_fec.sum())
+        n_lost += int(lost.sum())
+    peak = _check_audio(np.stack(audio, 1), "lossy receive")
+    print(f"  lossy receive: {n} x {n_pk} packets of {PACKET_FRAMES} frames, "
+          f"{int(np.sum(masks))} dropped; {n_fec} frames recovered from FEC "
+          f"(flagged), {n_lost} lost and concealed, every received and "
+          f"recovered row the sent one; audio peak {peak:.4g}")
+
+
+def _walls(fn, ticks: int) -> list:
+    out = []
+    for k in range(ticks):
+        t0 = time.perf_counter()
+        fn(k)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _pct(walls, q) -> float:
+    return float(np.percentile(np.asarray(walls) * 1e3, q))
+
+
+def _launches(fn) -> tuple:
+    """One call of fn under torch.profiler -> (kernels the card ran,
+    kernel launches the host issued)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = host = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            host += 1
+    return device, host
+
+
+def stream_timing(dev, m: StreamModels, smi: str):
+    """Per-tick wall (host clock, a tick ends with its one readback) of
+    the duplex codec from PCM (with the encoder bank's push), the
+    transmitter (with the encoder bank's push) and the receiver (with
+    the decoder bank's tick), p50 and p99 over TIMED_TICKS ticks at each
+    of STREAM_BATCHES, and stream-frames per 10 ms (0.010 / wall x
+    batch); the capture time of each; the eager tick beside the graph at
+    batch 1 and 8 (EAGER_TICKS ticks); the eager tick's launches counted
+    once by torch.profiler; the time to first audio at batch 1."""
+    phase("streaming: per-tick wall, eager beside the graph, launches, "
+          "capture, time to first audio")
+    ticks = TIMED_TICKS
+    pcm_all = _stream_pcm(2, ticks, seed=51)
+    kw = dict(priors=m.priors, orders=m.orders)
+    n_vq = len(m.books.vq)
+    for b in STREAM_BATCHES:
+        pcm = np.tile(pcm_all, (b // 2 + 1, 1))[:b]
+        for graph in ((True, False) if b in (1, 8) else (True,)):
+            n = ticks if graph else EAGER_TICKS
+            tag = "graph" if graph else "eager"
+            tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1,
+                                                m.l2, batch=b, device=dev,
+                                                graph=graph)
+            ebank = native_rc.NativeRangeEncoderBank(b, m.sizes, **kw)
+            chunks = []
+
+            def tx_tick(k):
+                rows = _sym_rows(tx.process_pcm(_block(pcm, k)))
+                i1, i2, idx, pc = _rows_symbols(rows, n_vq)
+                c, lens = ebank.push_frames(i1, i2, idx, pc)
+                chunks.append((c.copy(), lens.copy(), rows))
+
+            w_tx = _walls(tx_tick, n)
+            rx = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder,
+                                             batch=b, device=dev, graph=graph)
+            dbank = native_rc.NativeRangeDecoderBank(b, m.sizes, **kw)
+
+            def rx_tick(k):
+                ok, fr = dbank.tick(*chunks[k][:2])
+                rows = chunks[k][2]
+                rx.process_symbols(fr["ind1"].astype(bool),
+                                   fr["ind2"].astype(bool), fr["indices"],
+                                   rows[:, 18:20], lost=~ok.astype(bool))
+
+            w_rx = _walls(rx_tick, n)
+            co = streaming.StreamingCodec(m.predictor, m.books, m.vocoder,
+                                          m.l1, m.l2, batch=b,
+                                          from_pcm=True, device=dev,
+                                          graph=graph)
+            cbank = native_rc.NativeRangeEncoderBank(b, m.sizes, **kw)
+
+            def co_tick(k):
+                rows = _sym_rows(co.process_pcm(_block(pcm, k)))
+                cbank.push_frames(*_rows_symbols(rows, n_vq))
+
+            w_co = _walls(co_tick, n)
+            for name, w, obj in (("codec from PCM", w_co, co),
+                                 ("transmitter", w_tx, tx),
+                                 ("receiver", w_rx, rx)):
+                p50 = _pct(w[1:], 50)
+                print(json.dumps({
+                    "streaming": name, "batch": b, "tick": tag,
+                    "ticks": n - 1, "p50_ms": p50, "p99_ms": _pct(w[1:], 99),
+                    "first_ms": w[0] * 1e3,
+                    "stream_frames_per_10ms": 0.010 / (p50 / 1e3) * b,
+                    "capture_s": obj._tick.capture_s, "card": smi}))
+            if b == 8 and not graph:
+                enc = streaming.StreamingEncoder(m.predictor, m.books, m.l1,
+                                                 m.l2, batch=b, device=dev,
+                                                 graph=False)
+                for name, fn in (("codec from PCM", lambda: co_tick(n)),
+                                 ("transmitter", lambda: tx.process_pcm(
+                                     _block(pcm, n))),
+                                 ("receiver", lambda: rx.process_symbols(
+                                     *_rows_symbols(chunks[0][2], n_vq)[:3],
+                                     chunks[0][2][:, 18:20])),
+                                 ("encoder", lambda: enc.encode_frame(
+                                     chunks[0][2][:, :20]))):
+                    kernels, host = _launches(fn)
+                    print(json.dumps({"streaming": name, "batch": b,
+                                      "eager_tick_kernels": kernels,
+                                      "eager_tick_launch_calls": host,
+                                      "card": smi}))
+    # time to first audio: a captured codec, reset, a fresh session's
+    # first two blocks (tick 0 is the analysis warmup)
+    co = streaming.StreamingCodec(m.predictor, m.books, m.vocoder, m.l1, m.l2,
+                                  batch=1, from_pcm=True, device=dev)
+    first = []
+    for rep in range(5):
+        co.reset()
+        t0 = time.perf_counter()
+        co.process_pcm(pcm_all[0, :C.FRAME_SIZE])
+        audio = co.process_pcm(pcm_all[0, C.FRAME_SIZE:2 * C.FRAME_SIZE])
+        first.append(time.perf_counter() - t0)
+        _check_audio(audio["audio"][None], "first audio")
+    print(json.dumps({"streaming": "time to first audio", "batch": 1,
+                      "ms": [x * 1e3 for x in first],
+                      "algorithmic_lookahead_ms": 10.0, "card": smi}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1774,6 +2486,12 @@ def main() -> int:
         for tag, overrides in (("threshold", FLAGSHIP), ("mask", MASK),
                                ("fec", ENC_FEC), ("ultra", ULTRA)):
             encode_card_against_cpu(dev, work, overrides, tag)
+        m = _stream_models(work, dev)
+        stream_graph_against_eager(dev, m)
+        stream_card_against_cpu(dev, m, _stream_models(work,
+                                                      torch.device("cpu")))
+        stream_entropy(dev, m, *stream_against_batch(dev, m, work))
+        stream_timing(dev, m, smi)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -1,13 +1,17 @@
 """ctypes binding to the port's native C++ range-coder runtime
 (fpsc_tpu_torch/csrc/range_coder.cpp, built by ops/host_build.py).
 
-Port of the offline half of fpsc_tpu/codec/native_rc.py:1-313:
-`pack_utterance_rc` and `unpack_utterance_rc`, byte for byte and symbol
-for symbol those of the Python coder in codec/range_coder.py, and some
-hundred times faster on long utterances.  The streaming entries of the
-runtime (rc_enc_push, rc_dec_pull, rc_enc_push_many, rc_dec_tick_many)
-are compiled but not bound: the streaming classes come with streaming
-serving.
+Port of fpsc_tpu/codec/native_rc.py: `pack_utterance_rc` and
+`unpack_utterance_rc`, byte for byte and symbol for symbol those of the
+Python coder in codec/range_coder.py, and some hundred times faster on
+long utterances; the streaming coders (`NativeStreamingRangeEncoder`,
+`NativeStreamingRangeDecoder`, rc_enc_push / rc_enc_finish /
+rc_dec_push / rc_dec_pull) and the banks that serve N streams in one
+library call a tick (`NativeRangeEncoderBank`, `NativeRangeDecoderBank`,
+rc_enc_push_many / rc_dec_tick_many), the bytes and frames of the
+Python streaming coders.  Every per-call buffer of the streaming
+classes is allocated once and reused: numpy allocations a call, not the
+library, bound them a frame.
 
 Table seeding stays in ONE place: the adaptive tables are seeded by
 range_coder._utterance_models (the prior-mass arithmetic, bucket splits
@@ -77,6 +81,31 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, _u8p, ctypes.c_longlong, ctypes.c_int,
             _u8p, _u8p, _i32p, _i32p, _i32p, ctypes.c_int, _i32p,
             ctypes.c_int, _i64p]
+        lib.rc_enc_push.restype = ctypes.c_longlong
+        lib.rc_enc_push.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _i32p, _i32p, ctypes.c_longlong,
+            ctypes.c_longlong, _u8p, ctypes.c_longlong]
+        lib.rc_enc_finish.restype = ctypes.c_longlong
+        lib.rc_enc_finish.argtypes = [ctypes.c_void_p, _u8p,
+                                      ctypes.c_longlong]
+        lib.rc_dec_push.argtypes = [ctypes.c_void_p, _u8p,
+                                    ctypes.c_longlong, ctypes.c_int]
+        lib.rc_dec_pull.restype = ctypes.c_int
+        lib.rc_dec_pull.argtypes = [
+            ctypes.c_void_p, _i32p, _i32p, _i32p, _i32p, _i32p, _i32p,
+            _i64p]
+        _vpp = ctypes.POINTER(ctypes.c_void_p)
+        lib.rc_enc_push_many.restype = ctypes.c_int
+        lib.rc_enc_push_many.argtypes = [
+            _vpp, ctypes.c_int, _u8p, _u8p, _i32p, _i32p, _i32p,
+            ctypes.c_int, _i32p, ctypes.c_int, _i64p, _u8p,
+            ctypes.c_longlong, _i32p, ctypes.c_int]
+        lib.rc_dec_tick_many.argtypes = [
+            _vpp, ctypes.c_int, _u8p, _i64p, ctypes.c_longlong,
+            _i32p, ctypes.c_int, _i32p, _i32p, _i32p, _i32p, _i32p,
+            ctypes.c_int, _i32p, ctypes.c_int, _i64p, _i32p,
+            ctypes.c_int]
         _LIB = lib
     return _LIB
 
@@ -293,3 +322,245 @@ def unpack_utterance_rc(data: bytes, sizes: Dict,
             "indices": {"scl": iscl, "scl_bl": iscl_bl,
                         "vq": ivq, "vq_bl": ivq_bl},
             "pitch": dequantize_pitch(pc)}
+
+
+class NativeStreamingRangeEncoder:
+    """Native counterpart of range_coder.StreamingRangeEncoder
+    (identical byte stream, same push_frame/finish API)."""
+
+    def __init__(self, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None):
+        self._w = _Walker(sizes, static_models, priors, orders,
+                          decode=False)
+        # all per-frame buffers preallocated: numpy allocations a call
+        # cost more than the library's work on a frame
+        self._buf = np.zeros(4096, np.uint8)
+        self._bufp = self._buf.ctypes.data_as(_u8p)
+        self._ivq = np.full(max(self._w.n_vq, 1), -1, np.int32)
+        self._ivq_bl = np.full(max(self._w.n_vq_bl, 1), -1, np.int32)
+        self._ivqp = _as_i32p(self._ivq)
+        self._ivq_blp = _as_i32p(self._ivq_bl)
+        self._push = self._w._lib.rc_enc_push
+
+    def push_frame(self, ind1, ind2, indices_row: Dict,
+                   pcode_row) -> bytes:
+        w = self._w
+        self._ivq[:] = -1
+        row = np.atleast_1d(indices_row.get("vq", -1))
+        self._ivq[:len(row)] = row
+        self._ivq_bl[:] = -1
+        row = np.atleast_1d(indices_row.get("vq_bl", -1))
+        self._ivq_bl[:len(row)] = row
+        n = self._push(
+            w._h, int(bool(ind1)), int(bool(ind2)),
+            int(indices_row.get("scl", -1)),
+            int(indices_row.get("scl_bl", -1)), self._ivqp,
+            self._ivq_blp, int(pcode_row[0]), int(pcode_row[1]),
+            self._bufp, len(self._buf))
+        if n < 0:
+            # one frame emits a handful of renormalised bytes; a 4 KiB
+            # overflow means the coder state is corrupt — the stream
+            # cannot be continued, so fail loudly (survives python -O)
+            raise RuntimeError(
+                f"streaming encoder overflowed its frame buffer ({-n} "
+                "bytes needed): encoder state is no longer valid")
+        return bytes(self._buf[:n].tobytes())
+
+    def finish(self) -> bytes:
+        n = self._w._lib.rc_enc_finish(
+            self._w._h, self._bufp, len(self._buf))
+        if n < 0:
+            raise RuntimeError(
+                f"streaming encoder flush overflowed ({-n} bytes "
+                "needed): encoder state is no longer valid")
+        return bytes(self._buf[:n].tobytes())
+
+
+class NativeStreamingRangeDecoder:
+    """Native counterpart of range_coder.StreamingRangeDecoder
+    (same push_bytes/pull_frame API and frame dict layout)."""
+
+    def __init__(self, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None):
+        self._w = _Walker(sizes, static_models, priors, orders,
+                          decode=True)
+        w = self._w
+        # reused per-call buffers (see encoder note); pull_frame copies
+        # the variable-length outputs before returning
+        self._i1 = np.zeros(1, np.int32)
+        self._i2 = np.zeros(1, np.int32)
+        self._iscl = np.zeros(1, np.int32)
+        self._iscl_bl = np.zeros(1, np.int32)
+        self._ivq = np.full(max(w.n_vq, 1), -1, np.int32)
+        self._ivq_bl = np.full(max(w.n_vq_bl, 1), -1, np.int32)
+        self._pc = np.zeros(2, np.int64)
+        self._ptrs = (w._h, _as_i32p(self._i1), _as_i32p(self._i2),
+                      _as_i32p(self._iscl), _as_i32p(self._iscl_bl),
+                      _as_i32p(self._ivq), _as_i32p(self._ivq_bl),
+                      self._pc.ctypes.data_as(_i64p))
+        self._pull = w._lib.rc_dec_pull
+
+    def push_bytes(self, data: bytes, final: bool = False):
+        w = self._w
+        arr = np.frombuffer(bytes(data), np.uint8)
+        w._lib.rc_dec_push(
+            w._h,
+            arr.ctypes.data_as(_u8p) if len(arr) else
+            np.zeros(1, np.uint8).ctypes.data_as(_u8p),
+            len(arr), 1 if final else 0)
+
+    def pull_frame(self):
+        if not self._pull(*self._ptrs):
+            return None
+        return {"ind1": bool(self._i1[0]), "ind2": bool(self._i2[0]),
+                "indices": {"scl": int(self._iscl[0]),
+                            "scl_bl": int(self._iscl_bl[0]),
+                            "vq": self._ivq.copy(),
+                            "vq_bl": self._ivq_bl.copy()},
+                "pcodes": self._pc.copy()}
+
+
+class NativeRangeEncoderBank:
+    """N independent streaming range encoders driven by ONE library
+    call per 10 ms tick (csrc/range_coder.cpp rc_enc_push_many).
+
+    The per-stream classes above pay Python, ctypes and numpy overhead
+    per stream per tick, several times the library's own work; the
+    bank pays it once per tick for the whole batch.  Streams are
+    byte-identical to N independent StreamingRangeEncoders (pinned in
+    tests/test_torch_streaming_rc.py).
+
+    n_threads splits the bank across std::threads inside the call —
+    streams are independent walkers with disjoint outputs, so any
+    partition is exact.
+    """
+
+    def __init__(self, n: int, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None,
+                 n_threads: int = 1, chunk_cap: int = 256):
+        self._walkers = [_Walker(sizes, static_models, priors, orders,
+                                 decode=False) for _ in range(n)]
+        self.n = n
+        self.n_threads = n_threads
+        w0 = self._walkers[0]
+        self._n_vq = max(w0.n_vq, 1)
+        self._n_vq_bl = max(w0.n_vq_bl, 1)
+        self._handles = (ctypes.c_void_p * n)(
+            *[w._h for w in self._walkers])
+        self._cap = chunk_cap
+        self._out = np.zeros((n, chunk_cap), np.uint8)
+        self._lens = np.zeros(n, np.int32)
+        self._i1 = np.zeros(n, np.uint8)
+        self._i2 = np.zeros(n, np.uint8)
+        self._scl = np.zeros(n, np.int32)
+        self._scl_bl = np.zeros(n, np.int32)
+        self._vq = np.zeros((n, self._n_vq), np.int32)
+        self._vq_bl = np.zeros((n, self._n_vq_bl), np.int32)
+        self._pc = np.zeros((n, 2), np.int64)
+        self._fn = load().rc_enc_push_many
+
+    def push_frames(self, ind1, ind2, indices: Dict, pcodes):
+        """One tick: ind1/ind2 (n,) bools, indices arrays {scl (n,),
+        scl_bl (n,), vq (n, S), vq_bl (n, S')}, pcodes (n, 2) ->
+        (chunks (n, cap) uint8, lens (n,) int32).  Slice
+        chunks[i, :lens[i]] for stream i's wire bytes (the arrays are
+        reused across ticks — copy before the next tick if kept)."""
+        self._i1[:] = np.asarray(ind1, np.uint8)
+        self._i2[:] = np.asarray(ind2, np.uint8)
+        self._scl[:] = np.asarray(indices["scl"], np.int32)
+        self._scl_bl[:] = np.asarray(indices.get("scl_bl", -1),
+                                     np.int32)
+        self._vq[:] = np.asarray(indices["vq"], np.int32)
+        self._vq_bl[:] = np.asarray(indices.get(
+            "vq_bl", -np.ones((self.n, self._n_vq_bl))), np.int32)
+        self._pc[:] = np.asarray(pcodes, np.int64)
+        bad = self._fn(
+            self._handles, self.n,
+            self._i1.ctypes.data_as(_u8p),
+            self._i2.ctypes.data_as(_u8p),
+            _as_i32p(self._scl), _as_i32p(self._scl_bl),
+            _as_i32p(self._vq), self._n_vq,
+            _as_i32p(self._vq_bl), self._n_vq_bl,
+            self._pc.ctypes.data_as(_i64p),
+            self._out.ctypes.data_as(_u8p), self._cap,
+            _as_i32p(self._lens), self.n_threads)
+        if bad:
+            # one frame emits a handful of bytes; overflow past cap
+            # means corrupt coder state — unrecoverable mid-stream
+            raise RuntimeError(
+                f"{bad} streams overflowed the {self._cap}-byte frame "
+                "chunk: encoder state is no longer valid")
+        return self._out, self._lens
+
+
+class NativeRangeDecoderBank:
+    """Receive-side twin of NativeRangeEncoderBank: one library call
+    pushes each stream's newly-arrived bytes AND pulls one frame per
+    stream (rc_dec_tick_many; per-stream rollback when bytes run
+    short, exactly like StreamingRangeDecoder.pull_frame)."""
+
+    def __init__(self, n: int, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None,
+                 n_threads: int = 1):
+        self._walkers = [_Walker(sizes, static_models, priors, orders,
+                                 decode=True) for _ in range(n)]
+        self.n = n
+        self.n_threads = n_threads
+        w0 = self._walkers[0]
+        self._n_vq = max(w0.n_vq, 1)
+        self._n_vq_bl = max(w0.n_vq_bl, 1)
+        self._handles = (ctypes.c_void_p * n)(
+            *[w._h for w in self._walkers])
+        self._i1 = np.zeros(n, np.int32)
+        self._i2 = np.zeros(n, np.int32)
+        self._scl = np.zeros(n, np.int32)
+        self._scl_bl = np.zeros(n, np.int32)
+        self._vq = np.zeros((n, self._n_vq), np.int32)
+        self._vq_bl = np.zeros((n, self._n_vq_bl), np.int32)
+        self._pc = np.zeros((n, 2), np.int64)
+        self._ok = np.zeros(n, np.int32)
+        self._offs = np.zeros(n + 1, np.int64)
+        self._fn = load().rc_dec_tick_many
+
+    def tick(self, chunks, lens=None, final: bool = False):
+        """chunks: (n, cap) uint8 + lens (n,) — exactly what
+        NativeRangeEncoderBank.push_frames returned (fed to C++ as
+        strided rows, zero repacking) — or a list of n per-stream
+        bytes objects.  Returns (ok (n,) int32 view, dict of
+        index-array views); views are reused across ticks."""
+        if lens is None:
+            ragged = np.asarray([len(c) for c in chunks], np.int64)
+            flat = (np.frombuffer(b"".join(chunks), np.uint8)
+                    if int(ragged.sum()) else np.zeros(1, np.uint8))
+            np.cumsum(ragged, out=self._offs[1:])
+            self._offs[0] = 0
+            bytes_p = flat.ctypes.data_as(_u8p)
+            offs_p, stride, lens_p = (
+                self._offs.ctypes.data_as(_i64p), 0, None)
+        else:
+            lens32 = np.ascontiguousarray(lens, np.int32)
+            chunks = np.ascontiguousarray(chunks, np.uint8)
+            bytes_p = chunks.ctypes.data_as(_u8p)
+            offs_p, stride, lens_p = (None, chunks.shape[1],
+                                      _as_i32p(lens32))
+        self._fn(
+            self._handles, self.n, bytes_p, offs_p, stride, lens_p,
+            1 if final else 0,
+            _as_i32p(self._i1), _as_i32p(self._i2),
+            _as_i32p(self._scl), _as_i32p(self._scl_bl),
+            _as_i32p(self._vq), self._n_vq,
+            _as_i32p(self._vq_bl), self._n_vq_bl,
+            self._pc.ctypes.data_as(_i64p), _as_i32p(self._ok),
+            self.n_threads)
+        return self._ok, {"ind1": self._i1, "ind2": self._i2,
+                          "indices": {"scl": self._scl,
+                                      "scl_bl": self._scl_bl,
+                                      "vq": self._vq,
+                                      "vq_bl": self._vq_bl},
+                          "pcodes": self._pc}
+
+
+# Drop-in aliases so `native_rc.best()` is interchangeable with the
+# range_coder module at every call site.
+StreamingRangeEncoder = NativeStreamingRangeEncoder
+StreamingRangeDecoder = NativeStreamingRangeDecoder

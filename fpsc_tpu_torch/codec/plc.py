@@ -1,7 +1,8 @@
 """Packet-loss concealment for the closed-loop feature codec, decode side.
 
 Port of fpsc_tpu/codec/plc.py:69-204 (`conceal_decode`,
-`conceal_decode_residual`, the sender's `fec_requantize` and the
+`conceal_decode_residual` over `conceal_step`, the frame step the
+streaming receiver runs too, the sender's `fec_requantize` and the
 receiver's `fec_merge_residual`) and 256-288 (the numpy loss masks).  The decoder is the encoder's closed-loop
 predictor, so a lost frame lets the predictor free-run (residual 0)
 with the pitch held, and the GRU state keeps flowing; received
@@ -18,8 +19,8 @@ residuals then pull the loop back.  Policy, as in the JAX module:
 The JAX `lax.scan` is a Python loop over frames here, batched over
 utterances, as models/frame_predictor.py::decoder is; it holds no
 kernel.  With `lost` all False it computes frame_predictor.decoder's
-frames exactly.  Not ported yet: `AdaptiveFecPolicy` (the sender's
-controller, which streaming serving brings).
+frames exactly.  `AdaptiveFecPolicy` (fpsc_tpu/codec/plc.py:207-253)
+is the sender's in-band FEC controller of streaming serving.
 """
 from __future__ import annotations
 
@@ -60,38 +61,54 @@ def conceal_decode_residual(model: fp.FramePredictor, r: torch.Tensor,
     decoding uses, where a frame's residual may come from the full or
     the lean codebooks."""
     b, length = pitch.shape[:2]
-    dt = r.dtype
-    h1 = r.new_zeros((b, model.rnn1.units))
-    h2 = r.new_zeros((b, model.rnn2.units))
-    prev = r.new_zeros((b, fp.NB_CEPS))
-    prev_pitch = pitch.new_zeros((b, pitch.shape[-1]))
-    run = r.new_zeros((b,))
+    state = (r.new_zeros((b, model.rnn1.units)),
+             r.new_zeros((b, model.rnn2.units)),
+             r.new_zeros((b, fp.NB_CEPS)),
+             pitch.new_zeros((b, pitch.shape[-1])), r.new_zeros((b,)))
     lost = lost.to(torch.bool)
-    fade_hold = torch.tensor(fade_after, dtype=dt, device=r.device)
-    fade = torch.tensor(fade_step, dtype=dt, device=r.device)
-    damp_c = torch.tensor(damp, dtype=dt, device=r.device)
     frames = []
     for t in range(length):
-        gone = lost[:, t, None]
-        keep = 1.0 - lost[:, t].to(dt)
-        pit = torch.where(gone, prev_pitch, pitch[:, t])
-        f_out, h1, h2 = fp.step(model, h1, h2, torch.cat([prev, pit], -1))
-        run = (run + 1.0) * (1.0 - keep)         # consecutive-loss counter
-        att = torch.clamp(run - fade_hold, min=0.0) * fade
-        # pure free-run on the first lost frame, geometric blend toward a
-        # hold as the outage lengthens (0 ** 0 is 1)
-        alpha = torch.pow(damp_c, torch.clamp(run - 1.0, min=0.0))
-        f_con = alpha[:, None] * f_out + (1.0 - alpha)[:, None] * prev
-        if energy_cap:
-            f_con = torch.cat([torch.minimum(f_con[:, :1], prev[:, :1]),
-                               f_con[:, 1:]], -1)
-        frame = torch.where(gone, f_con, f_out + r[:, t] * keep[:, None])
-        if freeze:
-            frame = torch.where(gone, prev, frame)
-        frame = torch.cat([frame[:, :1] + (-att)[:, None], frame[:, 1:]], -1)
-        prev, prev_pitch = frame, pit
-        frames.append(torch.cat([frame, pit], -1))
+        state, frame = conceal_step(model, state, r[:, t], pitch[:, t],
+                                    lost[:, t], fade_after=fade_after,
+                                    fade_step=fade_step, freeze=freeze,
+                                    damp=damp, energy_cap=energy_cap)
+        frames.append(frame)
     return torch.stack(frames, 1)
+
+
+def conceal_step(model: fp.FramePredictor, state, r: torch.Tensor,
+                 pitch: torch.Tensor, lost: torch.Tensor,
+                 fade_after: int = 3, fade_step: float = 0.012,
+                 freeze: bool = False, damp: float = 0.0,
+                 energy_cap: bool = True):
+    """One frame of the concealment, batched: state (h1, h2, prev (B, 18),
+    prev_pitch (B, 2), loss run (B,)), the frame's dequantised residual
+    r (B, 18), pitch (B, 2) and lost (B,) bool -> (state, frame (B, 20)
+    [coded | pitch held]).  conceal_decode_residual's loop and the
+    streaming receiver's tick (codec/streaming.py) both run it.  Its
+    scalars are Python floats and a 0-d fill, never a tensor made from a
+    Python value, which is a copy from the host that a CUDA graph's
+    capture refuses."""
+    h1, h2, prev, prev_pitch, run = state
+    gone = lost[:, None]
+    keep = 1.0 - lost.to(r.dtype)
+    pit = torch.where(gone, prev_pitch, pitch)
+    f_out, h1, h2 = fp.step(model, h1, h2, torch.cat([prev, pit], -1))
+    run = (run + 1.0) * (1.0 - keep)             # consecutive-loss counter
+    att = torch.clamp(run - float(fade_after), min=0.0) * float(fade_step)
+    # pure free-run on the first lost frame, geometric blend toward a
+    # hold as the outage lengthens (0 ** 0 is 1)
+    base = torch.full((), float(damp), dtype=run.dtype, device=run.device)
+    alpha = torch.pow(base, torch.clamp(run - 1.0, min=0.0))
+    f_con = alpha[:, None] * f_out + (1.0 - alpha)[:, None] * prev
+    if energy_cap:
+        f_con = torch.cat([torch.minimum(f_con[:, :1], prev[:, :1]),
+                           f_con[:, 1:]], -1)
+    frame = torch.where(gone, f_con, f_out + r * keep[:, None])
+    if freeze:
+        frame = torch.where(gone, prev, frame)
+    frame = torch.cat([frame[:, :1] + (-att)[:, None], frame[:, 1:]], -1)
+    return (h1, h2, frame, pit, run), torch.cat([frame, pit], -1)
 
 
 # Rows of one fec_requantize search: its (rows, E, 17) float64 squared
@@ -149,6 +166,54 @@ def fec_merge_residual(codebooks: fp.Codebooks,
     if pitch.ndim == 2:
         pitch = pitch[None]
     return r, pitch, lost
+
+
+class AdaptiveFecPolicy:
+    """Sender-side in-band FEC controller (RTCP-receiver-report style).
+
+    The redundancy stream costs real rate, so a deployed sender ships
+    it only while the receiver actually reports loss.  The receiver
+    needs no signalling: pack_packets_fec(fec_mask=...) writes fn=0 on
+    packets without redundancy, a layout every unpacker already
+    handles.
+
+    report(lost, total) folds a receiver report into an EMA of the
+    packet-loss rate; `enabled` turns FEC on above `on_threshold` and
+    back off below `off_threshold` (hysteresis — loss estimates are
+    noisy, and flapping FEC mid-burst is worse than either steady
+    state).  mask(n) materialises the per-packet fec_mask for the next
+    n packets at the current decision.
+    """
+
+    def __init__(self, on_threshold: float = 0.02,
+                 off_threshold: float = 0.005, ema: float = 0.7,
+                 start_enabled: bool = False):
+        if not 0.0 <= off_threshold <= on_threshold:
+            raise ValueError(
+                f"need 0 <= off_threshold <= on_threshold, got "
+                f"{off_threshold} and {on_threshold}")
+        self.on_threshold = on_threshold
+        self.off_threshold = off_threshold
+        self.ema = ema
+        self.loss_rate = 0.0
+        self.enabled = start_enabled
+
+    def report(self, lost: int, total: int) -> bool:
+        """Fold one receiver report (lost/total packets over the
+        report interval) into the estimate; returns `enabled`."""
+        if total > 0:
+            self.loss_rate = (self.ema * self.loss_rate
+                              + (1.0 - self.ema) * lost / total)
+        if self.enabled:
+            self.enabled = self.loss_rate >= self.off_threshold
+        else:
+            self.enabled = self.loss_rate >= self.on_threshold
+        return self.enabled
+
+    def mask(self, n_packets: int) -> np.ndarray:
+        """fec_mask for the next n packets (constant at the current
+        decision; re-evaluate per report interval)."""
+        return np.full(n_packets, self.enabled, bool)
 
 
 # --------------------------------------------------------------------------

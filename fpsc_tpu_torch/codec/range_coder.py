@@ -1,16 +1,19 @@
 """Range (arithmetic) coder for entropy-coded codec bitstreams.
 
-A copy of the offline paths of fpsc_tpu/codec/range_coder.py (lines
-16-137, 139-586, 589-838 and 1055-1065; the PyTorch port keeps its
-own): a carry-less 32-bit range coder, the adaptive frequency models,
-the `_Transcoder` that drives both pack and unpack, `pack_utterance_rc`,
+A copy of fpsc_tpu/codec/range_coder.py:16-1065 (the PyTorch port
+keeps its own): a carry-less 32-bit range coder with a strict mode that
+raises NeedBytes when the input runs out, the adaptive frequency
+models, the `_Transcoder` that drives both pack and unpack (with the
+snapshot and restore of a speculative frame), `pack_utterance_rc`,
 `unpack_utterance_rc`, the packets of a lossy transport with and
 without in-band FEC (`pack_packets`, `unpack_packets`,
 `pack_packets_fec`, `unpack_packets_fec`, each span coded by
-native_rc.best()) and `scalar_orders`.  Host code in numpy; it gives
-the JAX module's bytes and symbols exactly.  Not copied yet: the
-streaming coders and `FecPacketReceiver` (streaming serving),
-`collect_priors`, `build_models` and `entropy_pack` (encode).
+native_rc.best()), the serving side's `FecPacketReceiver` (the jitter
+buffer of the FEC transport), `StreamingRangeEncoder` and
+`StreamingRangeDecoder` (a frame at a time, the offline body's bytes),
+and `scalar_orders`.  Host code in numpy; it gives the JAX module's
+bytes and symbols exactly.  Not copied yet: `collect_priors`,
+`build_models` and `entropy_pack` (prior collection, ROADMAP Queue A 6).
 
 `scalar_orders` ranks the scalar codebooks with numpy's argsort on their
 float32 values, as the JAX module does, never with torch.argsort: the
@@ -99,9 +102,15 @@ class RangeEncoder:
         return bytes(self.out)
 
 
+class NeedBytes(Exception):
+    """Raised by a strict-mode RangeDecoder when it runs out of input
+    mid-symbol (streaming: the caller pushes more bytes and retries)."""
+
+
 class RangeDecoder:
-    def __init__(self, data):
+    def __init__(self, data, strict: bool = False):
         self.data = data
+        self.strict = strict
         self.pos = 0
         self.low = 0
         self.range = 0xFFFFFFFF
@@ -112,6 +121,8 @@ class RangeDecoder:
     def _byte(self) -> int:
         if self.pos < len(self.data):
             b = self.data[self.pos]
+        elif self.strict:
+            raise NeedBytes(self.pos)
         else:
             b = 0           # offline decode pads past the final flush
         self.pos += 1
@@ -519,6 +530,33 @@ class _Transcoder:
             self.step(t)
         return self
 
+    def _snapshot(self):
+        """Capture coder position + every adaptive table + context
+        state, so a streaming decoder can speculatively attempt a
+        frame and roll back on NeedBytes."""
+        c = self.coder
+        tabs = []
+
+        def walk(x):
+            if isinstance(x, AdaptiveFreqTable):
+                tabs.append((x, x.counts.copy()))
+            elif isinstance(x, list):
+                for y in x:
+                    walk(y)
+
+        for v in self.models.values():
+            walk(v)
+        return (c.pos, c.low, c.range, c.code, tabs, dict(self._st))
+
+    def _restore(self, snap):
+        pos, low, rng, code, tabs, st = snap
+        c = self.coder
+        c.pos, c.low, c.range, c.code = pos, low, rng, code
+        for tab, counts in tabs:
+            tab.counts = counts
+            tab._rebuild()
+        self._st = st
+
 
 def pack_utterance_rc(ind1, ind2, indices: Dict, pcodes,
                       sizes: Dict, static_models: Dict = None,
@@ -809,6 +847,220 @@ def unpack_packets_fec(payloads: list, sizes: Dict, fec_sizes: Dict,
         pos += n
     out["pitch"] = pitch
     return out
+
+
+class FecPacketReceiver:
+    """Host-side jitter-buffer glue for the pack_packets_fec transport
+    (in-order arrival, None = transport-detected loss).
+
+    Using in-band FEC forces a ONE-PACKET delay: span i-1's fate is
+    only known once packet i arrives (it carries span i-1's
+    redundancy), so push_packet(i) emits span i-1's frames —
+    primary if packet i-1 arrived, packet i's redundant body if not,
+    placeholder lost frames if both dropped.  finish() drains the
+    last span.  Emitted frame dicts {ind1, ind2, indices, pcodes,
+    lost, from_fec} feed StreamingReceiver.process_symbols (whose
+    fec_codebooks path dequantises the lean layout on device)."""
+
+    def __init__(self, sizes: Dict, fec_sizes: Dict,
+                 packet_frames: int, static_models: Dict = None,
+                 priors: Dict = None, fec_priors: Dict = None,
+                 orders: Dict = None, fec_orders: Dict = None):
+        self._sizes = sizes
+        self._fec_sizes = fec_sizes
+        self._pf = packet_frames
+        self._kw = (static_models, priors, orders)
+        self._fkw = (static_models,
+                     fec_priors if fec_priors is not None else priors,
+                     fec_orders if fec_orders is not None else orders)
+        self._n_vq = max(len(sizes["vq"]), 1)
+        self._n_vq_bl = max(len(sizes.get("vq_bl", [])), 1)
+        self._prev = None
+        self._started = False
+
+    def _frames_from(self, body: bytes, n: int, sizes, kw,
+                     from_fec: bool) -> list:
+        tc = _Transcoder(sizes, kw[0], kw[1], decode=True, data=body,
+                         length=n, orders=kw[2]).run()
+        return [{"ind1": bool(tc.ind1[t]), "ind2": bool(tc.ind2[t]),
+                 "indices": {"scl": int(tc.iscl[t]),
+                             "scl_bl": int(tc.iscl_bl[t]),
+                             "vq": np.asarray(tc.ivq[t]),
+                             "vq_bl": np.asarray(tc.ivq_bl[t])},
+                 "pcodes": np.asarray(tc.pcodes[t]),
+                 "lost": False, "from_fec": from_fec}
+                for t in range(n)]
+
+    def _lost_frames(self, n: int) -> list:
+        return [{"ind1": False, "ind2": False,
+                 "indices": {"scl": -1, "scl_bl": -1,
+                             "vq": np.full(self._n_vq, -1),
+                             "vq_bl": np.full(self._n_vq_bl, -1)},
+                 "pcodes": np.zeros(2, np.int64),
+                 "lost": True, "from_fec": False} for _ in range(n)]
+
+    def _emit_prev(self, cur, lost_n: int = None) -> list:
+        prev = self._prev
+        if prev is not None:
+            blen = int.from_bytes(prev[2:4], "big")
+            return self._frames_from(prev[4:4 + blen], prev[0],
+                                     self._sizes, self._kw, False)
+        if cur is not None and cur[1] > 0:
+            blen = int.from_bytes(cur[2:4], "big")
+            return self._frames_from(cur[4 + blen:], cur[1],
+                                     self._fec_sizes, self._fkw, True)
+        return self._lost_frames(self._pf if lost_n is None else lost_n)
+
+    def push_packet(self, payload) -> list:
+        """payload: packet bytes or None.  Returns the PREVIOUS span's
+        frames (empty list on the very first push)."""
+        out = [] if not self._started else self._emit_prev(payload)
+        self._prev = payload
+        self._started = True
+        return out
+
+    def finish(self, final_frames: int = None) -> list:
+        """Drain the final span (no later packet carries redundancy
+        for it, so it is primary-or-lost).  When the final packet was
+        LOST and the utterance does not divide evenly into packets,
+        pass `final_frames` (the true length of the last — short —
+        span, e.g. from the .fpsc frame-count record) so the receiver
+        does not emit packet_frames phantom lost frames."""
+        out = (self._emit_prev(None, lost_n=final_frames)
+               if self._started else [])
+        self._prev = None
+        self._started = False
+        return out
+
+
+class StreamingRangeEncoder:
+    """Frame-by-frame entropy ENCODER over the pack_utterance_rc
+    format (no length header; the byte stream is open-ended).
+
+    Bytes are emitted as the internal range coder renormalises — no
+    per-frame flush — so the rate is IDENTICAL to the offline packer
+    body; the matching StreamingRangeDecoder runs at most the coder's
+    4-byte pipeline behind the encoder (~1 frame at codec rates).
+    Call push_frame per 10 ms frame (returns the newly available
+    bytes, often b"") and finish() once at end of stream (the only
+    flush, 4 bytes).  The reference has no streaming bitstream at
+    all; this serves the StreamingCodec serving path
+    (codec/streaming.py), whose classes exchange raw symbol rows."""
+
+    def __init__(self, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None):
+        self._tc = _Transcoder(sizes, static_models, priors,
+                               decode=False, orders=orders)
+        tc = self._tc
+        tc.ind1, tc.ind2 = [], []
+        tc.iscl, tc.iscl_bl = [], []
+        tc.ivq, tc.ivq_bl, tc.pcodes = [], [], []
+        self._t = 0
+        self._drained = 0
+
+    def push_frame(self, ind1, ind2, indices_row: Dict,
+                   pcode_row) -> bytes:
+        """indices_row: {scl, scl_bl, vq (S,), vq_bl (S',)} ints for
+        ONE frame (-1 where the stream is not coded); pcode_row: the
+        (2,) quantize_pitch codes."""
+        tc = self._tc
+        tc.ind1.append(int(bool(ind1)))
+        tc.ind2.append(int(bool(ind2)))
+        tc.iscl.append(int(indices_row.get("scl", -1)))
+        tc.iscl_bl.append(int(indices_row.get("scl_bl", -1)))
+        tc.ivq.append([int(x) for x in
+                       np.atleast_1d(indices_row.get("vq", [-1]))])
+        tc.ivq_bl.append([int(x) for x in
+                          np.atleast_1d(indices_row.get("vq_bl",
+                                                        [-1]))])
+        tc.pcodes.append([int(pcode_row[0]), int(pcode_row[1])])
+        tc.step(self._t)
+        self._t += 1
+        return self._drain()
+
+    def _drain(self) -> bytes:
+        out = bytes(self._tc.coder.out[self._drained:])
+        self._drained = len(self._tc.coder.out)
+        return out
+
+    def finish(self) -> bytes:
+        self._tc.coder.finish()
+        return self._drain()
+
+
+class StreamingRangeDecoder:
+    """Frame-by-frame entropy DECODER matching StreamingRangeEncoder.
+
+    push_bytes() appends transport bytes (final=True after the
+    encoder's finish()); pull_frame() returns the next decoded frame
+    dict {ind1, ind2, indices, pcodes} or None when more bytes are
+    needed.  A frame is attempted speculatively: on NeedBytes every
+    adaptive table and the coder position roll back, so symbol
+    streams and model state stay bit-identical to the offline
+    decoder's."""
+
+    def __init__(self, sizes: Dict, priors: Dict = None,
+                 orders: Dict = None, static_models: Dict = None):
+        self._sizes = sizes
+        self._args = (static_models, priors, orders)
+        self._buf = bytearray()
+        self._final = False
+        self._tc = None
+        self._t = 0
+
+    def push_bytes(self, data: bytes, final: bool = False):
+        self._buf += data
+        if final:
+            self._final = True
+            if self._tc is not None:
+                self._tc.coder.strict = False
+
+    def _ensure_tc(self) -> bool:
+        if self._tc is not None:
+            return True
+        if len(self._buf) < 4 and not self._final:
+            return False
+        static_models, priors, orders = self._args
+        tc = _Transcoder(self._sizes, static_models, priors,
+                         decode=True, orders=orders, data=b"",
+                         length=0)
+        tc.coder = RangeDecoder(self._buf, strict=not self._final)
+        tc.ind1, tc.ind2 = [], []
+        tc.iscl, tc.iscl_bl = [], []
+        tc.ivq, tc.ivq_bl, tc.pcodes = [], [], []
+        self._tc = tc
+        return True
+
+    def pull_frame(self):
+        if not self._ensure_tc():
+            return None
+        tc = self._tc
+        n_vq = max(len(self._sizes["vq"]), 1)
+        n_vq_bl = max(len(self._sizes.get("vq_bl", [])), 1)
+        tc.ind1.append(False)
+        tc.ind2.append(False)
+        tc.iscl.append(-1)
+        tc.iscl_bl.append(-1)
+        tc.ivq.append([-1] * n_vq)
+        tc.ivq_bl.append([-1] * n_vq_bl)
+        tc.pcodes.append([0, 0])
+        snap = tc._snapshot()
+        try:
+            tc.step(self._t)
+        except NeedBytes:
+            tc._restore(snap)
+            for arr in (tc.ind1, tc.ind2, tc.iscl, tc.iscl_bl,
+                        tc.ivq, tc.ivq_bl, tc.pcodes):
+                arr.pop()
+            return None
+        t = self._t
+        self._t += 1
+        return {"ind1": bool(tc.ind1[t]), "ind2": bool(tc.ind2[t]),
+                "indices": {"scl": tc.iscl[t],
+                            "scl_bl": tc.iscl_bl[t],
+                            "vq": np.asarray(tc.ivq[t]),
+                            "vq_bl": np.asarray(tc.ivq_bl[t])},
+                "pcodes": np.asarray(tc.pcodes[t])}
 
 
 def scalar_orders(codebooks) -> Dict:

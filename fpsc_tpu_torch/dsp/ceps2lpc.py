@@ -11,10 +11,12 @@ from __future__ import annotations
 import torch
 
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.utils.device import device_constant
 
 
 def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+    """A table on like's device, made once per device (capture-safe)."""
+    return device_constant(a, like.device)
 
 
 def idct(x: torch.Tensor) -> torch.Tensor:

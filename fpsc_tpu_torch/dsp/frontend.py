@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.dsp.emphasis import PREEMPH, preemphasis_torch
-from fpsc_tpu_torch.utils.device import no_tf32, resolve_device
+from fpsc_tpu_torch.utils.device import (device_constant, no_tf32,
+                                         resolve_device)
 
 PITCH_MIN = 32     # 500 Hz
 PITCH_MAX = 256    # 62.5 Hz
@@ -56,7 +57,8 @@ _WINDOW = vorbis_window()
 
 
 def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=torch.float32, device=like.device)
+    """A table on like's device, made once per device (capture-safe)."""
+    return device_constant(a, like.device)
 
 
 def frames_to_cepstra(frames: torch.Tensor) -> torch.Tensor:

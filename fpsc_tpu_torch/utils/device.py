@@ -7,7 +7,7 @@ request they raise: nothing carries on silently on the CPU.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +22,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+# (id of the numpy table, device) -> (the table, its float32 tensor)
+_CONSTANTS: Dict[Tuple[int, torch.device], Tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def device_constant(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The float32 tensor of a module-level numpy table on `device`, made
+    once per table and device and kept.  A copy from pageable host
+    memory is refused while a CUDA stream is capturing a graph, so a
+    function that a graph captures (the streaming ticks) must find its
+    tables already on the card: the eager warm-up before the capture
+    makes them.  The entry holds the table, so its id stays its own."""
+    key = (id(a), torch.device(device))
+    hit = _CONSTANTS.get(key)
+    if hit is None or hit[0] is not a:
+        hit = _CONSTANTS[key] = (a, torch.as_tensor(
+            a, dtype=torch.float32, device=device))
+    return hit[1]
 
 
 def host_array(x) -> np.ndarray:

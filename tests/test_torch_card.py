@@ -718,3 +718,215 @@ def test_encode_with_tf32_on_computes_f32(cuda_device, tmp_path, mask):
         np.testing.assert_array_equal(a, b)
     for k in off[1]:
         np.testing.assert_array_equal(on[1][k], off[1][k], err_msg=k)
+
+
+# ---------------------------------------------------------------- streaming
+
+STREAM_KINDS = ["frontend", "encoder", "decoder", "vocoder", "receiver",
+                "transmitter", "codec", "codec_pcm"]
+STREAM_B, STREAM_TICKS = 3, 6
+
+
+def _stream_parts(device, full=False):
+    """Streaming weights on `device`, seeded: at the small widths of
+    tests/test_torch_streaming.py (predictor 24/12, books of 8 / 4 scalar
+    and (16,) / (8,) VQ entries, LPCNet GRU_A 16, GRU_B 8, embedding and
+    conditioning 8), or at full width (`full`: chip_smoke.py's), the
+    predictor's head scaled by chip_smoke's HEAD_SCALE -> (predictor,
+    books, lean FEC books, vocoder)."""
+    from fpsc_tpu_torch.codec import rate_control
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(3)
+    pred = fp.FramePredictor(fp.FramePredictorConfig() if full else
+                             fp.FramePredictorConfig(gru_units1=24,
+                                                     gru_units2=12), g)
+    with torch.no_grad():
+        pred.fc.w.mul_(cs.HEAD_SCALE)
+        pred.fc.b.mul_(cs.HEAD_SCALE)
+    voc = LPCNet(LPCNetConfig() if full else LPCNetConfig(
+        gru_a_units=16, gru_b_units=8, embed_dim=8, cond_units=8), g)
+    rng = np.random.RandomState(5)
+    sizes = ((256, 16, (1024, 1024), (512,)) if full
+             else (8, 4, (16,), (8,)))
+
+    def t(x):
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    books = fp.Codebooks(
+        scl=t(np.sort(rng.randn(sizes[0])) * 0.05),
+        vq=tuple(t(rng.randn(e, 17) * 0.03) for e in sizes[2]),
+        scl_bl=t(np.sort(rng.randn(sizes[1])) * 0.02),
+        vq_bl=tuple(t(rng.randn(e, 17) * 0.02) for e in sizes[3]))
+    fec = rate_control.preset_codebooks(books, **rate_control.PRESETS["lean"])
+    return pred.to(device), books, fec, voc.to(device)
+
+
+def _stream_make(kind, parts, device, graph=True, b=STREAM_B):
+    from fpsc_tpu_torch.codec import streaming as st
+    pred, books, fec, voc = parts
+    kw = dict(batch=b, device=device, graph=graph)
+    return {
+        "frontend": lambda: st.StreamingFrontend(**kw),
+        "encoder": lambda: st.StreamingEncoder(pred, books, **kw),
+        "decoder": lambda: st.StreamingDecoder(pred, books, **kw),
+        "vocoder": lambda: st.StreamingVocoder(voc, seed=2, **kw),
+        "receiver": lambda: st.StreamingReceiver(pred, books, voc, seed=2,
+                                                 fec_codebooks=fec, **kw),
+        "transmitter": lambda: st.StreamingTransmitter(pred, books, **kw),
+        "codec": lambda: st.StreamingCodec(pred, books, voc, seed=2, **kw),
+        "codec_pcm": lambda: st.StreamingCodec(pred, books, voc, seed=2,
+                                               from_pcm=True, **kw),
+    }[kind]()
+
+
+@pytest.fixture(scope="module")
+def stream_inputs():
+    """PCM (chip_smoke's `_speech`), the CPU frontend's features of it and
+    the CPU encoder's symbols of those, tick by tick."""
+    from fpsc_tpu_torch.codec import streaming as st
+    cs = _chip_smoke()
+    pcm = cs._stream_pcm(STREAM_B, STREAM_TICKS + 2, seed=13)
+    parts = _stream_parts("cpu")
+    front = st.StreamingFrontend(batch=STREAM_B, device="cpu")
+    feats = [front.process_block(cs._block(pcm, k))
+             for k in range(STREAM_TICKS + 2)][2:]
+    enc = st.StreamingEncoder(parts[0], parts[1], batch=STREAM_B,
+                              device="cpu")
+    return pcm, feats, [enc.encode_frame(f) for f in feats]
+
+
+def _stream_tick(kind, obj, inputs, k):
+    """Tick k -> its outputs as one host array."""
+    cs = _chip_smoke()
+    pcm, feats, syms = inputs
+    f, sym = feats[k], syms[k]
+    lost = np.arange(STREAM_B) == k % STREAM_B
+    out = {
+        "frontend": lambda: obj.process_block(cs._block(pcm, k)),
+        "encoder": lambda: obj.encode_frame(f),
+        "decoder": lambda: obj.decode_frame(sym["ind1"], sym["ind2"],
+                                            sym["indices"], f[:, 18:]),
+        "vocoder": lambda: obj.synthesize_frame(f),
+        "receiver": lambda: obj.process_symbols(
+            sym["ind1"], sym["ind2"], sym["indices"], f[:, 18:], lost=lost,
+            # the lean books keep the scalar books and VQ stage 0
+            fec_indices={"scl": sym["indices"]["scl"],
+                         "scl_bl": sym["indices"]["scl_bl"],
+                         "vq": sym["indices"]["vq"][:, :1],
+                         "vq_bl": -np.ones((STREAM_B, 1), int)},
+            from_fec=~lost & (np.arange(STREAM_B) % 2 == 0)),
+        "transmitter": lambda: obj.process_pcm(cs._block(pcm, k)),
+        "codec": lambda: obj.process_frame(f),
+        "codec_pcm": lambda: obj.process_pcm(cs._block(pcm, k)),
+    }[kind]()
+    if isinstance(out, dict):
+        indices = out.pop("indices", {})
+        out = {**out, **indices}
+        return np.concatenate([np.asarray(out[n], np.float64).reshape(
+            STREAM_B, -1) for n in sorted(out)], 1)
+    return np.asarray(out, np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+def test_streaming_graph_equals_eager(cuda_device, stream_inputs, kind):
+    """Each class's replayed CUDA graph gives its eager tick on the card
+    (graph=False) bit for bit, tick after tick, the same uniforms in both
+    (one seed).  (chip_smoke.py holds the card to the CPU, knife edges
+    counted.)"""
+    parts = _stream_parts(cuda_device)
+    graph = _stream_make(kind, parts, cuda_device)
+    eager = _stream_make(kind, parts, cuda_device, graph=False)
+    assert graph._tick.graph is not None and eager._tick.graph is None
+    assert graph._tick.capture_s > 0
+    for k in range(STREAM_TICKS):
+        np.testing.assert_array_equal(
+            _stream_tick(kind, graph, stream_inputs, k),
+            _stream_tick(kind, eager, stream_inputs, k), err_msg=str(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+def test_streaming_reset_then_replay_equals_a_new_instance(
+        cuda_device, stream_inputs, kind):
+    """reset() zeroes the state in place (the graph keeps its buffers):
+    replaying after it gives what a new instance gives (the uniforms are
+    injected where a vocoder draws them: the generator is not reset, as
+    the JAX key is not)."""
+    parts = _stream_parts(cuda_device)
+    used = _stream_make(kind, parts, cuda_device)
+    for k in range(STREAM_TICKS):
+        _stream_tick(kind, used, stream_inputs, k)
+    used.reset()
+    fresh = _stream_make(kind, parts, cuda_device)
+    if hasattr(used, "_uniforms"):
+        used._uniforms.generator.manual_seed(2)
+    for k in range(STREAM_TICKS):
+        np.testing.assert_array_equal(
+            _stream_tick(kind, used, stream_inputs, k),
+            _stream_tick(kind, fresh, stream_inputs, k), err_msg=str(k))
+
+
+@pytest.mark.cuda
+def test_streaming_tf32_on_gives_the_f32_tick(cuda_device, stream_inputs):
+    """With TF32 turned on for matmuls and cuDNN, the duplex codec from
+    PCM at full width, captured and eager, gives the tick of TF32 off:
+    every tick is captured and run under no_tf32 (the flags are read at
+    capture, not at replay); and a plain full-width product does change
+    under TF32 here, so the check can fail."""
+    parts = _stream_parts(cuda_device, full=True)
+    x = torch.randn((64, 512), generator=torch.Generator().manual_seed(0))
+    x = x.to(cuda_device)
+    w = parts[3].gru_a.wi
+    want = x @ w.T
+    runs = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            if tf32:
+                assert not torch.equal(x @ w.T, want)
+            runs[tf32] = [
+                [_stream_tick("codec_pcm", obj, stream_inputs, k)
+                 for k in range(3)]
+                for obj in (_stream_make("codec_pcm", parts, cuda_device),
+                            _stream_make("codec_pcm", parts, cuda_device,
+                                         graph=False))]
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for on, off in zip(runs[True], runs[False]):
+        for a, b in zip(on, off):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["item", "bool", "cpu", "mask"])
+def test_streaming_capture_refuses_a_host_sync(cuda_device, sync):
+    """A tick that synchronises with the host cannot be captured: the
+    runner raises (no eager fallback), and a right tick captures after
+    it."""
+    from fpsc_tpu_torch.codec.ticks import TickRunner
+    state = torch.zeros(4, device=cuda_device)
+    x = torch.ones(4, device=cuda_device)
+
+    def bad(s, x):
+        y = s + x
+        if sync == "item":
+            y = y * y.sum().item()
+        elif sync == "bool":
+            y = y * 2 if bool(y.sum() > 0) else y
+        elif sync == "cpu":
+            y = y + y.cpu().sum()
+        else:
+            y = y[y > 0]
+        return (y[:4],), y[:4]
+
+    with pytest.raises(RuntimeError):
+        TickRunner(bad, [state], [x])
+    runner = TickRunner(lambda s, x: ((s + x,), s + x), [state], [x])
+    runner.stage[0][...] = 2.0
+    np.testing.assert_array_equal(runner.run(), np.full(4, 2.0))
+    np.testing.assert_array_equal(runner.run(), np.full(4, 4.0))
