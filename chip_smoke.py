@@ -182,7 +182,28 @@ exit and no result line:
    torch.profiler at batch 8 (also the encoder's alone: the closed loop
    of the encode path a frame); the time to first audio at batch 1 (a
    captured codec after reset(), its first two blocks) beside the 10 ms
-   algorithmic lookahead.
+   algorithmic lookahead;
+19. vocoder training (fpsc_tpu_torch/train/train_lpcnet.py, the second
+   main path): (a) train_lpcnet.run on the card with the flagship recipe
+   (TRAIN_RECIPE, scripts/validate_flagship.py's vocoder stage: bunch=2,
+   GRU_B 32, GRU_A at 0.2 in (64, 64) blocks, mu-law noise 2, 96
+   speech-like utterances of 14,400 samples, batches of 16), cut to 12
+   steps with the sparsity ramp over steps 0-8 (TRAIN_CUT): every loss
+   finite, the last below the first, 22 of GRU_A's 108 blocks live after
+   the ramp; the median step seconds (the first apart), samples a second
+   and peak device memory (also above what was resident before) printed
+   with the card's name and power limit;
+   (b) one batch (B=2, 1 chunk) at full width for bunch 1, 2 and 4 on the
+   card against the CPU from the same weights: the loss within rtol
+   1e-5, every gradient leaf within 1e-4 of its largest element, the
+   mu-law index flips between the devices' streams counted (none
+   allowed above one in a thousand; the CPU's streams given to the card
+   where any), and on the card the loss over TRAIN_CHECK_CHUNKS
+   rematerialised time segments within rtol 1e-5 of the one-shot loss,
+   the peak memory of each above the resident printed; (c) the main path of 4 with (a)'s
+   checkpoint as the vocoder (train.vocoder_model): it must launch the
+   bunch=2 block-sparse form and the fold, auto_block_pattern must find
+   the 22 live blocks, and the audio must pass 4's checks.
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -197,6 +218,7 @@ the card's name and power limit as nvidia-smi prints them, and the
 result line.
 """
 import contextlib
+import copy
 import io
 import json
 import os
@@ -218,7 +240,9 @@ from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.codec import streaming
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.data.dataset import build_dataset
 from fpsc_tpu_torch.dsp import emphasis, frontend
+from fpsc_tpu_torch.dsp.mulaw import l2u_index
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
@@ -227,6 +251,7 @@ from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
 from fpsc_tpu_torch.quant import vq
+from fpsc_tpu_torch.train import train_lpcnet
 from fpsc_tpu_torch.utils.device import no_tf32
 
 N_UTT, UTT_FRAMES = 8, 200
@@ -814,7 +839,8 @@ def _artifacts(cfg: Config, dev, sparse: bool):
     with torch.no_grad():
         artifacts[0].fc.w.mul_(HEAD_SCALE)
         artifacts[0].fc.b.mul_(HEAD_SCALE)
-    if sparse:
+    if sparse and not cfg.train.vocoder_model:
+        # a trained vocoder's GRU_A is sparse from its training
         lpcnet.sparsify_gru_a(getattr(model, "base", model), DENSITY,
                               SPARSE_BLOCK)
     return artifacts, model
@@ -2440,6 +2466,179 @@ def stream_timing(dev, m: StreamModels, smi: str):
                       "algorithmic_lookahead_ms": 10.0, "card": smi}))
 
 
+# The flagship vocoder recipe (scripts/validate_flagship.py:85-90,
+# 106-120): bunch=2, GRU_B 32, GRU_A at 0.2 in (64, 64) blocks, mu-law
+# noise 2, lr 0.001, 96 speech-like utterances of 6 chunks (14,400
+# samples, 7,200 pair steps) in batches of 16.  Cut in depth: 12 steps
+# (2 epochs of 6), the sparsity ramp over steps 0-8 (the recipe's 200 to
+# 4 x its epochs), so that it ends inside the run.
+TRAIN_RECIPE = ["data.synthetic=true", "data.synthetic_style=speech",
+                "data.synthetic_utterances=96", "data.chunks=6",
+                "data.batch_size=16", "train.learning_rate=0.001",
+                "lpcnet.bunch=2", "lpcnet.gru_b_units=32",
+                "lpcnet.gru_a_density=0.2", "lpcnet.noise_levels=2"]
+TRAIN_CUT = ["train.epochs=2", "lpcnet.sparsify_start=0",
+             "lpcnet.sparsify_end=8", "train.save_every=100"]
+TRAIN_LABEL = "smoke_voc"
+# the card against the CPU: (bunch, GRU_B) at full width, B=2, 1 chunk
+TRAIN_CHECKS = ((1, 16), (2, 32), (4, 64))
+TRAIN_CHECK_CHUNKS = 3
+
+
+def _timed_steps(make, store: list):
+    """make_step, its train step appending (loss, seconds) to store, the
+    card synchronised before and after (float reads the loss)."""
+
+    def timed_make(*args, **kwargs):
+        train_step, eval_step = make(*args, **kwargs)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(train_step(*a))
+            store.append((loss, time.perf_counter() - t0))
+            return torch.tensor(loss)
+
+        return timed, eval_step
+
+    return timed_make
+
+
+def _live_blocks(wh: torch.Tensor, block=SPARSE_BLOCK):
+    r, c = wh.shape
+    blocks = wh.detach().reshape(r // block[0], block[0], c // block[1],
+                                 block[1])
+    return int((blocks.abs().sum((1, 3)) > 0).sum()), blocks.shape[0] * \
+        blocks.shape[2]
+
+
+def train_recipe(dev, work: str, smi: str):
+    """(a) 12 steps of the flagship recipe through train_lpcnet.run on
+    the card -> the decode overrides that name its checkpoint."""
+    phase("vocoder training (a): the flagship recipe, 12 steps")
+    print("cut from the recipe: 12 steps (2 epochs of 96 / 16), the "
+          "sparsity ramp over steps 0-8 (the recipe's 200 to 1,600); "
+          "widths as published")
+    cfg = apply_overrides(Config(label=TRAIN_LABEL), [
+        *TRAIN_RECIPE, *TRAIN_CUT, f"train.save_dir={work}"])
+    steps, make = [], train_lpcnet.make_step
+    train_lpcnet.make_step = _timed_steps(make, steps)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        model, _ = train_lpcnet.run(cfg, device=dev)
+    finally:
+        train_lpcnet.make_step = make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for loss, _ in steps]
+    print("step losses " + ", ".join(f"{v:.4f}" for v in losses))
+    if len(losses) != 12 or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{len(losses)} training steps, losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses[0]} -> "
+                           f"{losses[-1]}")
+    live, total = _live_blocks(model.base.gru_a.wh)
+    print(f"GRU_A after the ramp: {live} of {total} {SPARSE_BLOCK} blocks "
+          "live")
+    if (live, total) != (22, 108):
+        raise RuntimeError("the trained GRU_A should have 22 of 108 blocks "
+                           "live")
+    secs = sorted(s for _, s in steps[1:])
+    med = float(np.median(secs))
+    samples = cfg.data.batch_size * cfg.data.chunks * C.SAMPLES_PER_CHUNK
+    print(json.dumps({"train_step": {
+        "config": "flagship bunch=2 GRU_B 32 sparse 0.2, B=16, 14,400 "
+                  "samples", "first_step_s": steps[0][1],
+        "median_step_s": med, "min_step_s": secs[0], "max_step_s": secs[-1],
+        "samples_per_s": samples / med, "peak_memory_gb": peak / 2 ** 30,
+        "peak_above_resident_gb": (peak - resident) / 2 ** 30,
+        "resident_before_gb": resident / 2 ** 30, "run_s": wall,
+        "card": smi}}))
+    return [f"train.save_dir={work}",
+            f"train.vocoder_model={TRAIN_LABEL}_s",
+            f"train.vocoder_epoch={cfg.train.epochs - 1}"]
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def _loss_and_grads(model, loss_fn, arrs, **kw):
+    model.zero_grad(set_to_none=True)
+    with no_tf32():
+        loss = loss_fn(model, arrs["feat"], arrs["periods"], arrs["x"],
+                       arrs["lpc"], **kw)
+        loss.backward()
+    return loss.item(), _grads(model)
+
+
+def train_card_against_cpu(dev):
+    """(b) The loss and gradients of one batch on the card against the
+    CPU, bunch 1, 2 and 4 at full width; the chunked loss against the
+    one-shot one on the card, with the peak memory of each."""
+    phase("vocoder training (b): the card against the CPU, bunch 1/2/4 at "
+          "full width, B=2, 1 chunk")
+    data = apply_overrides(Config(), [
+        "data.synthetic=true", "data.synthetic_style=speech",
+        "data.synthetic_utterances=2", "data.chunks=1"]).data
+    batch = next(build_dataset(data, "train", device=dev).iter_batches(
+        2, seed=0))
+    host = {k: torch.as_tensor(v)
+            for k, v in train_lpcnet.vocoder_inputs(batch).items()}
+    card = {k: v.to(dev) for k, v in host.items()}
+    for bunch, hb in TRAIN_CHECKS:
+        cfg = lpcnet.LPCNetConfig(gru_b_units=hb)
+        ref = lpcnet_bunched.VOCODERS[bunch](
+            cfg, torch.Generator().manual_seed(40 + bunch))
+        model = copy.deepcopy(ref).to(dev)
+        loss_fn = lpcnet_bunched.LOSSES[bunch]
+        own = [lpcnet.training_streams(a["x"], a["lpc"])
+               for a in (host, card)]
+        flips = sum(int((l2u_index(g.cpu() * 32768.0)
+                         != l2u_index(w * 32768.0)).sum())
+                    for g, w in zip(own[1], own[0]))
+        kw = {} if not flips else {
+            "streams": tuple(s.to(dev) for s in own[0])}
+        t0 = time.perf_counter()
+        want, want_g = _loss_and_grads(ref, loss_fn, host)
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        got, got_g = _loss_and_grads(model, loss_fn, card, **kw)
+        peak = torch.cuda.max_memory_allocated() - resident
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        chunked, _ = _loss_and_grads(model, loss_fn, card,
+                                     time_chunks=TRAIN_CHECK_CHUNKS, **kw)
+        peak_chunked = torch.cuda.max_memory_allocated() - resident
+        worst = max(float((got_g[n] - g).abs().max() / g.abs().max())
+                    for n, g in want_g.items())
+        print(f"bunch={bunch} GRU_B {hb}: loss card {got!r} cpu {want!r} "
+              f"(rel {abs(got - want) / want:.3g}); gradients within "
+              f"{worst:.3g} of each leaf's largest; {flips} mu-law index "
+              f"flips between the devices' streams"
+              f"{' (the CPU streams given to the card)' if flips else ''}; "
+              f"time_chunks={TRAIN_CHECK_CHUNKS} loss {chunked!r} (rel "
+              f"{abs(chunked - got) / got:.3g}); peak memory above the "
+              f"resident, one-shot "
+              f"{peak / 2 ** 20:.1f} MiB, chunked "
+              f"{peak_chunked / 2 ** 20:.1f} MiB; CPU step {cpu_s:.1f} s")
+        if not abs(got - want) <= 1e-5 * abs(want):
+            raise RuntimeError(f"bunch={bunch}: the card's loss is not the "
+                               "CPU's")
+        if not worst <= 1e-4:
+            raise RuntimeError(f"bunch={bunch}: the card's gradients are "
+                               "not the CPU's")
+        if not abs(chunked - got) <= 1e-5 * abs(got):
+            raise RuntimeError(f"bunch={bunch}: the chunked loss is not the "
+                               "one-shot loss")
+        if flips > host["x"].numel() // 1000:
+            raise RuntimeError(f"bunch={bunch}: {flips} mu-law index flips "
+                               "between the card's streams and the CPU's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2492,6 +2691,10 @@ def main() -> int:
                                                       torch.device("cpu")))
         stream_entropy(dev, m, *stream_against_batch(dev, m, work))
         stream_timing(dev, m, smi)
+        trained = train_recipe(dev, work, smi)
+        train_card_against_cpu(dev)
+        phase("vocoder training (c): the trained checkpoint decodes")
+        main_path(dev, work, FLAGSHIP + trained, UTT_FRAMES, True, "trained")
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -7,10 +7,17 @@ nn.GRU, reference src/models/wavernn.py:37-38):
     z = sigmoid(x Wiz^T + biz + h Whz^T + bhz)
     n = tanh  (x Win^T + bin + r * (h Whn^T + bhn))
     h' = (1 - z) n + z h
+
+`gru_scan` runs the recurrence as a Python loop of eager steps (the
+closed-loop encoder and the streaming ticks); `gru_seq` runs a whole
+teacher-forced sequence, with its gradients, as one call of PyTorch's
+fused GRU (cuDNN on the card, ATen's cell loop on the CPU), whose gate
+math is the same: [r|z|n] rows, r applied to h Whn^T + bhn.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional
 
 import torch
@@ -74,6 +81,27 @@ def gru_scan(gru: GRU, xs: torch.Tensor, h0: Optional[torch.Tensor] = None,
         h = _gates(pre[:, t], h, gru.wh, gru.bh)
         ys[t] = h
     return torch.stack(ys, dim=1), h
+
+
+def gru_seq(gru: GRU, xs: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """Full sequence for training. xs: (B, L, I) -> (ys (B, L, H), last
+    state (B, H)), the function of JAX's gru_scan (fpsc_tpu/models/
+    gru.py:77-91) and of `gru_scan` here, in one call of the fused GRU
+    of PyTorch (torch._VF.gru, the call nn.GRU makes) with the module's
+    own parameters, so that their gradients reach them.  On the card
+    it is cuDNN's GRU: run it under `utils.device.no_tf32` for float32
+    arithmetic."""
+    b = xs.shape[0]
+    h = (xs.new_zeros((1, b, gru.units)) if h0 is None
+         else h0[None].contiguous())
+    with warnings.catch_warnings():
+        # cuDNN copies the four weights into one buffer a call (nn.GRU
+        # keeps them in one); a few MB at the flagship's widths
+        warnings.filterwarnings("ignore", "RNN module weights are not part")
+        ys, h_t = torch._VF.gru(xs.contiguous(), h,
+                                [gru.wi, gru.wh, gru.bi, gru.bh],
+                                True, 1, 0.0, True, False, True)
+    return ys, h_t[0]
 
 
 def bigru_scan(fwd: GRU, bwd: GRU, xs: torch.Tensor) -> torch.Tensor:

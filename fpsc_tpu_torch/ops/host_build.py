@@ -1,7 +1,7 @@
 """Build the port's host C++ libraries with g++ and load them.
 
 The sources under fpsc_tpu_torch/csrc/ with a `.cpp` suffix are host
-code (no CUDA): the range coder's runtime.  Each is compiled at first
+code (no CUDA): the range coder's runtime and the feature extractor.  Each is compiled at first
 use with the flags below into build/host/ at the repo root, named by a
 hash of the source and the flags, so an edited source is rebuilt.  Test
 workers may build the same library at once: each compiles to a name of

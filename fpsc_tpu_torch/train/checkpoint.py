@@ -1,19 +1,24 @@
-"""Load checkpoints and codebooks written by the JAX package, without JAX.
+"""Checkpoints and codebooks of the port, and those of the JAX package.
 
 fpsc_tpu.train.checkpoint.save (checkpoint.py:25-35) pickles a dict of
-numpy NamedTuple trees: params, optimizer state, step, extra.  This
-loader reads it with a restricted unpickler: the fpsc_tpu parameter
-classes map to port-side NamedTuples with the same fields, every
-optax class (the optimizer state) maps to an inert stub, because the
-port does not depend on optax, and numpy's array reconstructors are
-allowed.  Any other class is refused with a ValueError.
+numpy NamedTuple trees: params, optimizer state, step, extra.  The
+port's `save` writes the same dict, its params a tree of the NamedTuples
+below (train/weights.py::to_params), its optimizer state a dict of
+numpy trees, so that JAX's restore_params reads a port checkpoint too.
+`load` reads either with a restricted unpickler: the fpsc_tpu parameter
+classes map to the port-side NamedTuples with the same fields, the
+port's own classes are taken as they are, every optax class (the
+optimizer state) maps to an inert stub, because the port does not
+depend on optax, and numpy's array reconstructors are allowed.  Any
+other class is refused with a ValueError.  `log_epoch` writes the
+reference's results line (fpsc_tpu/train/checkpoint.py:83-95).
 """
 from __future__ import annotations
 
 import importlib
 import os
 import pickle
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -85,6 +90,10 @@ _PARAM_CLASSES = {
     ("fpsc_tpu.models.frame_predictor", "FramePredictorParams"):
         FramePredictorParams,
 }
+_PARAM_CLASSES.update({
+    (__name__, cls.__name__): cls
+    for cls in (DenseParams, EmbeddingParams, GRUParams, LPCNetParams,
+                BunchedParams, Bunched4Params, FramePredictorParams)})
 _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
           ("numpy.core.multiarray", "_reconstruct"),
           ("numpy._core.multiarray", "_reconstruct"),
@@ -129,6 +138,53 @@ class _Unpickler(pickle.Unpickler):
             return _numpy_attr(module, name)
         raise ValueError(f"checkpoint refers to {module}.{name}, which the "
                          f"port's checkpoint loader does not accept")
+
+
+def save(path: str, params: Any, opt_state: Any = None, step: int = 0,
+         extra: Optional[dict] = None) -> None:
+    """Pickle {params, opt_state, step, extra} to path, published by
+    os.replace.  params: a module (train/weights.py::to_params turns it
+    into a numpy tree) or a tree; opt_state: a tree of numpy arrays or
+    tensors, or None."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if isinstance(params, nn.Module):
+        params = weights.to_params(params)
+    payload = {"params": _to_numpy(params),
+               "opt_state": (_to_numpy(opt_state) if opt_state is not None
+                             else None),
+               "step": int(step), "extra": extra or {}}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_to_numpy(v) for v in tree])
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree if tree is None else np.asarray(tree)
+
+
+def log_epoch(save_dir: str, label: str, epoch: int, duration: float,
+              train_loss: float, valid_loss: float,
+              debugging: bool = False) -> str:
+    """Append the reference-format results line (utils.py:138) to
+    save_dir/label.txt (not when debugging) and print it."""
+    record = ("Epoch: {} | time: {:.2f} | train_loss: {:.4f} | "
+              "valid_loss: {:.4f} \n").format(epoch, duration,
+                                              train_loss, valid_loss)
+    print(record, end="")
+    if not debugging:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, label + ".txt"), "a+") as f:
+            f.write(record)
+    return record
 
 
 def load(path: str) -> dict:

@@ -10,7 +10,10 @@ port's modules name their parameters by the same field paths
 (`gru_a.wi`, `fc1.w`, `period_emb.table`, `base.gru_a.wh`, `fc3.w`), so
 the map is a name map.
 The one layout change: the frame net's convolutions are JAX WIO
-(k, in, out) and torch (out, in, k).
+(k, in, out) and torch (out, in, k).  `load_into` copies a tree into a
+module; `to_params` is its inverse, a module as a tree of the port's
+parameter NamedTuples (train/checkpoint.py) in JAX's field order and
+layout, which the port's checkpoints store.
 """
 from __future__ import annotations
 
@@ -89,6 +92,49 @@ def load_into(module: nn.Module, tree: Any, what: str = "model"
             src = torch.from_numpy(np.array(leaf, np.float32))
             p.copy_(src.permute(2, 1, 0) if _is_conv(name) else src)
     return module
+
+
+def _param_classes() -> dict:
+    """Module class -> the port's parameter NamedTuple of its fields."""
+    from fpsc_tpu_torch.models.common import Dense, Embedding
+    from fpsc_tpu_torch.models.gru import GRU
+    from fpsc_tpu_torch.train import checkpoint as ckpt
+    return {Dense: ckpt.DenseParams, Embedding: ckpt.EmbeddingParams,
+            GRU: ckpt.GRUParams, LPCNet: ckpt.LPCNetParams,
+            BunchedLPCNet: ckpt.BunchedParams,
+            Bunched4LPCNet: ckpt.Bunched4Params,
+            FramePredictor: ckpt.FramePredictorParams}
+
+
+def _walk(module: nn.Module, leaf, classes: dict, prefix: str = ""):
+    """The module as a tree of its parameter NamedTuples, leaf(path,
+    parameter) at each parameter, fields in JAX's order."""
+    cls = classes[type(module)]
+    fields = []
+    for f in cls._fields:
+        v = getattr(module, f)
+        path = f"{prefix}.{f}" if prefix else f
+        fields.append(_walk(v, leaf, classes, path)
+                      if isinstance(v, nn.Module) else leaf(path, v))
+    return cls(*fields)
+
+
+def named_leaves(module: nn.Module) -> List[Tuple[str, nn.Parameter]]:
+    """(field path, parameter) of a module in JAX's field order (the
+    order of the leaves of its JAX tree, which named_parameters does not
+    keep: it lists a module's own parameters before its submodules')."""
+    out = []
+    _walk(module, lambda path, p: out.append((path, p)), _param_classes())
+    return out
+
+
+def to_params(module: nn.Module) -> Any:
+    """The module's parameters as a numpy tree of the port's NamedTuples
+    (LPCNetParams, BunchedParams, GRUParams, ...), fields in JAX's order,
+    the convolutions permuted back to WIO: load_into's inverse."""
+    return _walk(module, lambda path, p: np.array(_jax_layout(
+        path, p.detach().to("cpu", torch.float32)).numpy()),
+        _param_classes())
 
 
 def _init_generator() -> torch.Generator:

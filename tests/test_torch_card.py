@@ -15,6 +15,7 @@ int8 forms are fpsc_tpu_torch.ops.sampler_faults', which chip_smoke.py
 runs too, so the card check and these tests hold the kernel to the same
 wrong samplers.
 """
+import copy
 import dataclasses
 import json
 import os
@@ -930,3 +931,145 @@ def test_streaming_capture_refuses_a_host_sync(cuda_device, sync):
     runner.stage[0][...] = 2.0
     np.testing.assert_array_equal(runner.run(), np.full(4, 2.0))
     np.testing.assert_array_equal(runner.run(), np.full(4, 4.0))
+
+
+# Vocoder training on the card: cuDNN's fused GRU against the eager scan,
+# a training step under PyTorch's default settings, and a flagship-width
+# step against the CPU.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_gru_seq_cudnn_matches_eager_scan(cuda_device, with_h0):
+    """gru_seq (one cuDNN call) against gru_scan's eager steps on the
+    card, 300 steps of a (96 -> 64) GRU at batch 4: the outputs, the last
+    state and the gradients of every parameter, the input and the
+    initial state within 1e-5 of each one's largest element."""
+    from fpsc_tpu_torch.models.gru import GRU, gru_scan, gru_seq
+    rng = np.random.RandomState(3)
+    gru = GRU(96, 64, torch.Generator().manual_seed(1)).to(cuda_device)
+    xs = torch.as_tensor(rng.randn(4, 300, 96).astype(np.float32),
+                         device=cuda_device)
+    h0 = torch.as_tensor(rng.randn(4, 64).astype(np.float32) * 0.5,
+                         device=cuda_device)
+    wy = torch.as_tensor(rng.randn(4, 300, 64).astype(np.float32),
+                         device=cuda_device)
+    runs = []
+    for fn in (gru_seq, gru_scan):
+        gru.zero_grad(set_to_none=True)
+        x = xs.clone().requires_grad_()
+        h = h0.clone().requires_grad_()
+        ys, last = fn(gru, x, h if with_h0 else None)
+        (torch.sum(ys * wy) + torch.sum(last)).backward()
+        runs.append([ys.detach(), last.detach(), x.grad,
+                     *(p.grad for p in gru.parameters())]
+                    + ([h.grad] if with_h0 else []))
+    for got, want in zip(*runs):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# Run in a fresh process: one training step (train_lpcnet.make_step) of a
+# small bunch=2 vocoder on the card with PyTorch's default settings
+# (cuDNN's TF32 on), recording the settings its frame net runs under;
+# then the same step with TF32 off for the whole process.
+_DEFAULT_SETTINGS_TRAIN = """
+import copy, json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
+from fpsc_tpu_torch.train import train_lpcnet as tt
+defaults = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+frame_net, seen = lpcnet.frame_net, []
+
+def recording(*a):
+    seen.append((torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32))
+    return frame_net(*a)
+
+lpcnet.frame_net = recording
+cfg = lpcnet.LPCNetConfig(gru_a_units=64, gru_b_units=16, embed_dim=16,
+                          cond_units=24)
+rng = np.random.RandomState(0)
+args = [torch.as_tensor(a, device="cuda") for a in (
+    (rng.randn(2, 4, 20) * 0.3).astype(np.float32),
+    rng.randint(32, 256, (2, 4)).astype(np.int32),
+    (rng.randn(2, 640) * 0.1).astype(np.float32),
+    (rng.randn(2, 4, 16) * 0.05).astype(np.float32))]
+init = lpcnet_bunched.BunchedLPCNet(cfg, torch.Generator().manual_seed(0))
+out = []
+for tf32 in (None, False):
+    if tf32 is not None:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    model = copy.deepcopy(init).cuda()
+    opt = tt.ClippedAdam(list(model.parameters()), 1e-3, 10.0)
+    step, _ = tt.make_step(opt, lpcnet_bunched.loss_fn)
+    loss = float(step(model, *args))
+    out.append((loss, [p.detach().cpu().numpy() for p in model.parameters()],
+                [p.grad.cpu().numpy() for p in model.parameters()]))
+    if tf32 is None:
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+(l0, p0, g0), (l1, p1, g1) = out
+print(json.dumps(dict(
+    defaults=defaults, inside=seen[0], after=after,
+    loss_rel=abs(l0 - l1) / l1,
+    grad_rel=max(float(np.abs(a - b).max() / np.abs(b).max())
+                 for a, b in zip(g0, g1)),
+    param_diff=max(float(np.abs(a - b).max()) for a, b in zip(p0, p1)))))
+"""
+
+
+@pytest.mark.cuda
+def test_default_settings_training_step_computes_f32(cuda_device):
+    """A user's training step with PyTorch's defaults runs with TF32 off
+    (the frame net sees both flags off), gives the loss and gradients of
+    a process with TF32 off (rtol 1e-6; the embeddings' scatter-add may
+    sum in another order) and leaves the caller's settings as they
+    were."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _DEFAULT_SETTINGS_TRAIN,
+                          root], capture_output=True, text=True,
+                         timeout=600, cwd=root)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["defaults"] == [True, False]
+    assert got["inside"] == [False, False]
+    assert got["after"] == got["defaults"]
+    assert got["loss_rel"] <= 1e-6, got
+    assert got["grad_rel"] <= 1e-6, got
+    # Adam's first step is lr * g / (|g| + 1e-8): at most 2 lr apart
+    assert got["param_diff"] <= 2e-3, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bunch,gru_b", [(1, 16), (2, 32), (4, 64)])
+def test_flagship_width_training_step_matches_cpu(cuda_device, bunch,
+                                                  gru_b):
+    """One training step at full width (GRU_A 384, E 128, cond 128), B=2,
+    one chunk of the synthetic speech fixture, on the card and on the
+    CPU from the same weights: the loss within rtol 1e-5, every gradient
+    leaf within 1e-4 of its largest element."""
+    from fpsc_tpu_torch.data.dataset import Dataset, make_synthetic
+    from fpsc_tpu_torch.models.lpcnet_bunched import LOSSES
+    from fpsc_tpu_torch.train import train_lpcnet as tt
+    items = make_synthetic(2, 12, seed=0, style="speech", device="cpu")
+    batch = next(Dataset(items, 1).iter_batches(2, seed=0))
+    host = {k: torch.as_tensor(a)
+            for k, a in tt.vocoder_inputs(batch).items()}
+    cfg = LPCNetConfig(gru_b_units=gru_b)
+    init = VOCODERS[bunch](cfg, torch.Generator().manual_seed(bunch))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = copy.deepcopy(init).to(dev)
+        opt = tt.ClippedAdam(list(model.parameters()), 1e-3, 10.0)
+        step, _ = tt.make_step(opt, LOSSES[bunch])
+        a = {k: v.to(dev) for k, v in host.items()}
+        loss = float(step(model, a["feat"], a["periods"], a["x"], a["lpc"]))
+        out.append((loss, [p.grad.cpu() for p in model.parameters()]))
+    (want, want_g), (got, got_g) = out
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -489,7 +489,11 @@ for name in ("fpsc_tpu_torch.codec.range_coder",
              *(f"fpsc_tpu_torch.probes.probe_{p}" for p in
                ("gates", "draw_tail", "wide_store", "i8_matmul")),
              "fpsc_tpu_torch.probes.draw_parts",
-             "fpsc_tpu_torch.probes.draw_sass"):
+             "fpsc_tpu_torch.probes.draw_sass",
+             *(f"fpsc_tpu_torch.data.{m}" for m in
+               ("f32", "synthetic", "dataset", "prepare", "native")),
+             "fpsc_tpu_torch.dsp.lpc",
+             "fpsc_tpu_torch.train.train_lpcnet"):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"
@@ -501,7 +505,7 @@ print(len([n for n in sys.modules if n.startswith("fpsc_tpu_torch")]))
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert run.returncode == 0, run.stderr
-    assert int(run.stdout.split()[-1]) >= 41
+    assert int(run.stdout.split()[-1]) >= 59
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
