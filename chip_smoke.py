@@ -203,7 +203,34 @@ exit and no result line:
    the peak memory of each above the resident printed; (c) the main path of 4 with (a)'s
    checkpoint as the vocoder (train.vocoder_model): it must launch the
    bunch=2 block-sparse form and the fold, auto_block_pattern must find
-   the 22 live blocks, and the audio must pass 4's checks.
+   the 22 live blocks, and the audio must pass 4's checks;
+20. the codec's training pipeline (scripts/validate_pipeline.py's
+   recipe, PIPE_RECIPE: 48 synthetic utterances of 6 chunks, batches of
+   16, lr 0.001, predictor 384/128, the books at the reference geometry),
+   each entry through its run() on the card: (a) train_frame.run for 2
+   epochs with train.warmup_batches=0 (a warm step, then mask steps),
+   from the seeded predictor with its head scaled by HEAD_SCALE (a
+   checkpoint, train.transfer_model): every loss finite, the warmup loss
+   of a fixed batch below the start's; the median step seconds of each
+   kind (the first apart) and the peak device memory printed; (b)
+   frame_evaluation: finite, the residual's entropy below the frames';
+   (c) train_cb on one batch (train.debugging=true): every book finite,
+   the live entries of each and the wall of each stage printed; beside
+   it lbg.train_multistage at scripts/bench_lbg.py's geometry (5000 x
+   17, books (1024, 1024) and (512,)) twice, the two runs bit for bit;
+   (d) generate_qtz_features over the 48 utterances: its bitrates,
+   entropies and MSE printed, every stream of streams.npz range-coded
+   with the saved priors unpacking to the encoder's symbols, the priors
+   loading back through load_priors; (e) synthesis_qtz on 2 utterances
+   with 19(a)'s vocoder: it must launch the bunch=2 block-sparse form and
+   the fold once an utterance, the audio as 4's; (f)
+   rate_control.measure_rd_surface over PRESETS at RD_SCALES on RD_UTT
+   utterances, the frontier printed; (g) a warm step and a mask step of
+   the trained predictor at full width on 2 x 20 frames on the card
+   against the CPU (loss within rtol 1e-6, every gradient leaf within
+   1e-5 of its largest), and one kmeans_update of the trained 1024-entry
+   book on bench_lbg's rows (cells the CPU's but at knife edges, books
+   at rtol 1e-5).
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -240,7 +267,7 @@ from fpsc_tpu_torch.codec import range_coder as rc
 from fpsc_tpu_torch.codec import streaming
 from fpsc_tpu_torch.config.config import Config, apply_overrides
 from fpsc_tpu_torch.dsp import constants as C
-from fpsc_tpu_torch.data.dataset import build_dataset
+from fpsc_tpu_torch.data.dataset import build_dataset, predictor_inputs
 from fpsc_tpu_torch.dsp import emphasis, frontend
 from fpsc_tpu_torch.dsp.mulaw import l2u_index
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
@@ -250,8 +277,11 @@ from fpsc_tpu_torch.models.frame_predictor import Codebooks
 from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
-from fpsc_tpu_torch.quant import vq
-from fpsc_tpu_torch.train import train_lpcnet
+from fpsc_tpu_torch.quant import lbg, vq
+from fpsc_tpu_torch.train import checkpoint as ckpt
+from fpsc_tpu_torch.train import (frame_evaluation, generate_qtz_features,
+                                  synthesis_qtz, train_cb, train_frame,
+                                  train_lpcnet, weights)
 from fpsc_tpu_torch.utils.device import no_tf32
 
 N_UTT, UTT_FRAMES = 8, 200
@@ -2639,6 +2669,376 @@ def train_card_against_cpu(dev):
                                "between the card's streams and the CPU's")
 
 
+# Phase 20: the codec's training pipeline, scripts/validate_pipeline.py's
+# recipe (23-36): 48 synthetic utterances of 6 chunks in batches of 16,
+# lr 0.001, predictor 384 / 128; the books at the reference geometry
+# (the config's defaults: scalar 256 / 16, VQ (1024, 1024), VQ_bl
+# (512,)).  Cut in depth: 2 epochs (the recipe's 60), every batch after
+# an epoch's first on the mask path (train.warmup_batches=0), so that
+# both steps run.
+PIPE_RECIPE = ["data.synthetic=true", "data.synthetic_utterances=48",
+               "data.chunks=6", "data.batch_size=16",
+               "train.learning_rate=0.001", "predictor.gru_units1=384",
+               "predictor.gru_units2=128"]
+PIPE_CUT = ["train.epochs=2", "train.warmup_batches=0",
+            "train.save_every=100"]
+PIPE_LABEL = "smoke_pred"
+# scripts/bench_lbg.py:28-33's geometry, the books of train_cb
+LBG_ROWS, LBG_BOOKS = 5000, ((1024, 1024), (512,))
+RD_UTT, RD_SCALES = 8, (0.5, 1.5)
+PIPE_CHECK_B, PIPE_CHECK_FRAMES = 2, 20
+
+
+def _timed_predictor_steps(make, store: list):
+    """train_frame.make_steps with its warm and mask steps appending
+    (kind, loss, seconds) to store, the card synchronised before and
+    after (float reads the loss)."""
+
+    def timed_make(optimizer):
+        warm, mask, *evals = make(optimizer)
+
+        def timed(kind, fn):
+            def step(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(fn(*a))
+                store.append((kind, loss, time.perf_counter() - t0))
+                return torch.tensor(loss)
+            return step
+
+        return (timed("warm", warm), timed("mask", mask), *evals)
+
+    return timed_make
+
+
+def _timed_calls(store: dict, name: str, fn):
+    """fn with the card-synchronised wall of each call added to
+    store[name]."""
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        store.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    return timed
+
+
+def _median_apart(secs):
+    """Median seconds of the steps after the first, and the first."""
+    return (float(np.median(secs[1:])) if len(secs) > 1 else None,
+            secs[0] if secs else None)
+
+
+def pipeline_train_frame(dev, work: str, smi: str):
+    """(a) train_frame.run at the recipe, from the seeded predictor with
+    its head scaled by HEAD_SCALE -> (cfg, the overrides that name the
+    trained checkpoint)."""
+    phase("codec training (a): train_frame, the pipeline recipe, 2 epochs")
+    print("cut from the recipe: 2 epochs (the recipe's 60) of 3 batches, "
+          "warmup_batches=0 (both steps run); widths as published")
+    init = apply_overrides(Config(), list(PIPE_RECIPE))
+    model = train_frame.build_model(init, torch.Generator().manual_seed(
+        init.train.seed))
+    with torch.no_grad():
+        model.fc.w.mul_(HEAD_SCALE)
+        model.fc.b.mul_(HEAD_SCALE)
+    ckpt.save(ckpt.checkpoint_path(work, PIPE_LABEL + "_init", 0), model)
+    cfg = apply_overrides(Config(label=PIPE_LABEL), [
+        *PIPE_RECIPE, *PIPE_CUT, f"train.save_dir={work}",
+        f"train.transfer_model={PIPE_LABEL}_init", "train.transfer_epoch=0"])
+    ds = build_dataset(cfg.data, "train", device=dev)
+    fixed = torch.as_tensor(predictor_inputs(next(ds.iter_batches(
+        cfg.data.batch_size, seed=9))), device=dev)
+    model = model.to(dev)
+    with torch.no_grad(), no_tf32():
+        start = float(train_frame.warmup_loss(model, fixed))
+    steps, make = [], train_frame.make_steps
+    train_frame.make_steps = _timed_predictor_steps(make, steps)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        trained, min_val = train_frame.run(cfg, device=dev)
+    finally:
+        train_frame.make_steps = make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad(), no_tf32():
+        end = float(train_frame.warmup_loss(trained, fixed))
+    losses = [loss for _, loss, _ in steps]
+    kinds = [kind for kind, _, _ in steps]
+    print("step losses " + ", ".join(f"{k} {v:.5f}" for k, v in
+                                     zip(kinds, losses)))
+    if kinds != ["warm", "mask", "mask"] * 2:
+        raise RuntimeError(f"the steps ran {kinds}")
+    if not (all(np.isfinite(losses)) and np.isfinite(min_val)):
+        raise RuntimeError(f"losses {losses}, validation {min_val}")
+    if not end < start:
+        raise RuntimeError(f"the warmup loss on a fixed batch did not fall: "
+                           f"{start} -> {end}")
+    warm = [s for k, _, s in steps if k == "warm"]
+    mask = [s for k, _, s in steps if k == "mask"]
+    frames = cfg.data.batch_size * cfg.data.chunks * C.FRAMES_PER_CHUNK
+    print(json.dumps({"predictor_train_step": {
+        "config": "predictor 384/128, B=16 x 90 frames",
+        "warm_first_s": warm[0], "warm_median_s": _median_apart(warm)[0],
+        "mask_first_s": mask[0], "mask_median_s": _median_apart(mask)[0],
+        "mask_frames_per_s": frames / _median_apart(mask)[0],
+        "warmup_loss_fixed_batch": [start, end], "min_val_loss": min_val,
+        "peak_memory_gb": peak / 2 ** 30,
+        "peak_above_resident_gb": (peak - resident) / 2 ** 30,
+        "run_s": wall, "card": smi}}))
+    return cfg, [f"train.transfer_model={PIPE_LABEL}",
+                 f"train.transfer_epoch={cfg.train.epochs - 1}"]
+
+
+def pipeline_evaluation(dev, cfg: Config):
+    """(b) frame_evaluation on the trained predictor."""
+    phase("codec training (b): frame_evaluation")
+    t0 = time.perf_counter()
+    report = frame_evaluation.run(cfg, max_batches=3, device=dev)
+    print(json.dumps({"frame_evaluation": report,
+                      "run_s": time.perf_counter() - t0}))
+    if not all(np.isfinite(v) for v in report.values()):
+        raise RuntimeError(f"frame_evaluation: {report}")
+    if not report["residual"] < report["spec"]:
+        raise RuntimeError("the prediction residual's entropy is not below "
+                           f"the frames': {report}")
+
+
+def _live(book: torch.Tensor) -> int:
+    """Entries of a book that are not the zero vector (an LBG cell that
+    emptied) or, for a scalar book, its distinct values."""
+    if book.ndim == 1:
+        return int(torch.unique(book).numel())
+    return int((book.abs().sum(1) > 0).sum())
+
+
+def pipeline_codebooks(dev, cfg: Config, smi: str):
+    """(c) train_cb on one batch at the reference geometry, the wall of
+    each stage; lbg.train_multistage at bench_lbg's geometry, twice, the
+    two runs bit for bit."""
+    phase("codec training (c): train_cb, one batch, the reference geometry")
+    walls: dict = {}
+    saved = (train_cb.synthesize_residuals, lbg.train_multistage,
+             train_cb.scalar_kmeans)
+    train_cb.synthesize_residuals = _timed_calls(walls, "residuals",
+                                                 saved[0])
+    lbg.train_multistage = _timed_calls(walls, "vq_lbg", saved[1])
+    train_cb.scalar_kmeans = _timed_calls(walls, "scalar_kmeans", saved[2])
+    t0 = time.perf_counter()
+    try:
+        books = train_cb.run(cfg, device=dev)
+    finally:
+        (train_cb.synthesize_residuals, lbg.train_multistage,
+         train_cb.scalar_kmeans) = saved
+    wall = time.perf_counter() - t0
+    named = {"scl": books.scl, "scl_bl": books.scl_bl,
+             **{f"vq_{i}": b for i, b in enumerate(books.vq)},
+             **{f"vq_bl_{i}": b for i, b in enumerate(books.vq_bl)}}
+    for name, book in named.items():
+        if not torch.isfinite(book).all():
+            raise RuntimeError(f"train_cb: book {name} is not finite")
+    print(json.dumps({"train_cb": {
+        "geometry": {k: list(b.shape) for k, b in named.items()},
+        "live_entries": {k: _live(b) for k, b in named.items()},
+        "stage_s": walls, "run_s": wall, "card": smi}}))
+    data = torch.as_tensor((np.random.RandomState(0).randn(LBG_ROWS, 17)
+                            * 0.4).astype(np.float32), device=dev)
+    runs = {}
+    for stages in LBG_BOOKS:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lbg.train_multistage(data, stages, seed=0)
+            torch.cuda.synchronize()
+            runs.setdefault(stages, []).append(
+                (time.perf_counter() - t0, out))
+        (_, a), (_, b) = runs[stages]
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"the fused LBG {stages} is not repeatable "
+                               "bit for bit on the card")
+    print(json.dumps({"lbg_train_multistage": {
+        "rows": LBG_ROWS, "books": {str(list(k)): [w for w, _ in v]
+                                    for k, v in runs.items()},
+        "repeatable": True, "card": smi}}))
+    return books, data
+
+
+def pipeline_features(dev, cfg: Config, work: str, smi: str):
+    """(d) generate_qtz_features over the 48 utterances; every written
+    stream unpacks to the encoder's symbols; the saved priors load."""
+    phase("codec training (d): generate_qtz_features, 48 utterances")
+    t0 = time.perf_counter()
+    out = generate_qtz_features.run(cfg, out_dir=os.path.join(work, "qtz"),
+                                    device=dev)
+    wall = time.perf_counter() - t0
+    books = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
+    sizes = cli.codebook_sizes(books)
+    priors = ckpt.load_priors(cfg.codec.codebook_path)
+    if sorted(priors) != sorted(out["priors"]) or not all(
+            np.array_equal(priors[k], v) for k, v in out["priors"].items()):
+        raise RuntimeError("the priors saved beside the books do not load "
+                           "back")
+    z = np.load(os.path.join(out["out_dir"], "streams.npz"))
+    n = int(z["n_utterances"])
+    if n != cfg.data.synthetic_utterances:
+        raise RuntimeError(f"{n} utterances coded")
+    for u in range(n):
+        idx = {k: z[f"u{u}_idx_{k}"] for k in ("scl", "scl_bl", "vq",
+                                               "vq_bl")}
+        payload = native_rc.pack_utterance_rc(
+            z[f"u{u}_ind1"], z[f"u{u}_ind2"], idx, z[f"u{u}_pcodes"], sizes,
+            priors=priors, orders=out["orders"])
+        back = native_rc.unpack_utterance_rc(payload, sizes, priors=priors,
+                                             orders=out["orders"])
+        if not (np.array_equal(back["ind1"], z[f"u{u}_ind1"])
+                and np.array_equal(back["ind2"], z[f"u{u}_ind2"])
+                and all(np.array_equal(back["indices"][k], v)
+                        for k, v in idx.items())):
+            raise RuntimeError(f"stream {u} does not unpack to the "
+                               "encoder's symbols")
+    print(json.dumps({"generate_qtz_features": {
+        k: out[k] for k in ("bitrate", "bitrate_rc", "bitrate_priors",
+                            "entropies", "mse")} | {
+        "utterances": n, "run_s": wall, "card": smi}}))
+    return out
+
+
+def pipeline_synthesis(dev, cfg: Config, work: str, priors: dict,
+                       vocoder: list):
+    """(e) synthesis_qtz on 2 utterances with phase 19's trained bunch=2
+    sparse vocoder: the bunch=2 sparse form and the fold launch."""
+    phase("codec training (e): synthesis_qtz, 2 utterances, the trained "
+          "flagship vocoder")
+    scfg = apply_overrides(copy.deepcopy(cfg), FLAGSHIP + vocoder)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = synthesis_qtz.run(scfg, num_samples=2,
+                                out_dir=os.path.join(work, "qtz_samples"),
+                                priors=priors, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    form = lpcnet_sampler.KERNELS[(2, True, False, False)]
+    for kernel in (form, lpcnet_sampler.FOLD_KERNEL):
+        if launches.get(kernel, 0) != 2:
+            raise RuntimeError(f"synthesis_qtz did not launch {kernel} once "
+                               f"an utterance: {launches}")
+    peaks = [_check_audio(r["wav"][None], f"synthesis_qtz {r['name']}")
+             for r in results]
+    print(json.dumps({"synthesis_qtz": {
+        "bitrates": [r["bitrate"] for r in results], "peaks": peaks,
+        "launches": launches, "run_s": wall}}))
+
+
+def pipeline_rate(dev, cfg: Config, smi: str):
+    """(f) measure_rd_surface over PRESETS at RD_SCALES on RD_UTT
+    utterances; the frontier."""
+    phase(f"codec training (f): the R-D surface, {len(rate_control.PRESETS)}"
+          f" presets x {len(RD_SCALES)} scales, {RD_UTT} utterances")
+    model = train_frame.load_predictor(cfg, dev)
+    books = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
+    ds = build_dataset(cfg.data, "train", device=dev)
+    feat = predictor_inputs(next(ds.iter_batches(RD_UTT, seed=0, head=True)))
+    t0 = time.perf_counter()
+    points = rate_control.measure_rd_surface(model, books, feat,
+                                             scales=RD_SCALES)
+    wall = time.perf_counter() - t0
+    front = rate_control.pareto_frontier(points)
+    if not all(np.isfinite(p["bps"]) and np.isfinite(p["mse"])
+               for p in points):
+        raise RuntimeError("an operating point is not finite")
+    keep = ("preset", "scale", "bps", "mse")
+    print(json.dumps({"rd_surface": {
+        "points": [{k: p[k] for k in keep} for p in points],
+        "frontier": [{k: p[k] for k in keep} for p in front],
+        "select_1200": rate_control.select_preset(points, 1200.0)["preset"],
+        "run_s": wall, "card": smi}}))
+
+
+def pipeline_card_against_cpu(dev, cfg: Config, books, data):
+    """(g) a warm step and a mask step at full width, 2 x 20 frames, and
+    one kmeans_update of the first 1024-entry book, on the card against
+    the CPU."""
+    phase("codec training (g): the card against the CPU, full width")
+    model = train_frame.load_predictor(cfg, torch.device("cpu"))
+    ds = build_dataset(cfg.data, "val", device=dev)
+    feat = torch.as_tensor(predictor_inputs(next(ds.iter_batches(
+        PIPE_CHECK_B, seed=0)))[:, :PIPE_CHECK_FRAMES])
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        m = copy.deepcopy(model).to(d)
+        opt = train_lpcnet.ClippedAdam(
+            [p for _, p in weights.named_leaves(m)], 1e-3, None)
+        warm, mask, _, _ = train_frame.make_steps(opt)
+        out = []
+        for step, args in ((warm, ()), (mask, (6.0, 0.3))):
+            loss = float(step(m, feat.to(d), *args))
+            out.append((loss, {n: (torch.zeros_like(p) if p.grad is None
+                                   else p.grad).detach().cpu()
+                               for n, p in weights.named_leaves(m)}))
+        runs.append(out)
+    report, faults = [], []
+    for kind, (want, want_g), (got, got_g) in zip(("warm", "mask"), *runs):
+        rel = {n: float((got_g[n] - g).abs().max())
+               / max(float(g.abs().max()), 1e-30) for n, g in want_g.items()}
+        leaf = max(rel, key=rel.get)
+        report.append(f"{kind} step: loss card {got!r} cpu {want!r} (rel "
+                      f"{abs(got - want) / abs(want):.3g}); gradients within "
+                      f"{rel[leaf]:.3g} of each leaf's largest ({leaf})")
+        if not abs(got - want) <= 1e-6 * abs(want):
+            faults.append(f"the card's {kind} loss is not the CPU's")
+        if not rel[leaf] <= 1e-5:
+            faults.append(f"the card's {kind} gradients are not the CPU's")
+    print("\n".join(report))
+    if faults:
+        raise RuntimeError("; ".join(faults))
+    cb = books.vq[0]
+    got, _ = lbg.kmeans_update(data, cb, cb.shape[0])
+    want, _ = lbg.kmeans_update(data.cpu(), cb.cpu(), cb.shape[0])
+    idx = lbg.find_nearest(data, cb).cpu().numpy()
+    ref = lbg.find_nearest(data.cpu(), cb.cpu()).numpy()
+    dist = lbg.pairwise_sq_dist(data.cpu(), cb.cpu()).numpy()
+    edges = np.nonzero(idx != ref)[0]
+    for r in edges:
+        a, b = dist[r, idx[r]], dist[r, ref[r]]
+        if not abs(a - b) <= 4 * np.spacing(np.float32(max(a, b))):
+            raise RuntimeError(f"kmeans_update: row {r} picks {idx[r]} on the "
+                               f"card and {ref[r]} on the CPU, {a} / {b}")
+    if not len(edges):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-7)
+    print(f"kmeans_update at {cb.shape[0]} entries, {LBG_ROWS} rows: "
+          f"{len(edges)} knife-edge rows; books within "
+          f"{float((got.cpu() - want).abs().max()):.3g}")
+
+
+def codec_pipeline(dev, work: str, smi: str, vocoder: list):
+    """Phase 20: the codec's training pipeline on the card, each entry
+    through its run(): train_frame -> frame_evaluation -> train_cb ->
+    generate_qtz_features -> synthesis_qtz (phase 19's vocoder, through
+    the sampler kernel) -> the R-D surface; the card against the CPU."""
+    t0 = time.perf_counter()
+    cfg, trained = pipeline_train_frame(dev, work, smi)
+    cb_path = os.path.join(work, "pipeline_cb.npz")
+    cfg = apply_overrides(Config(label=PIPE_LABEL), [
+        *PIPE_RECIPE, f"train.save_dir={work}", *trained,
+        f"codec.codebook_path={cb_path}"])
+    pipeline_evaluation(dev, cfg)
+    books, data = pipeline_codebooks(
+        dev, apply_overrides(copy.deepcopy(cfg), ["train.debugging=true"]),
+        smi)
+    out = pipeline_features(dev, cfg, work, smi)
+    pipeline_synthesis(dev, cfg, work, out["priors"], vocoder)
+    pipeline_rate(dev, cfg, smi)
+    pipeline_card_against_cpu(dev, cfg, books, data)
+    print(json.dumps({"codec_pipeline_s": time.perf_counter() - t0,
+                      "card": smi}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2695,6 +3095,7 @@ def main() -> int:
         train_card_against_cpu(dev)
         phase("vocoder training (c): the trained checkpoint decodes")
         main_path(dev, work, FLAGSHIP + trained, UTT_FRAMES, True, "trained")
+        codec_pipeline(dev, work, smi, trained)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -64,27 +64,16 @@ from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.dsp.frontend import extract_features_batch
 from fpsc_tpu_torch.eval.stoi import resample_poly
-from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
-                                                   FramePredictorConfig)
+from fpsc_tpu_torch.models.frame_predictor import codebook_sizes
 from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
 from fpsc_tpu_torch.models.lpcnet_bunched import VOCODERS
 from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
-from fpsc_tpu_torch.utils.device import resolve_device
+from fpsc_tpu_torch.train.train_frame import load_predictor
+from fpsc_tpu_torch.utils.device import resolve_device, split_device_arg
 
 # (frames, batch) -> (frames, batch, 160) uniforms in [0, 1)
 UniformSource = Callable[[int, int], np.ndarray]
-
-
-def codebook_sizes(codebooks) -> dict:
-    return {
-        "scl": int(codebooks.scl.shape[0]),
-        "scl_bl": int(codebooks.scl_bl.shape[0])
-        if codebooks.scl_bl is not None else 0,
-        "vq": [int(cb.shape[0]) for cb in codebooks.vq],
-        "vq_bl": [int(cb.shape[0]) for cb in codebooks.vq_bl]
-        if codebooks.vq_bl is not None else [],
-    }
 
 
 def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
@@ -101,18 +90,7 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
     if preset not in rate_control.PRESETS:
         raise ValueError(f"unknown rate preset {preset!r}: one of "
                          f"{sorted(rate_control.PRESETS)}")
-    gen = torch.Generator().manual_seed(cfg.train.seed)
-    predictor = FramePredictor(FramePredictorConfig(
-        in_features=cfg.predictor.in_features,
-        gru_units1=cfg.predictor.gru_units1,
-        gru_units2=cfg.predictor.gru_units2,
-        fc_units=cfg.predictor.fc_units,
-        mask_units=cfg.predictor.mask_units), generator=gen)
-    if cfg.train.transfer_model:
-        payload = ckpt.load(ckpt.checkpoint_path(
-            cfg.train.save_dir, cfg.train.transfer_model,
-            cfg.train.transfer_epoch))
-        ckpt.restore(predictor, payload, "predictor")
+    predictor = load_predictor(cfg, dev)
     codebooks = ckpt.load_codebooks(cfg.codec.codebook_path, dev)
     if preset != "full":
         codebooks = rate_control.preset_codebooks(
@@ -126,14 +104,14 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
         dropped |= {f"vq_bl_{s}" for s in range(len(sizes["vq_bl"]), 9)}
         priors = {k: v for k, v in priors.items() if k not in dropped}
     rcmod = native_rc.best()
-    out = [predictor.to(dev), codebooks, sizes, priors,
+    out = [predictor, codebooks, sizes, priors,
            rcmod.scalar_orders(codebooks), rcmod]
     if need_vocoder:
-        out.append(_load_vocoder(cfg, dev))
+        out.append(load_vocoder(cfg, dev))
     return out
 
 
-def _load_vocoder(cfg: Config, device):
+def load_vocoder(cfg: Config, device):
     """LPCNet for lpcnet.bunch=1, BunchedLPCNet for 2, Bunched4LPCNet
     for 4."""
     bunch = cfg.lpcnet.bunch
@@ -481,11 +459,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not argv or argv[0] not in ("encode", "decode"):
         print(__doc__)
         return 2
-    cmd, rest = argv[0], argv[1:]
-    device = None
-    for a in [a for a in rest if a.startswith("--device=")]:
-        device = a.split("=", 1)[1]
-        rest.remove(a)
+    rest, device = split_device_arg(argv[1:])
+    cmd = argv[0]
     paths = [a for a in rest if "=" not in a]
     cfg = apply_overrides(Config(), [a for a in rest if "=" in a])
     if cmd == "encode":

@@ -1,22 +1,29 @@
 """Utterance-level codec: features -> index streams -> coded frames.
 
-Port of fpsc_tpu/codec/codec.py:37-105 (the reference's enc_features /
+Port of fpsc_tpu/codec/codec.py:37-137 (the reference's enc_features /
 dec_features path, src/generate_qtz_features.py:49-91): `encode` runs
 the closed-loop predictor with in-loop scalar and m-best VQ
 quantisation, on the threshold or the learned-mask path; `decode`
-rebuilds the same coded frames from the transmitted symbols alone.
+rebuilds the same coded frames from the transmitted symbols alone; both
+build no autograd graph.  `coded_feature_windows` turns coded frames
+into the LPCNet-layout windows that vocoder training reads.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
+import numpy as np
 import torch
 
+from fpsc_tpu_torch.data.f32 import repack_windows
+from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.quant.scalar import scl_dequantize
 from fpsc_tpu_torch.quant.vq import vq_dequantize
 
 
+@torch.no_grad()
 def encode(model: fp.FramePredictor, codebooks: fp.Codebooks,
            feat: torch.Tensor, l1: float = 0.09, l2: float = 0.28,
            use_mask: bool = False, scale: float = 1000.0,
@@ -70,6 +77,7 @@ def dequantize_residual(codebooks: fp.Codebooks, ind1: torch.Tensor,
     return torch.cat([r0[..., None], rv], dim=-1)
 
 
+@torch.no_grad()
 def decode(model: fp.FramePredictor, codebooks: fp.Codebooks,
            ind1: torch.Tensor, ind2: torch.Tensor, indices: Dict,
            pitch: torch.Tensor, pitch_lag: int = 0) -> torch.Tensor:
@@ -77,3 +85,31 @@ def decode(model: fp.FramePredictor, codebooks: fp.Codebooks,
     (B, L, 20) normalised coded frames."""
     r_qtz = dequantize_residual(codebooks, ind1, ind2, indices)
     return fp.decoder(model, pitch, r_qtz, pitch_lag=pitch_lag)
+
+
+def coded_feature_windows(coded: torch.Tensor) -> List[np.ndarray]:
+    """(B, L, 20) normalised coded frames -> a list of B (n_chunks, 19,
+    36) LPCNet-layout windows, the LPC recomputed from the CODED
+    cepstra (ceps2lpc on coded's device).  L is n_chunks * 15 + 4 with
+    the context rows included, or a plain n_chunks * 15 track, whose
+    context rows are then edge-replicated."""
+    coded_un = np.asarray(coded.detach().cpu()) * C.MAXI
+    b, length, _ = coded_un.shape
+    flat = coded_un.reshape(-1, coded_un.shape[-1])
+    with torch.no_grad():
+        _, lpc, _ = ceps2lpc(torch.as_tensor(
+            np.ascontiguousarray(flat[:, :C.NB_BANDS]), device=coded.device))
+    rows = np.concatenate([flat, lpc.cpu().numpy()], axis=1).reshape(
+        b, length, C.NB_FEATURES)
+    out = []
+    for track in rows:
+        if (length - 2 * C.CONTEXT_FRAMES) % C.FRAMES_PER_CHUNK == 0 and \
+                length % C.FRAMES_PER_CHUNK != 0:
+            n_chunks = (length - 2 * C.CONTEXT_FRAMES) // C.FRAMES_PER_CHUNK
+        else:
+            n_chunks = length // C.FRAMES_PER_CHUNK
+            track = np.concatenate([
+                np.repeat(track[:1], C.CONTEXT_FRAMES, axis=0), track,
+                np.repeat(track[-1:], C.CONTEXT_FRAMES, axis=0)], axis=0)
+        out.append(repack_windows(track, n_chunks))
+    return out

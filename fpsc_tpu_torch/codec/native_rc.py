@@ -120,8 +120,11 @@ def available() -> bool:
 
 
 # Model-side helpers are shared code, not reimplemented: both backends
-# must derive identical orders and tables from the same artifacts.
+# must derive identical priors, orders and tables from the same
+# artifacts.
+collect_priors = rc.collect_priors
 scalar_orders = rc.scalar_orders
+build_models = rc.build_models
 FreqTable = rc.FreqTable
 
 

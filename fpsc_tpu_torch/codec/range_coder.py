@@ -1,6 +1,6 @@
 """Range (arithmetic) coder for entropy-coded codec bitstreams.
 
-A copy of fpsc_tpu/codec/range_coder.py:16-1065 (the PyTorch port
+A copy of fpsc_tpu/codec/range_coder.py:16-1244 (the PyTorch port
 keeps its own): a carry-less 32-bit range coder with a strict mode that
 raises NeedBytes when the input runs out, the adaptive frequency
 models, the `_Transcoder` that drives both pack and unpack (with the
@@ -11,9 +11,10 @@ without in-band FEC (`pack_packets`, `unpack_packets`,
 native_rc.best()), the serving side's `FecPacketReceiver` (the jitter
 buffer of the FEC transport), `StreamingRangeEncoder` and
 `StreamingRangeDecoder` (a frame at a time, the offline body's bytes),
-and `scalar_orders`.  Host code in numpy; it gives the JAX module's
-bytes and symbols exactly.  Not copied yet: `collect_priors`,
-`build_models` and `entropy_pack` (prior collection, ROADMAP Queue A 6).
+`scalar_orders`, the priors' collection from training-set streams
+(`collect_priors`) and the static-model coder of one utterance
+(`build_models`, `entropy_pack`, `entropy_unpack`).  Host code in numpy;
+it gives the JAX module's bytes, symbols and counts exactly.
 
 `scalar_orders` ranks the scalar codebooks with numpy's argsort on their
 float32 values, as the JAX module does, never with torch.argsort: the
@@ -1073,3 +1074,183 @@ def scalar_orders(codebooks) -> Dict:
         orders["scl_bl"] = np.argsort(np.argsort(
             host_array(codebooks.scl_bl)))
     return orders
+
+
+def collect_priors(streams, sizes: Dict, orders: Dict = None) -> Dict:
+    """Accumulate training-set usage counts into the priors layout
+    pack/unpack_utterance_rc expect.
+
+    streams: iterable of (ind1, ind2, indices) triples — or
+    (ind1, ind2, indices, pcodes) 4-tuples, which additionally seed
+    the indicator / pitch / corr models (one per utterance; the
+    layouts encode() / the bitstream unpackers emit).
+    Returns {scl_bucket: (nb+1, nb), scl_offset: (nb, off) in RANK
+    space (same for scl_bl_*), vq_0: (n0,), vq_s: (_VQ_CTX, ns) for
+    s >= 1, ind1/ind2: (2, _IND_RUN_CTX, 2), pitch_abs: (256,),
+    pitch_delta: (_PITCH_V_CTX, 65), corr: (8, 8), ...} count arrays
+    (float64).
+    Ship them with the codebook artifacts; both codec sides must use
+    the identical dict (same for `orders` — pass the scalar_orders
+    dict used at pack time)."""
+    orders = orders or {}
+    scl_rank = orders.get("scl")
+    scl_bl_rank = orders.get("scl_bl")
+    nb_scl, off_scl = _scl_split(sizes["scl"])
+    nb_bl, off_bl = _scl_split(sizes.get("scl_bl", 0) or 1)
+    pri: Dict = {}
+    pri["scl_bucket"] = np.zeros((nb_scl + 1, nb_scl), np.float64)
+    pri["scl_offset"] = np.zeros((nb_scl, off_scl), np.float64)
+    if sizes.get("scl_bl"):
+        pri["scl_bl_bucket"] = np.zeros((nb_bl + 1, nb_bl), np.float64)
+        pri["scl_bl_offset"] = np.zeros((nb_bl, off_bl), np.float64)
+    for s, e in enumerate(sizes["vq"]):
+        pri[f"vq_{s}"] = np.zeros(
+            e if s == 0 else (_VQ_CTX, e), np.float64)
+    for s, e in enumerate(sizes.get("vq_bl", [])):
+        pri[f"vq_bl_{s}"] = np.zeros(
+            e if s == 0 else (_VQ_CTX, e), np.float64)
+
+    def add_vq(key, arr, mask, entries):
+        arr = np.atleast_2d(np.asarray(arr))
+        for t in np.nonzero(mask)[0]:
+            prev = 0
+            for s in range(len(entries)):
+                v = int(arr[t, s])
+                if v < 0:
+                    break
+                if s == 0:
+                    pri[f"{key}_0"][v] += 1
+                else:
+                    pri[f"{key}_{s}"][
+                        _vq_ctx(prev, entries[s - 1]), v] += 1
+                prev = v
+
+    for item in streams:
+        ind1, ind2, indices = item[:3]
+        pcodes = item[3] if len(item) > 3 else None
+        ind1 = np.asarray(ind1).astype(bool)
+        ind2 = np.asarray(ind2).astype(bool)
+        if pcodes is not None:
+            for key, arr in (("ind1", ind1), ("ind2", ind2)):
+                tab = pri.setdefault(
+                    key, np.zeros((2, _IND_RUN_CTX, 2), np.float64))
+                prev, run = 0, 0
+                for t, v in enumerate(arr.astype(int)):
+                    tab[prev, _run_bucket(run), v] += 1
+                    run = run + 1 if (t > 0 and v == prev) else 1
+                    prev = v
+            pa = pri.setdefault("pitch_abs", np.zeros(256, np.float64))
+            pd = pri.setdefault(
+                "pitch_delta",
+                np.zeros((_PITCH_V_CTX, _PITCH_ESCAPE + 1), np.float64))
+            cr = pri.setdefault("corr", np.zeros((8, 8), np.float64))
+            pc = np.asarray(pcodes)
+            prev_p, prev_c = 0, 0
+            for t in range(len(pc)):
+                p, c = int(pc[t, 0]), int(pc[t, 1])
+                if t == 0:
+                    pa[p] += 1
+                else:
+                    d = p - prev_p
+                    vb = _voicing_bucket(prev_c)
+                    if -_PITCH_DELTA_RANGE <= d < _PITCH_DELTA_RANGE:
+                        pd[vb, d + _PITCH_DELTA_RANGE] += 1
+                    else:
+                        pd[vb, _PITCH_ESCAPE] += 1
+                        pa[p] += 1
+                cr[prev_c, c] += 1
+                prev_p, prev_c = p, c
+        iscl = np.asarray(indices["scl"])
+        iscl_bl = (np.asarray(indices["scl_bl"])
+                   if "scl_bl_bucket" in pri else None)
+
+        def add_scl(key, v, rank, pb, nb, off):
+            r = int(v) if rank is None else int(rank[int(v)])
+            b, o = divmod(r, off)
+            pri[f"{key}_bucket"][pb, b] += 1
+            if off > 1:
+                pri[f"{key}_offset"][b, o] += 1
+            return b
+
+        # sequential walk mirroring _Transcoder.run's bucket chains
+        pb_scl, pb_bl = nb_scl, nb_bl
+        for t in range(len(ind1)):
+            if ind1[t]:
+                if int(iscl[t]) >= 0:
+                    pb_scl = add_scl("scl", iscl[t], scl_rank,
+                                     pb_scl, nb_scl, off_scl)
+            elif iscl_bl is not None:
+                if int(iscl_bl[t]) >= 0:
+                    pb_bl = add_scl("scl_bl", iscl_bl[t],
+                                    scl_bl_rank, pb_bl, nb_bl, off_bl)
+        add_vq("vq", indices["vq"], ind2, sizes["vq"])
+        if sizes.get("vq_bl"):
+            add_vq("vq_bl", indices["vq_bl"], ~ind2,
+                   sizes.get("vq_bl", []))
+    return pri
+
+
+def build_models(counts: Dict) -> Dict:
+    """Codebook usage counts (fp.usage_counts layout, plus indicator
+    counts) -> frequency tables keyed by symbol stream."""
+    return {k: FreqTable(v) for k, v in counts.items()}
+
+
+def entropy_pack(ind1, ind2, indices: Dict, models: Dict) -> bytes:
+    """Entropy-code one utterance's symbol streams.
+
+    models keys: 'ind1', 'ind2' (2-symbol), 'scl', 'scl_bl',
+    'vq_0'.., 'vq_bl_0'..  Pitch is NOT included here (pack it with
+    bitstream.quantize_pitch or a dedicated model).
+    """
+    enc = RangeEncoder()
+    ind1 = np.asarray(ind1).astype(int)
+    ind2 = np.asarray(ind2).astype(int)
+    iscl = np.asarray(indices["scl"])
+    iscl_bl = np.asarray(indices["scl_bl"])
+    ivq = np.atleast_2d(np.asarray(indices["vq"]))
+    ivq_bl = np.atleast_2d(np.asarray(indices["vq_bl"]))
+    length = len(ind1)
+    for t in range(length):
+        enc.encode(models["ind1"], ind1[t])
+        enc.encode(models["ind2"], ind2[t])
+        if ind1[t]:
+            enc.encode(models["scl"], int(iscl[t]))
+        elif "scl_bl" in models:
+            enc.encode(models["scl_bl"], int(iscl_bl[t]))
+        if ind2[t]:
+            for s in range(ivq.shape[1]):
+                enc.encode(models[f"vq_{s}"], int(ivq[t, s]))
+        else:
+            for s in range(ivq_bl.shape[1]):
+                if f"vq_bl_{s}" in models:
+                    enc.encode(models[f"vq_bl_{s}"], int(ivq_bl[t, s]))
+    return enc.finish()
+
+
+def entropy_unpack(data: bytes, length: int, models: Dict,
+                   n_vq: int, n_vq_bl: int) -> Dict:
+    dec = RangeDecoder(data)
+    ind1 = np.zeros(length, bool)
+    ind2 = np.zeros(length, bool)
+    iscl = np.full(length, -1, np.int32)
+    iscl_bl = np.full(length, -1, np.int32)
+    ivq = np.full((length, n_vq), -1, np.int32)
+    ivq_bl = np.full((length, max(n_vq_bl, 1)), -1, np.int32)
+    for t in range(length):
+        ind1[t] = bool(dec.decode(models["ind1"]))
+        ind2[t] = bool(dec.decode(models["ind2"]))
+        if ind1[t]:
+            iscl[t] = dec.decode(models["scl"])
+        elif "scl_bl" in models:
+            iscl_bl[t] = dec.decode(models["scl_bl"])
+        if ind2[t]:
+            for s in range(n_vq):
+                ivq[t, s] = dec.decode(models[f"vq_{s}"])
+        else:
+            for s in range(n_vq_bl):
+                if f"vq_bl_{s}" in models:
+                    ivq_bl[t, s] = dec.decode(models[f"vq_bl_{s}"])
+    return {"ind1": ind1, "ind2": ind2,
+            "indices": {"scl": iscl, "scl_bl": iscl_bl,
+                        "vq": ivq, "vq_bl": ivq_bl}}

@@ -1,14 +1,17 @@
-"""Pre-emphasis (LPCNet `dump_data` semantics), the analysis half.
+"""Pre-emphasis (LPCNet `dump_data` semantics) and its inverse.
 
-Port of fpsc_tpu/dsp/emphasis.py:28-33 (numpy) and of
+Port of fpsc_tpu/dsp/emphasis.py:28-48 (numpy) and of
 fpsc_tpu/dsp/frontend.py:276-278 (`preemphasis_jnp`, which the
 analysis frontend runs): y[n] = x[n] - 0.85 x[n-1] with zero initial
-memory, x[0] kept.  The decoder's de-emphasis lives in the sampler.
+memory, x[0] kept; `deemphasis`, the host IIR that turns a training
+waveform back into audio.  The decoder's de-emphasis lives in the
+sampler.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from scipy.signal import lfilter
 
 PREEMPH = 0.85
 
@@ -33,3 +36,11 @@ def preemphasis_torch(x: torch.Tensor, coef: float = PREEMPH
     x = x.to(torch.float32)
     tail = (x[..., 1:].double() - c * x[..., :-1].double()).float()
     return torch.cat([x[..., :1], tail], dim=-1)
+
+
+def deemphasis(s: np.ndarray, coef: float = PREEMPH) -> np.ndarray:
+    """Inverse IIR y[n] = s[n] + coef * y[n-1] over the last axis, zero
+    initial memory, in float64 -> float32."""
+    y = lfilter([1.0], [1.0, -float(coef)], np.asarray(s, np.float64),
+                axis=-1)
+    return y.astype(np.float32)

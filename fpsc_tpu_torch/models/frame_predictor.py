@@ -1,15 +1,24 @@
 """Frame-rate feature predictor: the closed-loop encoder and decoder.
 
-Port of fpsc_tpu/models/frame_predictor.py:51-417 but `forward` (the
-training pass): GRU(20->G1) -> GRU(G1->G2) -> ReLU ->
-2*tanh(Linear(G2->18)), run as a closed loop over frames; the
+Port of fpsc_tpu/models/frame_predictor.py:51-417: GRU(20->G1) ->
+GRU(G1->G2) -> ReLU -> 2*tanh(Linear(G2->18)), as the teacher-forced
+`forward` (two `gru_seq` calls) and as a closed loop over frames: the
 threshold-split `encoder` with in-loop scalar and m-best VQ
 quantisation, the learned-mask `mask_forward` / `mask_enc`, and the
 `decoder`.  Each loop is a plain Python loop over frames, batched over
 utterances, with no host synchronisation inside it (no `.item()`, no
 branch on a tensor's value: the `send`, `mask` and `qtz` branches are
 fixed before the loop); it holds no kernel.  The encode passes run
-their products under `no_tf32`.
+their products under `no_tf32`.  The loops build an autograd graph when
+the parameters require gradients (`mask_enc` is the predictor trainer's
+mask loss); the encode and decode callers (codec/codec.py,
+codec/plc.py, the streaming ticks, the CLI) run them under
+`torch.no_grad()`.  `forward`'s two `gru_seq` calls run with cuDNN off:
+on the H100 cuDNN's float32 GRU gives the 384-wide GRU's activations to
+6e-6 and, at trained weights, gradients 2e-3 (of each leaf's largest)
+from float64, where PyTorch's own GRU kernels stay within 1e-6 (ROADMAP
+Queue C 15); the sequences are 90 frames, so the per-frame kernels
+cost little.
 """
 from __future__ import annotations
 
@@ -21,9 +30,9 @@ import torch
 from torch import nn
 
 from fpsc_tpu_torch.models.common import Dense
-from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_step
+from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_seq, gru_step
 from fpsc_tpu_torch.quant.vq import mbest_search
-from fpsc_tpu_torch.utils.device import no_tf32
+from fpsc_tpu_torch.utils.device import no_cudnn, no_tf32
 
 NB_CEPS = 18
 
@@ -66,9 +75,33 @@ class Codebooks(NamedTuple):
     vq_bl: Optional[Tuple[torch.Tensor, ...]] = None
 
 
+def codebook_sizes(codebooks: Codebooks) -> dict:
+    """The geometry every pack / unpack layer takes: {scl, scl_bl, vq,
+    vq_bl} entry counts (0 and [] for absent books)."""
+    return {
+        "scl": int(codebooks.scl.shape[0]),
+        "scl_bl": int(codebooks.scl_bl.shape[0])
+        if codebooks.scl_bl is not None else 0,
+        "vq": [int(cb.shape[0]) for cb in codebooks.vq],
+        "vq_bl": [int(cb.shape[0]) for cb in codebooks.vq_bl]
+        if codebooks.vq_bl is not None else [],
+    }
+
+
 def _head(model: FramePredictor, h2: torch.Tensor) -> torch.Tensor:
     """ReLU -> summed dual FC == 2*tanh(dense)."""
     return 2.0 * torch.tanh(model.fc(torch.relu(h2)))
+
+
+def forward(model: FramePredictor, x: torch.Tensor,
+            h1: Optional[torch.Tensor] = None,
+            h2: Optional[torch.Tensor] = None):
+    """Teacher-forced full-sequence pass. x: (B, L, 20) -> (out (B, L,
+    18), h1, h2); out[:, t] predicts frame t+1."""
+    with no_cudnn():
+        y1, h1 = gru_seq(model.rnn1, x, h1)
+        y2, h2 = gru_seq(model.rnn2, y1, h2)
+    return _head(model, y2), h1, h2
 
 
 def step(model: FramePredictor, h1: torch.Tensor, h2: torch.Tensor,
@@ -183,7 +216,6 @@ def _lag_pitch(pitch: torch.Tensor, pitch_lag: int) -> torch.Tensor:
                       pitch[:, :-pitch_lag]], dim=1)
 
 
-@torch.no_grad()
 def decoder(model: FramePredictor, pitch: torch.Tensor, r: torch.Tensor,
             pitch_lag: int = 0) -> torch.Tensor:
     """Closed-loop decode: pitch (B, L, 2), dequantised residuals
@@ -202,7 +234,6 @@ def decoder(model: FramePredictor, pitch: torch.Tensor, r: torch.Tensor,
     return torch.cat([torch.stack(coded, dim=1), pitch], dim=-1)
 
 
-@torch.no_grad()
 def encoder(model: FramePredictor, feat: torch.Tensor, l1: float, l2: float,
             codebooks: Optional[Codebooks] = None,
             mask: Optional[torch.Tensor] = None, qtz: bool = True,
@@ -280,7 +311,6 @@ def encoder(model: FramePredictor, feat: torch.Tensor, l1: float, l2: float,
     return out
 
 
-@torch.no_grad()
 def mask_enc(model: FramePredictor, feat: torch.Tensor, scale=1.0,
              codebooks: Optional[Codebooks] = None, qtz: bool = False,
              pitch_lag: int = 0) -> Dict:

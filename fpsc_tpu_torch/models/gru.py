@@ -89,8 +89,8 @@ def gru_seq(gru: GRU, xs: torch.Tensor, h0: Optional[torch.Tensor] = None):
     gru.py:77-91) and of `gru_scan` here, in one call of the fused GRU
     of PyTorch (torch._VF.gru, the call nn.GRU makes) with the module's
     own parameters, so that their gradients reach them.  On the card
-    it is cuDNN's GRU: run it under `utils.device.no_tf32` for float32
-    arithmetic."""
+    it is cuDNN's GRU (PyTorch's own GRU kernels where cuDNN is off):
+    run it under `utils.device.no_tf32` for float32 arithmetic."""
     b = xs.shape[0]
     h = (xs.new_zeros((1, b, gru.units)) if h0 is None
          else h0[None].contiguous())

@@ -12,6 +12,9 @@ optimizer state) maps to an inert stub, because the port does not
 depend on optax, and numpy's array reconstructors are allowed.  Any
 other class is refused with a ValueError.  `log_epoch` writes the
 reference's results line (fpsc_tpu/train/checkpoint.py:83-95).
+Codebooks and the entropy-model priors are `.npz` files in JAX's layout
+(`save_codebooks`, `save_priors`: keys scl, vq_<i>, scl_bl, vq_bl_<i>,
+prior__<stream>), which each package's loader reads.
 """
 from __future__ import annotations
 
@@ -203,6 +206,31 @@ def restore(module: nn.Module, payload: Any, what: str = "model"
     if isinstance(payload, dict) and "params" in payload:
         payload = payload["params"]
     return weights.load_into(module, payload, what)
+
+
+def save_codebooks(path: str, codebooks: Codebooks) -> None:
+    """Write a Codebooks set as .npz in JAX's layout
+    (fpsc_tpu/train/checkpoint.py:98-110): scl, vq_<i>, and scl_bl and
+    vq_bl_<i> where present."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {"scl": _to_numpy(codebooks.scl)}
+    for i, cb in enumerate(codebooks.vq):
+        arrays[f"vq_{i}"] = _to_numpy(cb)
+    if codebooks.scl_bl is not None:
+        arrays["scl_bl"] = _to_numpy(codebooks.scl_bl)
+    if codebooks.vq_bl is not None:
+        for i, cb in enumerate(codebooks.vq_bl):
+            arrays[f"vq_bl_{i}"] = _to_numpy(cb)
+    np.savez(path, **arrays)
+
+
+def save_priors(path: str, priors: dict) -> None:
+    """Add the entropy-model priors (range_coder.collect_priors) to an
+    existing codebook .npz as `prior__<stream>` keys, which
+    load_codebooks does not see (fpsc_tpu/train/checkpoint.py:113-120)."""
+    z = dict(np.load(path))
+    z.update({f"prior__{k}": np.asarray(v) for k, v in priors.items()})
+    np.savez(path, **z)
 
 
 def load_codebooks(path: str, device=None) -> Codebooks:

@@ -44,7 +44,8 @@ from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import weights
-from fpsc_tpu_torch.utils.device import no_tf32, resolve_device
+from fpsc_tpu_torch.utils.device import (no_tf32, resolve_device,
+                                         split_device_arg)
 
 # the frame conditioning net: what train.upd_f_only trains
 FRAME_FIELDS = ("period_emb", "conv1", "conv1_b", "conv2", "conv2_b",
@@ -127,14 +128,15 @@ class ClippedAdam:
     leaf's sum of squares) over these parameters only (as optax's
     multi_transform gives the inner chain only the trained leaves); a
     gradient kept if the norm is below max_norm, else (g / norm) *
-    max_norm, with no epsilon; mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2
-    + b2 nu; the update -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t))
-    + eps) added to the parameter.  The step reads the parameters'
+    max_norm, with no epsilon (max_norm=None: no clip, optax.adam
+    alone); mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; the
+    update -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) added
+    to the parameter.  The step reads the parameters'
     .grad; nothing is read back to the host."""
 
     def __init__(self, params: List[nn.Parameter], lr: float,
-                 max_norm: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 max_norm: Optional[float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
         self.lr, self.max_norm = lr, max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -143,6 +145,8 @@ class ClippedAdam:
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     def clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.max_norm is None:
+            return grads
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = norm < self.max_norm
         return [torch.where(keep, g, (g / norm) * self.max_norm)
@@ -271,10 +275,7 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
     bunch = cfg.lpcnet.bunch
     if init_params is not None:
         bunch = _bunch_of(init_params)
-        base = init_params.base if bunch > 1 else init_params
-        model = lpcnet_bunched.VOCODERS[bunch](
-            weights.lpcnet_config(base), torch.Generator().manual_seed(0))
-        weights.load_into(model, init_params, f"vocoder (bunch={bunch})")
+        model = weights.vocoder_from_params(init_params)
     else:
         lcfg = LPCNetConfig(
             gru_a_units=cfg.lpcnet.gru_a_units,
@@ -385,11 +386,7 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    for a in [a for a in argv if a.startswith("--device=")]:
-        device = a.split("=", 1)[1]
-        argv.remove(a)
+    argv, device = split_device_arg(sys.argv[1:] if argv is None else argv)
     run(parse_cli(argv), device=device)
     return 0
 

@@ -26,7 +26,7 @@ from torch import nn
 from fpsc_tpu_torch.models.frame_predictor import (Codebooks, FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
-from fpsc_tpu_torch.models.lpcnet_bunched import (Bunched4LPCNet,
+from fpsc_tpu_torch.models.lpcnet_bunched import (VOCODERS, Bunched4LPCNet,
                                                   BunchedLPCNet)
 
 _CONV = ("conv1", "conv2")
@@ -171,6 +171,15 @@ def bunched4_from_params(tree: Any, device=None) -> Bunched4LPCNet:
     """A JAX Bunched4Params tree (bunch=4) as a Bunched4LPCNet."""
     model = Bunched4LPCNet(lpcnet_config(tree.base), _init_generator())
     return load_into(model, tree, "vocoder (bunch=4)").to(device)
+
+
+def vocoder_from_params(tree: Any, device=None):
+    """A vocoder parameter tree of any bunch (LPCNetParams,
+    BunchedParams, Bunched4Params) as its module."""
+    cfg = lpcnet_config(getattr(tree, "base", tree))
+    bunch = {3: 1, 5: 2, 9: 4}[cfg.gru_a_embeds]
+    model = VOCODERS[bunch](cfg, _init_generator())
+    return load_into(model, tree, f"vocoder (bunch={bunch})").to(device)
 
 
 def predictor_from_params(tree: Any, device=None) -> FramePredictor:

@@ -7,7 +7,7 @@ request they raise: nothing carries on silently on the CPU.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +22,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def split_device_arg(argv: List[str]) -> Tuple[List[str], Optional[str]]:
+    """An entry point's arguments without `--device=...`, and that
+    device (None when not given: the card)."""
+    device = None
+    rest = []
+    for a in argv:
+        if a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, device
 
 
 # (id of the numpy table, device) -> (the table, its float32 tensor)
@@ -77,3 +90,15 @@ def no_tf32():
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def no_cudnn():
+    """cuDNN off inside the block (PyTorch's own CUDA kernels instead),
+    the setting restored after it."""
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled

@@ -1073,3 +1073,183 @@ def test_flagship_width_training_step_matches_cpu(cuda_device, bunch,
     assert abs(got - want) <= 1e-5 * abs(want), (got, want)
     for a, b in zip(got_g, want_g):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _predictor_steps(model, feat, tf32=None):
+    """One warm step then one mask step (scale 6) of train_frame's steps
+    on model -> [(loss, {leaf: gradient on the host})] of each.  tf32:
+    the caller's setting for both flags during the steps (None: as they
+    are)."""
+    from fpsc_tpu_torch.train import train_frame as ttf
+    from fpsc_tpu_torch.train import weights
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if tf32 is not None:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        opt = ttf.ClippedAdam([p for _, p in weights.named_leaves(model)],
+                              1e-3, None)
+        warm_step, mask_step, _, _ = ttf.make_steps(opt)
+        out = []
+        for step, args in ((warm_step, ()), (mask_step, (6.0, 0.3))):
+            loss = float(step(model, feat, *args))
+            # the warm step does not reach the mask GRUs: no gradient
+            out.append((loss, {n: (torch.zeros_like(p) if p.grad is None
+                                   else p.grad).detach().cpu().clone()
+                               for n, p in weights.named_leaves(model)}))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    return out
+
+
+def _flagship_predictor():
+    from fpsc_tpu_torch.models.frame_predictor import (FramePredictor,
+                                                       FramePredictorConfig)
+    return FramePredictor(FramePredictorConfig(),
+                          torch.Generator().manual_seed(5))
+
+
+@pytest.mark.cuda
+def test_flagship_width_predictor_steps_match_cpu(cuda_device):
+    """A warm step and a mask step of the predictor at full width (GRU
+    384 / 128), 2 x 20 frames, on the card and on the CPU from the same
+    weights: each loss within rtol 1e-6, every gradient leaf within 1e-5
+    of its largest element."""
+    rng = np.random.RandomState(1)
+    feat = np.cumsum(rng.randn(2, 20, 20).astype(np.float32) * 0.06, 1)
+    init = _flagship_predictor()
+    runs = [_predictor_steps(copy.deepcopy(init).to(dev),
+                             torch.as_tensor(feat, device=dev))
+            for dev in (torch.device("cpu"), cuda_device)]
+    for (want, want_g), (got, got_g) in zip(*runs):
+        assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+        for n, w in want_g.items():
+            assert float((got_g[n] - w).abs().max()) <= \
+                1e-5 * float(w.abs().max()), n
+
+
+@pytest.mark.cuda
+def test_predictor_steps_with_tf32_on_compute_f32(cuda_device):
+    """The caller's TF32 on: the steps run under no_tf32 and give the
+    losses and gradients of TF32 off bit for bit, and the caller's
+    settings come back."""
+    rng = np.random.RandomState(2)
+    feat = torch.as_tensor(np.cumsum(
+        rng.randn(2, 20, 20).astype(np.float32) * 0.06, 1),
+        device=cuda_device)
+    init = _flagship_predictor()
+    on = _predictor_steps(copy.deepcopy(init).to(cuda_device), feat, True)
+    off = _predictor_steps(copy.deepcopy(init).to(cuda_device), feat, False)
+    for (l_on, g_on), (l_off, g_off) in zip(on, off):
+        assert l_on == l_off
+        for n in g_off:
+            assert torch.equal(g_on[n], g_off[n]), n
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _lbg_data(n=3000):
+    rng = np.random.RandomState(7)
+    return torch.as_tensor((rng.randn(n, 17) * 0.4).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entries", [64, 512])
+def test_fused_lbg_repeats_bit_for_bit_on_the_card(cuda_device, entries):
+    """Two runs of the fused trainer on the card give the same book bit
+    for bit (the cells' sums are a one-hot product, not atomics), and
+    every entry is finite."""
+    from fpsc_tpu_torch.quant import lbg
+    data = _lbg_data().to(cuda_device)
+    a = lbg.vq_train(data, entries, seed=1)
+    b = lbg.vq_train(data, entries, seed=1)
+    assert a.device.type == "cuda" and torch.isfinite(a).all()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_lbg_with_tf32_on_computes_f32(cuda_device):
+    """The caller's TF32 on: every LBG product runs under no_tf32, so
+    the books are those of TF32 off, bit for bit; kmeans_update on the
+    card picks the CPU's cells but at knife edges, books at rtol 1e-5."""
+    from fpsc_tpu_torch.quant import lbg
+    data = _lbg_data(2000).to(cuda_device)
+    books = []
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            books.append(lbg.train_multistage(data, [32, 16], seed=2))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+    for a, b in zip(*books):
+        assert torch.equal(a, b)
+    cb = books[1][0]
+    got, counts = lbg.kmeans_update(data, cb, cb.shape[0])
+    want, want_c = lbg.kmeans_update(data.cpu(), cb.cpu(), cb.shape[0])
+    idx = lbg.find_nearest(data, cb).cpu().numpy()
+    ref = lbg.find_nearest(data.cpu(), cb.cpu()).numpy()
+    dist = lbg.pairwise_sq_dist(data.cpu(), cb.cpu()).numpy()
+    for r in np.nonzero(idx != ref)[0]:
+        a, b = dist[r, idx[r]], dist[r, ref[r]]
+        assert abs(a - b) <= 4 * np.spacing(np.float32(max(a, b))), r
+    if (idx == ref).all():
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        assert torch.equal(counts.cpu(), want_c)
+
+
+def _synthesis_artifacts(work, bunch: int, gru_b: int, sparse: bool):
+    """A seeded predictor (head scaled by 0.05), small random books and a
+    full-width vocoder (GRU_A sparsified to 0.2 in (64, 64) blocks when
+    sparse) as checkpoints and files under work -> cfg overrides."""
+    from fpsc_tpu_torch.models.frame_predictor import Codebooks
+    from fpsc_tpu_torch.train import checkpoint as ckpt
+    pred = _flagship_predictor()
+    with torch.no_grad():
+        pred.fc.w.mul_(0.05)
+        pred.fc.b.mul_(0.05)
+    ckpt.save(ckpt.checkpoint_path(work, "pred", 0), pred)
+    voc = VOCODERS[bunch](LPCNetConfig(gru_b_units=gru_b),
+                          torch.Generator().manual_seed(bunch))
+    if sparse:
+        sparsify_gru_a(getattr(voc, "base", voc), 0.2, (64, 64))
+    ckpt.save(ckpt.checkpoint_path(work, "voc", 0), voc)
+    g = torch.Generator().manual_seed(3)
+    ckpt.save_codebooks(os.path.join(work, "cb.npz"), Codebooks(
+        scl=torch.linspace(-0.3, 0.3, 16), vq=(
+            torch.randn((32, 17), generator=g) * 0.05,
+            torch.randn((32, 17), generator=g) * 0.02),
+        scl_bl=torch.linspace(-0.05, 0.05, 4),
+        vq_bl=(torch.randn((16, 17), generator=g) * 0.02,)))
+    return ["data.synthetic=true", "data.synthetic_utterances=8",
+            "data.chunks=1", f"train.save_dir={work}",
+            "train.transfer_model=pred", "train.transfer_epoch=0",
+            "train.vocoder_model=voc", "train.vocoder_epoch=0",
+            f"lpcnet.bunch={bunch}", f"lpcnet.gru_b_units={gru_b}",
+            f"codec.codebook_path={os.path.join(work, 'cb.npz')}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bunch,gru_b,sparse", [(1, 16, False),
+                                                (2, 32, True)])
+def test_synthesis_qtz_launches_the_vocoders_form(cuda_device, tmp_path,
+                                                  bunch, gru_b, sparse):
+    """synthesis_qtz on the card launches the sampler form its vocoder
+    implies (the block-sparse one for a sparse GRU_A) and the fold, once
+    an utterance each; the audio is finite."""
+    from fpsc_tpu_torch.config.config import Config, apply_overrides
+    from fpsc_tpu_torch.train import synthesis_qtz
+    cfg = apply_overrides(Config(), _synthesis_artifacts(
+        str(tmp_path), bunch, gru_b, sparse))
+    build.reset_launch_counts()
+    results = synthesis_qtz.run(cfg, num_samples=2,
+                                out_dir=str(tmp_path / "out"))
+    form = ts.KERNELS[(bunch, sparse, False, False)]
+    assert build.launch_counts.get(form) == 2, build.launch_counts
+    assert build.launch_counts.get(ts.FOLD_KERNEL) == 2
+    assert sum(build.launch_counts.values()) == 4
+    for r in results:
+        assert np.isfinite(r["wav"]).all() and r["wav"].shape == (2400,)

@@ -493,7 +493,12 @@ for name in ("fpsc_tpu_torch.codec.range_coder",
              *(f"fpsc_tpu_torch.data.{m}" for m in
                ("f32", "synthetic", "dataset", "prepare", "native")),
              "fpsc_tpu_torch.dsp.lpc",
-             "fpsc_tpu_torch.train.train_lpcnet"):
+             "fpsc_tpu_torch.dsp.entropy",
+             "fpsc_tpu_torch.quant.lbg",
+             *(f"fpsc_tpu_torch.train.{m}" for m in
+               ("train_lpcnet", "train_frame", "train_cb",
+                "generate_qtz_features", "frame_evaluation",
+                "synthesis_qtz"))):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"

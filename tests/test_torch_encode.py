@@ -270,7 +270,8 @@ def test_encoder_matches_jax(case):
         send = np.arange(L) % 3 != 2
         jkw["send"], tkw["send"] = jnp.asarray(send), send
     want = jfp.encoder(params, jnp.asarray(feat), codebooks=jbooks, **jkw)
-    got = tfp.encoder(model, _t(feat), codebooks=tbooks, **tkw)
+    with torch.no_grad():
+        got = tfp.encoder(model, _t(feat), codebooks=tbooks, **tkw)
     _check_encoder_out(got, want, kw["qtz"])
     for k in ("ind1", "ind2"):
         assert 0 < got[k].float().mean() < 1, (k, got[k].float().mean())
@@ -288,8 +289,9 @@ def test_mask_enc_matches_jax(qtz):
     feat = _feat(rng)
     want = jfp.mask_enc(params, jnp.asarray(feat), scale=1000.0,
                         codebooks=jbooks, qtz=qtz)
-    got = tfp.mask_enc(model, _t(feat), scale=1000.0, codebooks=tbooks,
-                       qtz=qtz)
+    with torch.no_grad():
+        got = tfp.mask_enc(model, _t(feat), scale=1000.0, codebooks=tbooks,
+                           qtz=qtz)
     assert sorted(got) == sorted(want)
     if qtz:
         _same_indices(got["indices"], want["indices"])

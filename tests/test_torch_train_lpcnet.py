@@ -237,7 +237,7 @@ def test_noise_ramp_sparsity_and_checkpoints(tmp_path, monkeypatch):
             jax.tree_util.tree_map(np.asarray, restored))):
         np.testing.assert_array_equal(a, b, err_msg=n)
     cfg.train.vocoder_model, cfg.train.vocoder_epoch = "ramp_s", 3
-    vocoder = tcli._load_vocoder(cfg, torch.device("cpu"))
+    vocoder = tcli.load_vocoder(cfg, torch.device("cpu"))
     for (n, a), (_, b) in zip(want, weights.flatten(
             weights.to_params(vocoder))):
         np.testing.assert_array_equal(a, b, err_msg=n)
