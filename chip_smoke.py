@@ -230,7 +230,37 @@ exit and no result line:
    against the CPU (loss within rtol 1e-6, every gradient leaf within
    1e-5 of its largest), and one kmeans_update of the trained 1024-entry
    book on bench_lbg's rows (cells the CPU's but at knife edges, books
-   at rtol 1e-5).
+   at rtol 1e-5);
+21. the WaveNet family at full width (the config's defaults: WaveNet 2 x
+   10 layers 128/256/128, conditioning 128, front 32, the fat upsampler;
+   IAF 6 x 10 layers 64/128/64), each entry through its run() on the
+   card: (a) train_vocoder.run on scripts/validate_wavenet.py's data (24
+   utterances of 4 chunks, B=8, lr 1e-3) for 4 epochs (12 steps): every
+   loss finite, the last epoch's mean NLL below the first's, the median
+   step seconds, samples a second and peak memory printed; (b)
+   synthesis.run from (a)'s checkpoint on 1 utterance of 2,400 samples
+   (both wavs written, the audio finite; generate_lpc's samples a
+   second), then 2 x 320 samples of (a)'s model (lpc 0, de-emphasis 0)
+   held to their distributions recomputed in parallel
+   (wavenet.generation_dists: rtol 1e-4, within 1e-5 of the peak), with
+   tests/test_wavenet.py's contract (forward on the signal, rtol 1e-2,
+   atol 2e-3) counted; (c) train_iaf.run with (a) as the teacher and
+   iaf.distill_weight 0.1 on scripts/validate_iaf.py's data (16
+   speech-like utterances of 4 chunks, B=8, lr 5e-4), 6 steps; (d)
+   train_all.run with phase 20(a)'s predictor frozen, 6 steps; (e) on B=2
+   x 1 chunk from the same weights, the card against the CPU:
+   train_vocoder's (at (a)'s weights) and the distilling train_iaf's (a
+   seeded student, its heads scaled by HEAD_SCALE, (a) as the teacher)
+   loss (rtol 1e-5) and gradients (each leaf within 1e-4 of its largest;
+   where a leaf misses, the gap must be the (leaky) ReLUs' decisions,
+   taken apart at knife edges: the CPU run again with the card's
+   decisions within 1e-4, each decision the devices take apart on an
+   input within KINK_REL of its tensor's largest), generate_lpc with
+   the same eps (the largest difference printed; the card's signal held
+   to the CPU's generation_dists), train_all's periods (equal, or at a
+   knife edge of the truncation), the para predictor's forward and
+   encoder at 384/128 on 2 x 90 frames and loop_attention at hidden 128
+   (within 1e-5; indicators equal but at counted knife edges).
 
 Every main path must launch its sampler form and the fold.  The probes
 phase also runs each product chain (bf16, i8, onehot) 8 times, which
@@ -254,6 +284,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -271,8 +302,10 @@ from fpsc_tpu_torch.data.dataset import build_dataset, predictor_inputs
 from fpsc_tpu_torch.dsp import emphasis, frontend
 from fpsc_tpu_torch.dsp.mulaw import l2u_index
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
+from fpsc_tpu_torch.models import attention, frame_predictor_para
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
+from fpsc_tpu_torch.models import wavenet, wavenet_iaf
 from fpsc_tpu_torch.models.frame_predictor import Codebooks
 from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
@@ -280,8 +313,9 @@ from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
 from fpsc_tpu_torch.quant import lbg, vq
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import (frame_evaluation, generate_qtz_features,
-                                  synthesis_qtz, train_cb, train_frame,
-                                  train_lpcnet, weights)
+                                  synthesis, synthesis_qtz, train_all,
+                                  train_cb, train_frame, train_iaf,
+                                  train_lpcnet, train_vocoder, weights)
 from fpsc_tpu_torch.utils.device import no_tf32
 
 N_UTT, UTT_FRAMES = 8, 200
@@ -3037,6 +3071,492 @@ def codec_pipeline(dev, work: str, smi: str, vocoder: list):
     pipeline_card_against_cpu(dev, cfg, books, data)
     print(json.dumps({"codec_pipeline_s": time.perf_counter() - t0,
                       "card": smi}))
+    return trained
+
+
+# Phase 21: the WaveNet family at full width (the config's defaults, the
+# reference's config.py:48-57): WaveNet 2 blocks x 10 layers, residual
+# 128, gate 256, skip 128, conditioning 128, front kernel 32, the fat
+# upsampler; IAF 6 flows x 10 layers, residual 64, gate 128, skip 64,
+# kernel 3, front 32.  The data of scripts/validate_wavenet.py:28-36 (24
+# synthetic utterances of 4 chunks, batches of 8) and the data and lr of
+# scripts/validate_iaf.py:37-46 (16 speech-like utterances of 4 chunks,
+# batches of 8, lr 5e-4); their cut widths are not taken.  The WaveNet
+# trains at the config's lr, 1e-4 (the reference's): the recipe's 1e-3,
+# set for its 64-channel net, makes the full-width NLL spike to 150-200
+# within 12 steps, in both packages (PERF.md §6).  Cut in depth: 4
+# epochs of the WaveNet (12 steps; the recipe's 120 epochs), 3 of the IAF
+# (6 steps; the recipe's 200), 2 of train_all (6 steps).
+WN_RECIPE = ["data.synthetic=true", "data.synthetic_utterances=24",
+             "data.chunks=4", "data.batch_size=8",
+             "train.learning_rate=0.0001"]
+WN_CUT = ["train.epochs=4", "train.save_every=100"]
+WN_LABEL = "smoke_wn"
+IAF_RECIPE = ["data.synthetic=true", "data.synthetic_style=speech",
+              "data.synthetic_utterances=16", "data.chunks=4",
+              "data.batch_size=8", "train.learning_rate=0.0005",
+              "iaf.distill_weight=0.1"]
+IAF_CUT = ["train.epochs=3", "train.save_every=100"]
+ALL_CUT = ["train.epochs=2", "train.save_every=100",
+           "predictor.gru_units1=384", "predictor.gru_units2=128"]
+AR_SAMPLES = 2 * C.FRAME_SIZE
+WN_CHECK_B, PARA_FRAMES, ATTN_HIDDEN = 2, 90, 128
+# the period formula's value within this of an integer: a knife edge
+PERIOD_KNIFE = 1e-3
+# a (leaky) ReLU input within this of its tensor's largest: a knife edge
+# of the decision, which the card's and the CPU's float32 may take apart
+KINK_REL = 1e-5
+
+
+def _timed_make(make, store: list):
+    """train_vocoder.make_step with its step appending (loss, seconds) to
+    store, the card synchronised before and after (float reads the
+    loss)."""
+
+    def timed_make(*args):
+        step = make(*args)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(*a))
+            store.append((loss, time.perf_counter() - t0))
+            return torch.tensor(loss)
+
+        return timed
+
+    return timed_make
+
+
+def _train_entry(module, cfg: Config, dev, what: str, steps: int, smi: str,
+                 samples: int):
+    """module.run(cfg) on the card with its steps timed -> (what run
+    returned, its step losses, the step summary)."""
+    store, make = [], module.make_step
+    module.make_step = _timed_make(make, store)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        out = module.run(cfg, device=dev)
+    finally:
+        module.make_step = make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for loss, _ in store]
+    print(f"{what} step losses " + ", ".join(f"{v:.4f}" for v in losses))
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"{what}: {len(losses)} steps, losses {losses}")
+    med, first = _median_apart([s for _, s in store])
+    summary = {"first_step_s": first, "median_step_s": med,
+               "max_step_s": max(s for _, s in store[1:]),
+               "samples_per_s": samples / med,
+               "peak_memory_gb": peak / 2 ** 30,
+               "peak_above_resident_gb": (peak - resident) / 2 ** 30,
+               "run_s": wall, "card": smi}
+    return out, losses, summary
+
+
+def wavenet_train(dev, work: str, smi: str):
+    """(a) train_vocoder.run at full width -> (model, the overrides that
+    name its checkpoint)."""
+    phase("WaveNet family (a): train_vocoder, full width, 12 steps")
+    print("cut from scripts/validate_wavenet.py: 4 epochs of 3 steps (its "
+          "120 epochs); its data, the config's widths and lr (1e-4)")
+    cfg = apply_overrides(Config(label=WN_LABEL), [
+        *WN_RECIPE, *WN_CUT, f"train.save_dir={work}"])
+    samples = cfg.data.batch_size * cfg.data.chunks * C.SAMPLES_PER_CHUNK
+    (model, _), losses, summary = _train_entry(
+        train_vocoder, cfg, dev, "WaveNet", 12, smi, samples)
+    per = len(losses) // cfg.train.epochs
+    first, last = np.mean(losses[:per]), np.mean(losses[-per:])
+    if not last < first:
+        raise RuntimeError(f"the WaveNet's epoch NLL did not fall: {first} "
+                           f"-> {last}")
+    print(json.dumps({"wavenet_train_step": {
+        "config": "WaveNet 2 x 10, 128/256/128, B=8 x 9,600 samples",
+        "epoch_nll": [first, last], **summary}}))
+    return model, [f"train.save_dir={work}",
+                   f"train.transfer_model={WN_LABEL}_s",
+                   f"train.transfer_epoch={cfg.train.epochs - 1}"]
+
+
+def _identity(model, mcfg, feat, periods, eps, lpc_sample=None):
+    """generate_lpc (lpc 0 unless given, de-emphasis 0) on model's device
+    -> (y, the largest gap of the exact identity (generation_dists) over
+    the signal's peak, the JAX contract's misses (forward on y, rtol
+    1e-2, atol 2e-3) and its largest gap)."""
+    b, t = eps.shape[1], eps.shape[0]
+    dev = feat.device
+    if lpc_sample is None:
+        lpc_sample = torch.zeros((b, t, 16), device=dev)
+    y = wavenet.generate_lpc(model, mcfg, feat, periods, lpc_sample,
+                             deemphasis=0.0, eps=eps)
+    e = eps.T.to(dev)
+    with torch.no_grad():
+        dist = wavenet.generation_dists(model, mcfg, y, feat, periods)
+        out = wavenet.forward(model, mcfg, y[:, None, :], periods, feat)
+    exact = dist[:, 0] + torch.exp(dist[:, 1]) * e
+    peak = float(y.abs().max())
+    exact_gap = float(((y - exact).abs() - 1e-4 * exact.abs()).max()) / peak
+    want = out[:, 0, :-1] + torch.exp(out[:, 1, :-1]) * e[:, 1:]
+    gap = (y[:, 1:] - want).abs()
+    miss = gap > 2e-3 + 1e-2 * want.abs()
+    return y, exact_gap, int(miss.sum()), float(gap.max())
+
+
+def _check_identity(what: str, exact_gap: float, misses: int, gap: float,
+                    n: int):
+    print(f"{what}: the exact identity within {exact_gap:.3g} of the peak "
+          f"(rtol 1e-4); tests/test_wavenet.py's contract missed at "
+          f"{misses} of {n} samples (largest gap {gap:.3g}), where "
+          f"generation's step-0 states stand in for forward's padding")
+    if not exact_gap <= 1e-5:
+        raise RuntimeError(f"{what}: generate_lpc's samples are not their "
+                           "distributions' draws")
+
+
+def _val_inputs(dev, b: int, chunks: int = 1):
+    data = apply_overrides(Config(), [
+        "data.synthetic=true", "data.synthetic_utterances=8",
+        f"data.chunks={chunks}"]).data
+    batch = next(build_dataset(data, "val", device=dev).iter_batches(
+        b, seed=0))
+    return batch, {k: torch.as_tensor(v) for k, v in
+                   train_lpcnet.vocoder_inputs(batch).items()}
+
+
+def wavenet_synthesis(dev, work: str, smi: str, model, trained: list):
+    """(b) synthesis.run from (a)'s checkpoint; the sampling identity at
+    full width on (a)'s model."""
+    phase("WaveNet family (b): synthesis from (a)'s checkpoint, 1 x 2,400 "
+          "samples; the sampling identity, 2 x 320")
+    cfg = apply_overrides(Config(label=WN_LABEL), [
+        *WN_RECIPE, "data.chunks=1", *trained])
+    calls, gen = {}, wavenet.generate_lpc
+    wavenet.generate_lpc = _timed_calls(calls, "generate_lpc", gen)
+    out_dir = os.path.join(work, "wn_samples")
+    try:
+        outs = synthesis.run(cfg, num_samples=1, out_dir=out_dir, device=dev)
+    finally:
+        wavenet.generate_lpc = gen
+    name, y = outs[0]
+    if y.shape != (1, C.SAMPLES_PER_CHUNK) or not np.isfinite(y).all():
+        raise RuntimeError(f"synthesis gave {y.shape}, finite "
+                           f"{np.isfinite(y).all()}")
+    for kind in ("truth", "xout"):
+        with wave.open(os.path.join(out_dir, f"{name}_{kind}.wav")) as w:
+            if (w.getframerate(), w.getnframes()) != (
+                    C.SAMPLE_RATE, C.SAMPLES_PER_CHUNK):
+                raise RuntimeError(f"{name}_{kind}.wav is not 2,400 "
+                                   "samples at 16 kHz")
+    secs = calls["generate_lpc"][0]
+    _, arrs = _val_inputs(dev, WN_CHECK_B)
+    feat = arrs["feat"][:, :2].transpose(1, 2).to(dev)
+    periods = arrs["periods"][:, :2].to(dev)
+    eps = torch.randn((AR_SAMPLES, WN_CHECK_B),
+                      generator=torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, exact_gap, misses, gap = _identity(model, model.cfg, feat, periods,
+                                          eps)
+    torch.cuda.synchronize()
+    _check_identity("(a)'s WaveNet on the card", exact_gap, misses, gap,
+                    WN_CHECK_B * (AR_SAMPLES - 1))
+    print(json.dumps({"wavenet_synthesis": {
+        "generate_lpc_s": secs, "samples": C.SAMPLES_PER_CHUNK,
+        "samples_per_s": C.SAMPLES_PER_CHUNK / secs,
+        "identity_s": time.perf_counter() - t0,
+        "peak_abs": float(np.abs(y).max()), "card": smi}}))
+
+
+def iaf_train(dev, work: str, smi: str, trained: list):
+    """(c) train_iaf.run with (a)'s WaveNet as the teacher, distilling."""
+    phase("WaveNet family (c): train_iaf, full width, (a) as the teacher, "
+          "distill_weight 0.1, 6 steps")
+    print("cut from scripts/validate_iaf.py: 3 epochs of 2 steps (its 200 "
+          "epochs); its data and lr, the config's widths")
+    cfg = apply_overrides(Config(label=WN_LABEL), [
+        *IAF_RECIPE, *IAF_CUT, *trained])
+    samples = cfg.data.batch_size * cfg.data.chunks * C.SAMPLES_PER_CHUNK
+    _, _, summary = _train_entry(train_iaf, cfg, dev, "IAF", 6, smi, samples)
+    print(json.dumps({"iaf_train_step": {
+        "config": "IAF 6 x 10, 64/128/64, distill 0.1, B=8 x 9,600 samples",
+        **summary}}))
+
+
+def joint_train(dev, work: str, smi: str, predictor: list):
+    """(d) train_all.run with phase 20(a)'s predictor, frozen."""
+    phase("WaveNet family (d): train_all, phase 20(a)'s predictor frozen, "
+          "the full-width WaveNet, 6 steps")
+    cfg = apply_overrides(Config(label=WN_LABEL + "_all"), [
+        *WN_RECIPE, *ALL_CUT, f"train.save_dir={work}", *predictor])
+    samples = cfg.data.batch_size * cfg.data.chunks * C.SAMPLES_PER_CHUNK
+    (frame, _, _), _, summary = _train_entry(train_all, cfg, dev,
+                                             "train_all", 6, smi, samples)
+    print(json.dumps({"train_all_step": {
+        "config": "predictor 384/128 frozen + WaveNet 2 x 10, B=8 x 9,600 "
+                  "samples", **summary}}))
+    return frame
+
+
+def _rel(got, want) -> float:
+    return float((got.detach().cpu() - want.detach().cpu()).abs().max()
+                 / want.detach().cpu().abs().max())
+
+
+class _Kinks(torch.overrides.TorchFunctionMode):
+    """Records each torch.relu and F.leaky_relu input in call order;
+    given another run's inputs (replay=), takes that run's decisions
+    (input > 0) in place of its own: relu(x) = x where the other run's
+    input was positive, else 0 (leaky: slope x)."""
+
+    def __init__(self, replay=None):
+        super().__init__()
+        self.inputs, self.replay, self.flips = [], replay, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in (torch.relu, torch.nn.functional.relu,
+                        torch.nn.functional.leaky_relu):
+            return func(*args, **kwargs)
+        x = args[0]
+        self.inputs.append(x.detach())
+        if self.replay is None:
+            return func(*args, **kwargs)
+        slope = (args[1] if len(args) > 1 else kwargs.get(
+            "negative_slope", 0.01)) \
+            if func is torch.nn.functional.leaky_relu else 0.0
+        other = self.replay[len(self.inputs) - 1].to(x.device)
+        mask = other > 0
+        flip = mask != (x.detach() > 0)
+        if bool(flip.any()):
+            self.flips.append(float((x.detach()[flip].abs().max()
+                                     / x.detach().abs().max())))
+            self.flips.extend([0.0] * (int(flip.sum()) - 1))
+        return torch.where(mask, x, x * slope)
+
+
+def _grads_of(model) -> dict:
+    return {n: None if p.grad is None else p.grad.detach().cpu().clone()
+            for n, p in model.named_parameters()}
+
+
+def _gap(card: dict, cpu: dict) -> float:
+    """The largest gradient gap of a leaf over that leaf's largest
+    element (leaves without a gradient on both sides: none)."""
+    return max((_rel(card[n], cpu[n]) for n in cpu
+                if not (card[n] is None and cpu[n] is None)), default=0.0)
+
+
+def _loss_grads(fn, model, dev, kinks=None):
+    model.zero_grad(set_to_none=True)
+    with no_tf32(), (kinks or contextlib.nullcontext()):
+        loss = fn(model, dev)
+    with no_tf32():
+        loss.backward()
+    return float(loss.detach()), _grads_of(model)
+
+
+def _card_against_cpu_grads(what: str, fn, model):
+    """fn(model, device) -> a loss; on the card and on a CPU copy of
+    model: the loss within rtol 1e-5 and each gradient leaf within 1e-4
+    of its largest element.  Where a leaf misses, the gap must be the
+    (leaky) ReLUs': the CPU run again with the card's decisions must
+    meet the tolerance, and each decision the devices take apart must
+    have an input within KINK_REL of its tensor's largest."""
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    card_kinks = _Kinks()
+    got, got_g = _loss_grads(fn, model, model_device(model), card_kinks)
+    want, want_g = _loss_grads(fn, cpu_model, torch.device("cpu"))
+    gap = _gap(got_g, want_g)
+    note = ""
+    if gap > 1e-4:
+        replay = _Kinks(replay=card_kinks.inputs)
+        _, rep_g = _loss_grads(fn, cpu_model, torch.device("cpu"), replay)
+        rep_gap = _gap(got_g, rep_g)
+        edge = max(replay.flips, default=0.0)
+        note = (f"; {len(replay.flips)} (leaky) ReLU decisions apart, "
+                f"inputs within {edge:.3g} of their tensor's largest; the "
+                f"CPU with the card's decisions within {rep_gap:.3g}")
+        if not (rep_gap <= 1e-4 and replay.flips and edge <= KINK_REL):
+            raise RuntimeError(f"{what}: the card's gradients are not the "
+                               f"CPU's (gap {gap:.3g}{note})")
+    print(f"{what}: card {got!r} cpu {want!r} (rel "
+          f"{abs(got - want) / abs(want):.3g}); gradients within {gap:.3g} "
+          f"of each leaf's largest{note} ({time.perf_counter() - t0:.1f} s)")
+    if not abs(got - want) <= 1e-5 * abs(want):
+        raise RuntimeError(f"{what}: the card's loss is not the CPU's")
+
+
+def model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _para_knife(cpu: dict, card: dict, ceps: torch.Tensor, l1: float,
+                l2: float):
+    """The first frame of each item whose indicators differ between the
+    devices (the closed loop carries the later ones): there the CPU's
+    raw residual (ceps less the prediction, c_in - r) must lie within
+    1e-5 of the threshold that flipped -> (count, {item: frame})."""
+    first = {}
+    for key in ("ind1", "ind2"):
+        for b, t in torch.nonzero(card[key] != cpu[key]).tolist():
+            first[b] = min(first.get(b, t), t)
+    for b, t in first.items():
+        r_s = ceps[b, t] - (cpu["c_in"][b, t, :fp.NB_CEPS] - cpu["r"][b, t])
+        near = []
+        if bool(card["ind1"][b, t] != cpu["ind1"][b, t]):
+            near.append(abs(float(r_s[0].abs()) - l1) <= 1e-5)
+        if bool(card["ind2"][b, t] != cpu["ind2"][b, t]):
+            near.append(abs(float(r_s[1:].abs().sum()) - l2) <= 1e-5)
+        if not all(near):
+            raise RuntimeError(f"para encoder: item {b} frame {t} parts "
+                               "between the devices away from a threshold")
+    return len(first), first
+
+
+def wavenet_card_against_cpu(dev, model, frame):
+    """(e) At full width from the same weights, on B=2 x 1 chunk: the
+    vocoder's and the distilling IAF's loss and gradients, generate_lpc,
+    train_all's periods, the para predictor and the attention."""
+    phase("WaveNet family (e): the card against the CPU, full width, B=2 x "
+          "1 chunk")
+    batch, host = _val_inputs(dev, WN_CHECK_B)
+    mcfg = model.cfg
+    _card_against_cpu_grads(
+        "train_vocoder.loss_fn", lambda m, d: train_vocoder.loss_fn(
+            m, mcfg, *(a.to(d) for a in (host["feat"], host["periods"],
+                                          host["x"], host["lpc"]))), model)
+
+    # a seeded student with its heads scaled by HEAD_SCALE: a random
+    # full-width IAF's accumulated log-std sits at the -9 clamp, where the
+    # likelihood multiplies e^18 into the float32 rounding of mu
+    student = wavenet_iaf.IAF(train_iaf.iaf_config(Config()),
+                              torch.Generator().manual_seed(23))
+    with torch.no_grad():
+        for flow in student.flows:
+            flow.final2.g.mul_(HEAD_SCALE)
+    teacher = {"cuda": model.requires_grad_(False),
+               "cpu": copy.deepcopy(model).cpu()}
+    z = torch.randn(tuple(host["x"].shape),
+                    generator=torch.Generator().manual_seed(6))
+    _card_against_cpu_grads(
+        "train_iaf.loss_fn (distill 0.1, z given)",
+        lambda m, d: train_iaf.loss_fn(
+            m, m.cfg, teacher[d.type], mcfg,
+            *(a.to(d) for a in (host["feat"], host["periods"], host["x"],
+                                host["lpc"])), distill_weight=0.1, z=z),
+        student.to(dev))
+
+    feat = host["feat"][:, :2].transpose(1, 2)
+    periods = host["periods"][:, :2]
+    lpc = host["lpc"][:, :2].repeat_interleave(C.FRAME_SIZE, dim=1)
+    eps = torch.randn((AR_SAMPLES, WN_CHECK_B),
+                      generator=torch.Generator().manual_seed(7))
+    ys = []
+    for m, d in ((model, dev), (teacher["cpu"], torch.device("cpu"))):
+        ys.append(wavenet.generate_lpc(m, mcfg, feat.to(d), periods.to(d),
+                                       lpc.to(d), eps=eps).cpu())
+    diff = float((ys[0] - ys[1]).abs().max())
+    _, exact_gap, misses, gap = _identity(
+        teacher["cpu"], mcfg, feat, periods, eps)
+    y_card, _, _, _ = _identity(model, mcfg, feat.to(dev), periods.to(dev),
+                                eps)
+    with torch.no_grad():
+        dist = wavenet.generation_dists(teacher["cpu"], mcfg, y_card.cpu(),
+                                        feat, periods)
+    exact = dist[:, 0] + torch.exp(dist[:, 1]) * eps.T
+    card_gap = float(((y_card.cpu() - exact).abs()
+                      - 1e-4 * exact.abs()).max()) / float(
+        y_card.abs().max())
+    print(f"generate_lpc, {AR_SAMPLES} samples, the same eps (LPC and "
+          f"de-emphasis 0.85): largest |card - CPU| {diff:.3g} (peak "
+          f"{float(ys[1].abs().max()):.3g}); the card's signal (lpc 0, "
+          f"de-emphasis 0) against the CPU's generation_dists within "
+          f"{card_gap:.3g} of its peak")
+    _check_identity("the CPU's generate_lpc", exact_gap, misses, gap,
+                    WN_CHECK_B * (AR_SAMPLES - 1))
+    if not card_gap <= 1e-5:
+        raise RuntimeError("the card's generated signal is not the draws of "
+                           "the CPU's distributions")
+
+    nm = torch.as_tensor(batch["nm_feat"][
+        :, C.CONTEXT_FRAMES:-C.CONTEXT_FRAMES,
+        :C.NB_USED_FEATURES].astype(np.float32))
+    cfg = Config()
+    coded = [train_all.coded_features(f, nm.to(d), cfg.codec.l1,
+                                      cfg.codec.l2).cpu()
+             for f, d in ((frame, dev), (copy.deepcopy(frame).cpu(),
+                                         torch.device("cpu")))]
+    periods = [train_all.coded_periods(c) for c in coded]
+    value = 0.1 + 50.0 * coded[1][..., 18].double() + 100.0
+    differ = periods[0] != periods[1]
+    knife = (value - value.round()).abs() <= PERIOD_KNIFE
+    print(f"train_all: coded features within {_rel(coded[0], coded[1]):.3g}"
+          f" (of the largest); {int(differ.sum())} of {differ.numel()} "
+          f"periods differ, {int(knife.sum())} within {PERIOD_KNIFE} of an "
+          "integer")
+    if bool((differ & ~knife).any()):
+        raise RuntimeError("train_all: a period differs away from a knife "
+                           "edge")
+
+    para = frame_predictor_para.ParaPredictor(
+        frame_predictor_para.ParaConfig(),
+        torch.Generator().manual_seed(21)).requires_grad_(False)
+    rng = np.random.RandomState(21)
+    pfeat = torch.as_tensor(np.cumsum(rng.randn(
+        WN_CHECK_B, PARA_FRAMES, 20).astype(np.float32) * 0.06, 1))
+    runs = []
+    for m, d in ((copy.deepcopy(para).to(dev), dev),
+                 (para, torch.device("cpu"))):
+        fwd = frame_predictor_para.forward(m, pfeat.to(d))
+        enc = frame_predictor_para.encoder(m, pfeat.to(d), cfg.codec.l1,
+                                           cfg.codec.l2, qtz=False)
+        runs.append(([a.cpu() for a in fwd],
+                     {k: v.cpu() for k, v in enc.items()}))
+    fwd_gap = max(_rel(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    edges, first = _para_knife(runs[1][1], runs[0][1],
+                               pfeat[..., :fp.NB_CEPS], cfg.codec.l1,
+                               cfg.codec.l2)
+    enc_gap = 0.0
+    for b in range(WN_CHECK_B):
+        stop = first.get(b, PARA_FRAMES)
+        for k in ("c_in", "r", "r_under"):
+            if stop:
+                enc_gap = max(enc_gap, _rel(runs[0][1][k][b, :stop],
+                                            runs[1][1][k][b, :stop]))
+    attn = attention.LocationAttention(ATTN_HIDDEN, torch.Generator(
+        ).manual_seed(22)).requires_grad_(False)
+    ax = torch.as_tensor(rng.randn(WN_CHECK_B, PARA_FRAMES,
+                                   ATTN_HIDDEN).astype(np.float32))
+    att = [attention.loop_attention(m, ax.to(d)).cpu() for m, d in (
+        (copy.deepcopy(attn).to(dev), dev), (attn, torch.device("cpu")))]
+    att_gap = _rel(att[0], att[1])
+    print(f"para predictor 384/128, {WN_CHECK_B} x {PARA_FRAMES} frames: "
+          f"forward within {fwd_gap:.3g} of each output's largest; "
+          f"encoder(qtz=False) within {enc_gap:.3g} before the first "
+          f"knife edge, {edges} knife-edge frames; loop_attention at hidden "
+          f"{ATTN_HIDDEN} within {att_gap:.3g}")
+    if not (fwd_gap <= 1e-5 and enc_gap <= 1e-5 and att_gap <= 1e-5):
+        raise RuntimeError("the para predictor or the attention: the card "
+                           "is not the CPU")
+
+
+def wavenet_family(dev, work: str, smi: str, predictor: list):
+    """Phase 21: the WaveNet family on the card at full width, each entry
+    through its run(): train_vocoder -> synthesis -> train_iaf (distilling
+    from it) -> train_all (phase 20's predictor); the card against the
+    CPU."""
+    t0 = time.perf_counter()
+    model, trained = wavenet_train(dev, work, smi)
+    wavenet_synthesis(dev, work, smi, model, trained)
+    iaf_train(dev, work, smi, trained)
+    frame = joint_train(dev, work, smi, predictor)
+    wavenet_card_against_cpu(dev, model, frame)
+    print(json.dumps({"wavenet_family_s": time.perf_counter() - t0,
+                      "card": smi}))
 
 
 def main() -> int:
@@ -3095,7 +3615,8 @@ def main() -> int:
         train_card_against_cpu(dev)
         phase("vocoder training (c): the trained checkpoint decodes")
         main_path(dev, work, FLAGSHIP + trained, UTT_FRAMES, True, "trained")
-        codec_pipeline(dev, work, smi, trained)
+        predictor = codec_pipeline(dev, work, smi, trained)
+        wavenet_family(dev, work, smi, predictor)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

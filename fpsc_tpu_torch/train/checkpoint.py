@@ -83,6 +83,67 @@ class FramePredictorParams(NamedTuple):
     mask_fc: Any
 
 
+class WNConvParams(NamedTuple):
+    v: Any
+    g: Any
+    b: Any
+
+
+class ResBlockParams(NamedTuple):
+    filter_conv: Any
+    gate_conv: Any
+    res_conv: Any
+    skip_conv: Any
+    filter_cond: Any
+    gate_cond: Any
+
+
+class UpsamplerParams(NamedTuple):
+    period_emb: Any
+    c_conv1: Any
+    c_conv2: Any
+    c_fc1: Any
+    c_fc2: Any
+    convt: Any
+    convt_g: Any
+    convt_b: Any
+
+
+class WavenetParams(NamedTuple):
+    front: Any
+    blocks: Any
+    final1: Any
+    final2: Any
+    upsampler: Any
+
+
+class FlowParams(NamedTuple):
+    front: Any
+    blocks: Any
+    final1: Any
+    final2: Any
+
+
+class IAFParams(NamedTuple):
+    flows: Any
+
+
+class ParaParams(NamedTuple):
+    rnn1: Any
+    rnn2: Any
+    rnn3: Any
+    fc: Any
+
+
+class LocationAttentionParams(NamedTuple):
+    conv_w: Any
+    conv_b: Any
+    query_proj: Any
+    value_proj: Any
+    score_proj: Any
+    bias: Any
+
+
 _PARAM_CLASSES = {
     ("fpsc_tpu.models.common", "DenseParams"): DenseParams,
     ("fpsc_tpu.models.common", "EmbeddingParams"): EmbeddingParams,
@@ -92,11 +153,23 @@ _PARAM_CLASSES = {
     ("fpsc_tpu.models.lpcnet_bunched", "Bunched4Params"): Bunched4Params,
     ("fpsc_tpu.models.frame_predictor", "FramePredictorParams"):
         FramePredictorParams,
+    ("fpsc_tpu.models.wavenet", "WNConvParams"): WNConvParams,
+    ("fpsc_tpu.models.wavenet", "ResBlockParams"): ResBlockParams,
+    ("fpsc_tpu.models.wavenet", "UpsamplerParams"): UpsamplerParams,
+    ("fpsc_tpu.models.wavenet", "WavenetParams"): WavenetParams,
+    ("fpsc_tpu.models.wavenet_iaf", "FlowParams"): FlowParams,
+    ("fpsc_tpu.models.wavenet_iaf", "IAFParams"): IAFParams,
+    ("fpsc_tpu.models.frame_predictor_para", "ParaParams"): ParaParams,
+    ("fpsc_tpu.models.attention", "LocationAttentionParams"):
+        LocationAttentionParams,
 }
 _PARAM_CLASSES.update({
     (__name__, cls.__name__): cls
     for cls in (DenseParams, EmbeddingParams, GRUParams, LPCNetParams,
-                BunchedParams, Bunched4Params, FramePredictorParams)})
+                BunchedParams, Bunched4Params, FramePredictorParams,
+                WNConvParams, ResBlockParams, UpsamplerParams,
+                WavenetParams, FlowParams, IAFParams, ParaParams,
+                LocationAttentionParams)})
 _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
           ("numpy.core.multiarray", "_reconstruct"),
           ("numpy._core.multiarray", "_reconstruct"),

@@ -1,14 +1,18 @@
 """Carry JAX parameter trees over to the port's modules, by field name.
 
-A tree here is a nest of NamedTuples whose leaves are arrays: the JAX
-LPCNetParams / BunchedParams / Bunched4Params / FramePredictorParams /
-GRUParams / DenseParams / EmbeddingParams / Codebooks turned into numpy
-(for example with
+A tree here is a nest of NamedTuples (and tuples of them) whose leaves
+are arrays: the JAX LPCNetParams / BunchedParams / Bunched4Params /
+FramePredictorParams / WavenetParams / IAFParams / ParaParams /
+LocationAttentionParams / GRUParams / DenseParams / EmbeddingParams /
+Codebooks turned into numpy (for example with
 `jax.tree_util.tree_map(np.asarray, params)`), or the port-side
 containers a checkpoint unpickles into (train/checkpoint.py).  The
 port's modules name their parameters by the same field paths
-(`gru_a.wi`, `fc1.w`, `period_emb.table`, `base.gru_a.wh`, `fc3.w`), so
-the map is a name map.
+(`gru_a.wi`, `fc1.w`, `period_emb.table`, `base.gru_a.wh`, `fc3.w`,
+`blocks.3.filter_conv.v`, `upsampler.convt.0`), so the map is a name
+map: a tuple field of sub-trees is an nn.ModuleList, a tuple of arrays
+(`convt`, `convt_g`, `convt_b`, whose leaves may be 0-d) an
+nn.ParameterList, its items named by position.
 The one layout change: the frame net's convolutions are JAX WIO
 (k, in, out) and torch (out, in, k).  `load_into` copies a tree into a
 module; `to_params` is its inverse, a module as a tree of the port's
@@ -23,6 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from fpsc_tpu_torch.models import attention, frame_predictor_para
+from fpsc_tpu_torch.models import wavenet as wn
+from fpsc_tpu_torch.models import wavenet_iaf as wiaf
 from fpsc_tpu_torch.models.frame_predictor import (Codebooks, FramePredictor,
                                                    FramePredictorConfig)
 from fpsc_tpu_torch.models.lpcnet import LPCNet, LPCNetConfig
@@ -103,20 +110,33 @@ def _param_classes() -> dict:
             GRU: ckpt.GRUParams, LPCNet: ckpt.LPCNetParams,
             BunchedLPCNet: ckpt.BunchedParams,
             Bunched4LPCNet: ckpt.Bunched4Params,
-            FramePredictor: ckpt.FramePredictorParams}
+            FramePredictor: ckpt.FramePredictorParams,
+            wn.WNConv: ckpt.WNConvParams, wn.ResBlock: ckpt.ResBlockParams,
+            wn.Upsampler: ckpt.UpsamplerParams,
+            wn.Wavenet: ckpt.WavenetParams, wiaf.Flow: ckpt.FlowParams,
+            wiaf.IAF: ckpt.IAFParams,
+            frame_predictor_para.ParaPredictor: ckpt.ParaParams,
+            attention.LocationAttention: ckpt.LocationAttentionParams}
 
 
 def _walk(module: nn.Module, leaf, classes: dict, prefix: str = ""):
     """The module as a tree of its parameter NamedTuples, leaf(path,
-    parameter) at each parameter, fields in JAX's order."""
+    parameter) at each parameter, fields in JAX's order; a ModuleList
+    or ParameterList is a tuple of its items in order."""
+    def item(v, path):
+        if v is None:
+            return None
+        if isinstance(v, nn.ParameterList):
+            return tuple(leaf(f"{path}.{i}", p) for i, p in enumerate(v))
+        if isinstance(v, nn.ModuleList):
+            return tuple(item(m, f"{path}.{i}") for i, m in enumerate(v))
+        if isinstance(v, nn.Module):
+            return _walk(v, leaf, classes, path)
+        return leaf(path, v)
+
     cls = classes[type(module)]
-    fields = []
-    for f in cls._fields:
-        v = getattr(module, f)
-        path = f"{prefix}.{f}" if prefix else f
-        fields.append(_walk(v, leaf, classes, path)
-                      if isinstance(v, nn.Module) else leaf(path, v))
-    return cls(*fields)
+    return cls(*[item(getattr(module, f), f"{prefix}.{f}" if prefix else f)
+                 for f in cls._fields])
 
 
 def named_leaves(module: nn.Module) -> List[Tuple[str, nn.Parameter]]:
@@ -202,3 +222,49 @@ def codebooks_from_tree(tree: Any, device=None) -> Codebooks:
         scl_bl=None if tree.scl_bl is None else t(tree.scl_bl),
         vq_bl=None if tree.vq_bl is None else tuple(
             t(cb) for cb in tree.vq_bl))
+
+
+def wavenet_from_params(tree: Any, cfg: wn.WavenetConfig,
+                        device=None) -> wn.Wavenet:
+    """A JAX WavenetParams tree as a Wavenet of cfg (the dilations and
+    the upsampler's switches are not in the shapes)."""
+    return load_into(wn.Wavenet(cfg, _init_generator()), tree,
+                     "WaveNet").to(device)
+
+
+def iaf_config(tree: Any) -> wiaf.IAFConfig:
+    """The IAFConfig whose shapes an IAFParams tree has."""
+    flow = tree.flows[0]
+    rc, _, front = np.shape(flow.front.v)
+    gc, _, k = np.shape(flow.blocks[0].filter_conv.v)
+    return wiaf.IAFConfig(
+        num_flows=len(tree.flows), num_layers=len(flow.blocks),
+        front_channels=front, residual_channels=rc, gate_channels=gc,
+        skip_channels=np.shape(flow.final1.v)[0], kernel_size=k,
+        cout_channels=np.shape(flow.blocks[0].filter_cond.v)[1])
+
+
+def iaf_from_params(tree: Any, device=None) -> wiaf.IAF:
+    """A JAX IAFParams tree as an IAF."""
+    return load_into(wiaf.IAF(iaf_config(tree), _init_generator()), tree,
+                     "IAF student").to(device)
+
+
+def para_from_params(tree: Any, device=None
+                     ) -> frame_predictor_para.ParaPredictor:
+    """A JAX ParaParams tree as a ParaPredictor."""
+    cfg = frame_predictor_para.ParaConfig(
+        in_features=np.shape(tree.rnn1.wi)[1],
+        gru_units1=np.shape(tree.rnn1.wh)[1],
+        gru_units2=np.shape(tree.rnn2.wh)[1],
+        fc_units=np.shape(tree.fc.w)[0])
+    return load_into(frame_predictor_para.ParaPredictor(
+        cfg, _init_generator()), tree, "para predictor").to(device)
+
+
+def attention_from_params(tree: Any, device=None
+                          ) -> attention.LocationAttention:
+    """A JAX LocationAttentionParams tree as a LocationAttention."""
+    return load_into(attention.LocationAttention(
+        np.shape(tree.conv_b)[0], _init_generator()), tree,
+        "location attention").to(device)

@@ -1253,3 +1253,156 @@ def test_synthesis_qtz_launches_the_vocoders_form(cuda_device, tmp_path,
     assert sum(build.launch_counts.values()) == 4
     for r in results:
         assert np.isfinite(r["wav"]).all() and r["wav"].shape == (2400,)
+
+
+# The WaveNet family (fpsc_tpu_torch/models/wavenet.py, wavenet_iaf.py,
+# train/train_vocoder.py, train_iaf.py) at full width: WaveNet 2 x 10
+# layers, residual 128, gate 256, skip 128, cond 128, front 32; IAF 6
+# flows x 10 layers, residual 64, gate 128, skip 64.  B=2, one chunk.
+
+def _wavenet_batch(seed=0, b=2, frames=15):
+    rng = np.random.RandomState(seed)
+    t = frames * C.FRAME_SIZE
+    feat = (rng.randn(b, frames, 20) * 0.3).astype(np.float32)
+    periods = rng.randint(32, 256, (b, frames)).astype(np.int32)
+    x = (np.cumsum(rng.randn(b, t), 1) * 0.01).astype(np.float32)
+    lpc = (rng.randn(b, frames, 16) * 0.04).astype(np.float32)
+    return [torch.as_tensor(a) for a in (feat, periods, x, lpc)]
+
+
+def _full_wavenet(seed=0, head=1.0):
+    """The seeded full-width WaveNet; head scales final2's gains (a
+    random full-width net's log-std drives its own feedback to 1e6, as
+    chip_smoke.py's HEAD_SCALE tames the random predictor)."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    model = wn.Wavenet(wn.WavenetConfig(), torch.Generator().manual_seed(
+        seed))
+    with torch.no_grad():
+        model.final2.g.mul_(head)
+    return model
+
+
+def _grads_of(model):
+    """Each parameter's gradient on the host (zeros where none reached
+    it: the last block's residual convolution, v, g and b)."""
+    return [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+            for p in model.parameters()]
+
+
+def _with_tf32(tf32, fn):
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+def test_wavenet_loss_and_generation_with_tf32_on_compute_f32(cuda_device):
+    """The caller's TF32 on: train_vocoder's step (loss and gradients)
+    and generate_lpc run under no_tf32 and give what they give with it
+    off (within 1e-6; TF32 would move them by about 1e-3), and the
+    caller's settings come back."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    from fpsc_tpu_torch.train import train_vocoder as tv
+    from fpsc_tpu_torch.train import weights
+    init = _full_wavenet(1, head=0.05)
+    mcfg = init.cfg
+    batch = [a.to(cuda_device) for a in _wavenet_batch(1)]
+    feat, periods, x, lpc = batch
+
+    def step():
+        model = copy.deepcopy(init).to(cuda_device)
+        opt = tv.ClippedAdam([p for _, p in weights.named_leaves(model)],
+                             1e-3, 10.0)
+        loss = float(tv.make_step(opt, tv.loss_fn, mcfg)(model, *batch))
+        return loss, _grads_of(model)
+
+    def generate():
+        model = copy.deepcopy(init).to(cuda_device)
+        lpc_sample = lpc[:, :2].repeat_interleave(C.FRAME_SIZE, dim=1)
+        return wn.generate_lpc(model, mcfg, feat[:, :2].transpose(1, 2),
+                               periods[:, :2], lpc_sample,
+                               generator=torch.Generator().manual_seed(0))
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    (l_on, g_on), y_on = _with_tf32(True, step), _with_tf32(True, generate)
+    (l_off, g_off), y_off = (_with_tf32(False, step),
+                             _with_tf32(False, generate))
+    assert abs(l_on - l_off) <= 1e-6 * abs(l_off)
+    for a, b in zip(g_on, g_off):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert sum(float(g.abs().max()) > 0 for g in g_off) == len(g_off) - 3
+    assert float((y_on - y_off).abs().max()) <= 1e-6 * float(
+        y_off.abs().max())
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == flags
+
+
+@pytest.mark.cuda
+def test_full_width_generate_lpc_sampling_identity(cuda_device):
+    """320 samples at full width on the card (lpc 0, de-emphasis 0, the
+    head scaled by 0.05): each sample is its distribution's mean plus its
+    std times its eps, the distributions recomputed in parallel by
+    generation_dists (rtol 1e-4, atol 1e-5 of the signal's peak), and
+    forward on the signal meets tests/test_wavenet.py's contract (rtol
+    1e-2, atol 2e-3)."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    model = _full_wavenet(0, head=0.05).to(cuda_device)
+    feat, periods, _, _ = (a.to(cuda_device) for a in _wavenet_batch(2))
+    feat, periods = feat[:, :2].transpose(1, 2), periods[:, :2]
+    t = 2 * C.FRAME_SIZE
+    eps = torch.randn((t, 2), generator=torch.Generator().manual_seed(3))
+    y = wn.generate_lpc(model, model.cfg, feat, periods,
+                        torch.zeros((2, t, 16), device=cuda_device),
+                        deemphasis=0.0, eps=eps)
+    eps = eps.T.to(cuda_device)
+    with torch.no_grad():
+        dist = wn.generation_dists(model, model.cfg, y, feat, periods)
+        out = wn.forward(model, model.cfg, y[:, None, :], periods, feat)
+    peak = float(y.abs().max())
+    exact = dist[:, 0] + torch.exp(dist[:, 1]) * eps
+    assert float(((y - exact).abs() - 1e-4 * exact.abs()).max()) \
+        <= 1e-5 * peak
+    want = out[:, 0, :-1] + torch.exp(out[:, 1, :-1]) * eps[:, 1:]
+    assert bool(((y[:, 1:] - want).abs()
+                 <= 2e-3 + 1e-2 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_full_width_iaf_distillation_loss_matches_cpu(cuda_device):
+    """train_iaf.loss_fn with the distillation term at full width, z
+    given, on the card and on the CPU from the same weights (the heads
+    of both nets scaled by 0.05): the loss within rtol 1e-5, every
+    gradient leaf of the student within 1e-4 of its largest element."""
+    from fpsc_tpu_torch.models import wavenet_iaf as wiaf
+    from fpsc_tpu_torch.train import train_iaf as ti
+    teacher = _full_wavenet(4, head=0.05).requires_grad_(False)
+    student = wiaf.IAF(wiaf.IAFConfig(), torch.Generator().manual_seed(5))
+    # a random full-width IAF's accumulated log-std sits at the -9 clamp,
+    # where the likelihood multiplies e^18 into mu's float32 rounding
+    with torch.no_grad():
+        for flow in student.flows:
+            flow.final2.g.mul_(0.05)
+    host = _wavenet_batch(5)
+    z = torch.randn(tuple(host[2].shape),
+                    generator=torch.Generator().manual_seed(6))
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        s, t = copy.deepcopy(student).to(dev), copy.deepcopy(teacher).to(dev)
+        loss = ti.loss_fn(s, s.cfg, t, t.cfg, *(a.to(dev) for a in host),
+                          distill_weight=0.1, z=z)
+        loss.backward()
+        out.append((float(loss.detach()), _grads_of(s)))
+    (want, want_g), (got, got_g) = out
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    for a, b in zip(got_g, want_g):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # each flow's last residual convolution: no gradient
+    assert sum(float(g.abs().max()) > 0 for g in want_g) == \
+        len(want_g) - 3 * student.cfg.num_flows

@@ -495,10 +495,16 @@ for name in ("fpsc_tpu_torch.codec.range_coder",
              "fpsc_tpu_torch.dsp.lpc",
              "fpsc_tpu_torch.dsp.entropy",
              "fpsc_tpu_torch.quant.lbg",
+             "fpsc_tpu_torch.dsp.gaussian",
+             "fpsc_tpu_torch.dsp.stft",
+             *(f"fpsc_tpu_torch.models.{m}" for m in
+               ("wavenet", "wavenet_iaf", "frame_predictor_para",
+                "attention")),
              *(f"fpsc_tpu_torch.train.{m}" for m in
                ("train_lpcnet", "train_frame", "train_cb",
                 "generate_qtz_features", "frame_evaluation",
-                "synthesis_qtz"))):
+                "synthesis_qtz", "train_vocoder", "synthesis",
+                "train_iaf", "train_all"))):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "fpsc_tpu"
