@@ -290,6 +290,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fpsc_tpu_torch.codec import bitstream as bs
 from fpsc_tpu_torch.codec import cli, container, native_rc, plc, rate_control
@@ -302,6 +303,12 @@ from fpsc_tpu_torch.data.dataset import build_dataset, predictor_inputs
 from fpsc_tpu_torch.dsp import emphasis, frontend
 from fpsc_tpu_torch.dsp.mulaw import l2u_index
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
+from fpsc_tpu_torch.eval import rtf
+from fpsc_tpu_torch.eval.metrics import (log_spectral_distance,
+                                         segmental_snr,
+                                         stft_log_spectral_distance)
+from fpsc_tpu_torch.eval.nsim import nsim
+from fpsc_tpu_torch.eval.stoi import stoi
 from fpsc_tpu_torch.models import attention, frame_predictor_para
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
@@ -310,13 +317,18 @@ from fpsc_tpu_torch.models.frame_predictor import Codebooks
 from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
+from fpsc_tpu_torch.parallel import mesh as meshlib
+from fpsc_tpu_torch.parallel import sharded_vq
 from fpsc_tpu_torch.quant import lbg, vq
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import (frame_evaluation, generate_qtz_features,
                                   synthesis, synthesis_qtz, train_all,
                                   train_cb, train_frame, train_iaf,
                                   train_lpcnet, train_vocoder, weights)
-from fpsc_tpu_torch.utils.device import no_tf32
+from fpsc_tpu_torch.utils import diagnostics, torch_import
+from fpsc_tpu_torch.utils.device import no_cudnn, no_tf32
+from fpsc_tpu_torch.utils.logging import (MetricsLogger, enable_nan_debugging,
+                                          profile_trace)
 
 N_UTT, UTT_FRAMES = 8, 200
 # slice 1's path, cut in depth (200 frames in its own slice) to keep the
@@ -1095,7 +1107,8 @@ def main_path(dev, work: str, overrides, frames: int, sparse: bool,
                            f"{PEAK_LIMIT}")
     return dict(results=results, vocoder=model, pattern=pattern,
                 launches=launches.get(name, 0), name=name,
-                fold_launches=launches[lpcnet_sampler.FOLD_KERNEL])
+                fold_launches=launches[lpcnet_sampler.FOLD_KERNEL],
+                cfg=cfg, stream=stream, artifacts=artifacts, sparse=sparse)
 
 
 def card_against_cpu(dev, work: str, overrides, sparse: bool, tag: str):
@@ -2541,7 +2554,8 @@ TRAIN_RECIPE = ["data.synthetic=true", "data.synthetic_style=speech",
                 "data.batch_size=16", "train.learning_rate=0.001",
                 "lpcnet.bunch=2", "lpcnet.gru_b_units=32",
                 "lpcnet.gru_a_density=0.2", "lpcnet.noise_levels=2"]
-TRAIN_CUT = ["train.epochs=2", "lpcnet.sparsify_start=0",
+TRAIN_CUT_EPOCHS = 2
+TRAIN_CUT = [f"train.epochs={TRAIN_CUT_EPOCHS}", "lpcnet.sparsify_start=0",
              "lpcnet.sparsify_end=8", "train.save_every=100"]
 TRAIN_LABEL = "smoke_voc"
 # the card against the CPU: (bunch, GRU_B) at full width, B=2, 1 chunk
@@ -3071,7 +3085,7 @@ def codec_pipeline(dev, work: str, smi: str, vocoder: list):
     pipeline_card_against_cpu(dev, cfg, books, data)
     print(json.dumps({"codec_pipeline_s": time.perf_counter() - t0,
                       "card": smi}))
-    return trained
+    return trained, books.vq[0], data
 
 
 # Phase 21: the WaveNet family at full width (the config's defaults, the
@@ -3557,6 +3571,457 @@ def wavenet_family(dev, work: str, smi: str, predictor: list):
     wavenet_card_against_cpu(dev, model, frame)
     print(json.dumps({"wavenet_family_s": time.perf_counter() - t0,
                       "card": smi}))
+    return model
+
+
+# ------------------------------------------------- phase 19(d): cuDNN's GRU
+
+# the flagship recipe trained on from phase 19(a)'s checkpoint: 34 epochs
+# of 6 steps
+CUDNN_EPOCHS = 34
+CUDNN_FAULT_GAP, CUDNN_FAULT_RATIO = 1e-4, 10.0
+
+
+def _f64_loss_and_grads(model, loss_fn, arrs, streams):
+    """The loss and gradients of `model` in float64 on the CPU, the
+    streams' mu-law indices taken from their float32 values (so that
+    float64's rounding of l2u moves no index)."""
+    model = copy.deepcopy(model).to("cpu", torch.float64)
+    host = {k: (v.cpu().double() if v.is_floating_point() else v.cpu())
+            for k, v in arrs.items()}
+    mods = (lpcnet, lpcnet_bunched)
+    for mod in mods:
+        mod.l2u_index = lambda x: l2u_index(x.float())
+    try:
+        return _loss_and_grads(model, loss_fn, host, streams=tuple(
+            s.cpu().double() for s in streams))
+    finally:
+        for mod in mods:
+            mod.l2u_index = l2u_index
+
+
+def _gaps(got: dict, want: dict) -> dict:
+    """Each leaf's largest |got - want| over want's largest."""
+    return {n: float((got[n].double() - w).abs().max() / w.abs().max())
+            for n, w in want.items() if float(w.abs().max()) > 0}
+
+
+def vocoder_cudnn_check(dev, work: str, smi: str):
+    """(d) The flagship recipe trained CUDNN_EPOCHS more epochs from (a)'s
+    checkpoint; at those weights on B=2 x 1 chunk, the card's gradients
+    with cuDNN's GRU and with PyTorch's own GRU kernels (no_cudnn), each
+    held to float64 on the CPU, leaf by leaf.  A fault: cuDNN's worst gap
+    above CUDNN_FAULT_GAP and CUDNN_FAULT_RATIO times no_cudnn's."""
+    phase(f"vocoder training (d): {CUDNN_EPOCHS * 6} more steps of the "
+          "recipe, then cuDNN's GRU gradients against float64")
+    cfg = apply_overrides(Config(label=TRAIN_LABEL + "_d"), [
+        *TRAIN_RECIPE, *TRAIN_CUT, f"train.epochs={CUDNN_EPOCHS}",
+        f"train.save_dir={work}",
+        f"train.transfer_model={TRAIN_LABEL}_s",
+        f"train.transfer_epoch={TRAIN_CUT_EPOCHS - 1}"])
+    steps, make = [], train_lpcnet.make_step
+    train_lpcnet.make_step = _timed_steps(make, steps)
+    t0 = time.perf_counter()
+    try:
+        model, _ = train_lpcnet.run(cfg, device=dev)
+    finally:
+        train_lpcnet.make_step = make
+    wall = time.perf_counter() - t0
+    losses = [loss for loss, _ in steps]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("a step's loss is not finite")
+    med = float(np.median([s for _, s in steps[1:]]))
+    print(f"{len(losses)} steps in {wall:.1f} s (median {med:.4f} s); loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first and last epoch's "
+          f"mean {np.mean(losses[:6]):.4f} -> {np.mean(losses[-6:]):.4f})")
+    data = apply_overrides(Config(), [
+        "data.synthetic=true", "data.synthetic_style=speech",
+        "data.synthetic_utterances=2", "data.chunks=1"]).data
+    batch = next(build_dataset(data, "train", device=dev).iter_batches(
+        2, seed=0))
+    host = {k: torch.as_tensor(v)
+            for k, v in train_lpcnet.vocoder_inputs(batch).items()}
+    streams = lpcnet.training_streams(host["x"], host["lpc"])
+    card = {k: v.to(dev) for k, v in host.items()}
+    on_card = tuple(s.to(dev) for s in streams)
+    loss_fn = lpcnet_bunched.LOSSES[2]
+    # the card's mu-law indices of the streams against the CPU's
+    flips = sum(int((l2u_index(s.to(dev) * 32768.0).cpu()
+                     != l2u_index(s * 32768.0)).sum()) for s in streams)
+    want, want_g = _f64_loss_and_grads(model, loss_fn, host, streams)
+    got, got_g = _loss_and_grads(model, loss_fn, card, streams=on_card)
+    with no_cudnn():
+        own, own_g = _loss_and_grads(model, loss_fn, card, streams=on_card)
+    gaps = {"cudnn": _gaps(got_g, want_g), "no_cudnn": _gaps(own_g, want_g)}
+    for name in gaps["cudnn"]:
+        print(f"  {name:22s} cudnn {gaps['cudnn'][name]:.3g}  "
+              f"no_cudnn {gaps['no_cudnn'][name]:.3g}")
+    worst = {k: max(v.values()) for k, v in gaps.items()}
+    fault = (worst["cudnn"] > CUDNN_FAULT_GAP
+             and worst["cudnn"] > CUDNN_FAULT_RATIO * worst["no_cudnn"])
+    print(json.dumps({"vocoder_cudnn_gru": {
+        "config": "flagship bunch=2 GRU_B 32 sparse 0.2, trained "
+                  f"{len(losses)} steps past phase 19(a); B=2 x 2,400 "
+                  "samples", "loss_first_step": losses[0],
+        "loss_last_step": losses[-1], "loss_f64": want,
+        "loss_cudnn": got, "loss_no_cudnn": own,
+        "worst_gap_cudnn": worst["cudnn"],
+        "worst_gap_no_cudnn": worst["no_cudnn"],
+        "index_flips_card_cpu": flips, "fault": fault,
+        "steps": len(losses), "median_step_s": med, "run_s": wall,
+        "card": smi}}))
+    if not all(np.isfinite([want, got, own])):
+        raise RuntimeError("a loss of the float64 check is not finite")
+
+
+# ------------------------------------------------ phase 22: the last modules
+
+
+
+class RefWavernn(torch.nn.Module):
+    """The reference's predictor layout (src/models/wavernn.py:22-60),
+    its own torch.nn modules and forward."""
+
+    def __init__(self, g1=384, g2=128):
+        super().__init__()
+        self.rnn1 = torch.nn.GRU(20, g1, 1, batch_first=True)
+        self.rnn2 = torch.nn.GRU(g1, g2, 1, batch_first=True)
+        self.dual_fc = torch.nn.Sequential(torch.nn.Linear(g2, 18),
+                                           torch.nn.Tanh())
+
+    def forward(self, x):
+        h1, _ = self.rnn1(x)
+        h2, _ = self.rnn2(h1)
+        return 2.0 * self.dual_fc(torch.relu(h2))
+
+
+class RefWavernnPara(RefWavernn):
+    """The reference's Wavernn_para layout (wavernn_para.py:21-69)."""
+
+    def __init__(self):
+        super().__init__()
+        self.rnn3 = torch.nn.GRU(18, 18, 1, batch_first=True)
+
+    def forward(self, x):
+        x_mid = super().forward(x)
+        h3, _ = self.rnn3(torch.flip(x_mid, [1]))
+        return x_mid, torch.tanh(h3)
+
+
+def wavenet_state_dict(model) -> dict:
+    """The reference's Wavenet state-dict layout of a port Wavenet, on the
+    host: weight norm as weight_v / weight_g, c_conv without it, the
+    transposed convolutions at every second index of upsample_conv, a
+    256-row embedding."""
+    sd = {}
+
+    def put(prefix, p):
+        sd[f"{prefix}.weight_v"] = p.v
+        sd[f"{prefix}.weight_g"] = p.g.reshape(-1, 1, 1)
+        sd[f"{prefix}.bias"] = p.b
+
+    put("front_conv.0.conv", model.front)
+    for i, blk in enumerate(model.blocks):
+        for name, p in (("filter_conv.conv", blk.filter_conv),
+                        ("gate_conv.conv", blk.gate_conv),
+                        ("res_conv", blk.res_conv),
+                        ("skip_conv", blk.skip_conv),
+                        ("filter_conv_c", blk.filter_cond),
+                        ("gate_conv_c", blk.gate_cond)):
+            put(f"res_blocks.{i}.{name}", p)
+    put("final_conv.1.conv", model.final1)
+    put("final_conv.3.conv", model.final2)
+    up = model.upsampler
+    sd["embedding.weight"] = up.period_emb.table[:256]
+    for k, conv in (("0", up.c_conv1), ("2", up.c_conv2)):
+        sd[f"c_conv.{k}.weight"] = wavenet.wn_weight(conv)
+        sd[f"c_conv.{k}.bias"] = conv.b
+    for k, fc in (("0", up.c_fc1), ("2", up.c_fc2)):
+        sd[f"c_fc.{k}.weight"] = fc.w
+        sd[f"c_fc.{k}.bias"] = fc.b
+    for i, (k, g, b) in enumerate(zip(up.convt, up.convt_g, up.convt_b)):
+        sd[f"upsample_conv.{2 * i}.weight_v"] = k
+        sd[f"upsample_conv.{2 * i}.weight_g"] = g.reshape(1, 1, 1, 1)
+        sd[f"upsample_conv.{2 * i}.bias"] = b.reshape(1)
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def _trace_kernels(trace_dir: str):
+    """The device activity of the one Chrome trace under trace_dir ->
+    ({kernel name: summed µs}, µs the card was busy: the union of the
+    kernels' and copies' intervals)."""
+    (name,) = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    sums: dict = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            sums[e["name"]] = sums.get(e["name"], 0.0) + float(e["dur"])
+    busy, end = 0.0, -np.inf
+    for e in sorted(device, key=lambda e: float(e["ts"])):
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return sums, busy
+
+
+def _decoder(flagship, dev, out_dir, timings=None):
+    """decode_file of the flagship main path's stream on dev again."""
+    return _decode(flagship["cfg"], flagship["stream"], out_dir,
+                   flagship["artifacts"], flagship["vocoder"], dev,
+                   timings)[0]
+
+
+def trace_decode(dev, work: str, flagship):
+    """(a) One flagship decode_file under profile_trace: the trace must
+    list the sampler and fold kernels; the kernels' device time, the
+    traced wall and the device's busy share printed (no gate)."""
+    phase("the last modules (a): profile_trace around a flagship decode, "
+          f"{N_UTT} x {UTT_FRAMES} frames; MetricsLogger; NaN debugging")
+    trace_dir = os.path.join(work, "trace_decode")
+    timings: dict = {}
+    with profile_trace(trace_dir):
+        t0 = time.perf_counter()
+        _decoder(flagship, dev, os.path.join(work, "wav_traced"), timings)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    sums, busy = _trace_kernels(trace_dir)
+    ours = {k: v for k, v in sums.items()
+            if "sample_kernel" in k or "fold_kernel" in k}
+    for kernel in ("sample_kernel", "fold_kernel"):
+        if not any(kernel in k for k in ours):
+            raise RuntimeError(f"the trace lists no {kernel}: "
+                               f"{sorted(sums)[:20]}")
+    top = sorted(sums.items(), key=lambda kv: -kv[1])[:5]
+    print(json.dumps({"traced_decode": {
+        "wall_ms": wall_us / 1e3,
+        "sampler_and_fold_ms": sum(ours.values()) / 1e3,
+        "all_kernels_ms": sum(sums.values()) / 1e3,
+        "kernel_names": len(sums), "device_busy_ms": busy / 1e3,
+        "sampler_and_fold_share_of_wall": sum(ours.values()) / wall_us,
+        "busy_share_of_wall": busy / wall_us,
+        "top5_ms": {k[:60]: v / 1e3 for k, v in top},
+        "phase_s": timings}}))
+    log_path = os.path.join(work, "decode_metrics.jsonl")
+    MetricsLogger(log_path).log(0, **timings)
+    with open(log_path) as f:
+        (rec,) = [json.loads(line) for line in f]
+    if {k: rec[k] for k in timings} != timings:
+        raise RuntimeError(f"MetricsLogger wrote {rec}, not {timings}")
+    print(f"MetricsLogger: {sorted(rec)}")
+    x = torch.tensor([-1.0], device=dev, requires_grad=True)
+    enable_nan_debugging(True)
+    try:
+        torch.sqrt(x).sum().backward()
+    except RuntimeError as e:
+        print(f"NaN debugging: the backward of sqrt(-1) raised "
+              f"({str(e).splitlines()[0][:80]})")
+    else:
+        raise RuntimeError("anomaly mode let a NaN backward through")
+    finally:
+        enable_nan_debugging(False)
+
+
+def score_decode(dev, work: str, flagship, smi: str):
+    """(b) The card's flagship audio (phase 4) scored against the CPU's
+    decode of the same stream (the plain sampler: its cost is the step
+    count, whatever the batch), utterance by utterance; the decode's
+    real-time factor through rtf.measure."""
+    phase(f"the last modules (b): metrics of the card's flagship audio "
+          f"against the CPU's decode, {N_UTT} x {UTT_FRAMES} frames; "
+          "rtf.measure")
+    cfg = flagship["cfg"]
+    artifacts, model = _artifacts(cfg, "cpu", flagship["sparse"])
+    t0 = time.perf_counter()
+    cpu = _decode(cfg, flagship["stream"], os.path.join(work, "wav_cpu"),
+                  artifacts, model, "cpu")[0]
+    cpu_s = time.perf_counter() - t0
+    scores = []
+    for g, w in zip(flagship["results"], cpu):
+        ref, test = w["wav"], g["wav"]
+        lsd = log_spectral_distance(ref, test)
+        lsd_cpu = log_spectral_distance(ref, test, device="cpu")
+        if not abs(lsd - lsd_cpu) <= 1e-5 * abs(lsd_cpu):
+            raise RuntimeError(f"LSD on the card {lsd!r}, on the CPU "
+                               f"{lsd_cpu!r}")
+        scores.append({"lsd": lsd, "lsd_cpu": lsd_cpu,
+                       "stft_lsd": stft_log_spectral_distance(ref, test),
+                       "seg_snr": segmental_snr(ref, test),
+                       "stoi": stoi(ref, test), "nsim": nsim(ref, test)})
+    for row in scores:
+        if not all(np.isfinite(list(row.values()))):
+            raise RuntimeError(f"a score is not finite: {row}")
+    walls = rtf.measure(lambda: _decoder(flagship, dev, os.path.join(
+        work, "wav_rtf")), reps=3, warmup=1)
+    print(json.dumps({"decode_scores": {
+        "card_against_cpu": scores, "cpu_decode_s": cpu_s,
+        "rtf_walls_s": walls,
+        "real_time_factor": rtf.synthesis_rtf(
+            N_UTT, UTT_FRAMES * C.FRAME_SIZE, walls["median_s"]),
+        "card": smi}}))
+
+
+def import_reference(dev, wn_model):
+    """(c) Reference-layout state dicts imported on the card: Wavernn and
+    Wavernn_para (torch.nn, 384/128) against their own forward (rtol
+    1e-4, atol 1e-5); phase 21(a)'s WaveNet through the reference layout
+    and back, the same forward within 1e-5 of its peak."""
+    phase("the last modules (c): reference checkpoints imported on the card")
+    torch.manual_seed(16)
+    x = torch.as_tensor((np.random.RandomState(16).randn(2, 90, 20) * 0.3
+                         ).astype(np.float32), device=dev)
+    report = {}
+    for name, ref in (("wavernn", RefWavernn()),
+                      ("wavernn_para", RefWavernnPara())):
+        ref = ref.to(dev)
+        sd = {k: v.cpu() for k, v in ref.state_dict().items()}
+        with torch.no_grad():
+            want = ref(x)
+            if name == "wavernn":
+                model, _ = torch_import.wavernn_to_frame_predictor(
+                    sd, device=dev)
+                got, want = fp.forward(model, x)[:1], (want,)
+            else:
+                model, _ = torch_import.wavernn_para_to_params(
+                    sd, device=dev)
+                got = frame_predictor_para.forward(model, x)[:2]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+            report[name] = max(report.get(name, 0.0),
+                               float((g - w).abs().max()))
+    mcfg = wn_model.cfg
+    imported = torch_import.wavenet_to_params(
+        wavenet_state_dict(wn_model), mcfg, device=dev)
+    rng = np.random.RandomState(17)
+    xw = torch.as_tensor((rng.randn(2, 1, 10 * C.FRAME_SIZE) * 0.1
+                          ).astype(np.float32), device=dev)
+    c = torch.as_tensor((rng.randn(2, 20, 10) * 0.3).astype(np.float32),
+                        device=dev)
+    periods = torch.as_tensor(rng.randint(32, 250, (2, 10)), device=dev)
+    with torch.no_grad():
+        want = wavenet.forward(wn_model, mcfg, xw, periods, c)
+        got = wavenet.forward(imported, mcfg, xw, periods, c)
+    gap = float((got - want).abs().max() / want.abs().max())
+    report["wavenet_gap_of_peak"] = gap
+    print(f"imported forward against the reference's, largest |gap|: "
+          f"{report}")
+    if not gap <= 1e-5:
+        raise RuntimeError(f"the imported WaveNet's forward is {gap:.3g} of "
+                           "its peak from the trained model's")
+
+
+def _step_pair(step_of, init, args, mesh, lr, clip):
+    """The training step step_of(optimizer) on three copies of init: the
+    first with its optimizer on mesh, the second a plain optimizer's step
+    on the first's gradients, the third a plain step of its own -> (the
+    first's loss through mesh.data_mean, its loss, whether its
+    parameters are the second's bit for bit, and the third's)."""
+    models = [copy.deepcopy(init) for _ in range(3)]
+    opts = [train_lpcnet.ClippedAdam(
+        [p for _, p in weights.named_leaves(m)], lr, clip,
+        mesh=mesh if i == 0 else None) for i, m in enumerate(models)]
+    loss = step_of(opts[0])(models[0], *args)
+    step_of(opts[2])(models[2], *args)
+    for pa, pb in zip(opts[0].params, opts[1].params):
+        # a leaf the loss does not reach has no gradient
+        pb.grad = None if pa.grad is None else pa.grad.clone()
+    opts[1].step()
+    same = [all(torch.equal(x, y) for x, y in zip(
+        models[0].parameters(), m.parameters())) for m in models[1:]]
+    return meshlib.data_mean(mesh, loss), loss, *same
+
+
+def world_one(dev, work: str, book, rows):
+    """(d) An NCCL process group of one rank: a train_frame warm step and a
+    train_lpcnet step (flagship, noise injected) under it equal to the
+    plain optimizer's step on the same gradients bit for bit (the mean
+    over one rank is the identity); the sharded search and k-means on
+    phase 20's 1024-entry book and bench_lbg's rows equal to
+    find_nearest and kmeans_update."""
+    phase("the last modules (d): data parallelism at world 1 on NCCL")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "nccl_store"), rank=0, world_size=1)
+    try:
+        mesh = meshlib.make_mesh(device=dev)
+        print(f"mesh: rank {mesh.rank} of {mesh.world}, {mesh.shape}, "
+              f"backend {dist.get_backend()}")
+        rng = np.random.RandomState(22)
+        feat = torch.as_tensor(np.cumsum(rng.randn(16, 90, 20).astype(
+            np.float32) * 0.06, 1), device=dev)
+        predictor = train_frame.build_model(
+            Config(), torch.Generator().manual_seed(22)).to(dev)
+        results = {"train_frame warm": _step_pair(
+            lambda o: train_frame.make_steps(o)[0], predictor, (feat,),
+            mesh, 1e-3, None)}
+        data = apply_overrides(Config(), [
+            "data.synthetic=true", "data.synthetic_style=speech",
+            "data.synthetic_utterances=2", "data.chunks=1"]).data
+        batch = next(build_dataset(data, "train", device=dev).iter_batches(
+            2, seed=0))
+        arrs = {k: torch.as_tensor(v, device=dev)
+                for k, v in train_lpcnet.vocoder_inputs(batch).items()}
+        noise = meshlib.shard_batch(mesh, train_lpcnet.noise_draw(
+            0, 0, 2, tuple(arrs["x"].shape)))
+        vocoder = lpcnet_bunched.VOCODERS[2](
+            lpcnet.LPCNetConfig(gru_b_units=32),
+            torch.Generator().manual_seed(23)).to(dev)
+        results["train_lpcnet"] = _step_pair(
+            lambda o: train_lpcnet.make_step(o, lpcnet_bunched.LOSSES[2],
+                                             2)[0],
+            vocoder, (arrs["feat"], arrs["periods"], arrs["x"], arrs["lpc"],
+                      noise), mesh, 1e-3, 1.0)
+        for name, (mean, loss, same, independent) in results.items():
+            print(f"{name}: loss {float(loss)!r}, through the group "
+                  f"{float(mean)!r}; parameters bit for bit the plain "
+                  f"optimizer's on the same gradients: {same}; an "
+                  f"independent plain step's: {independent}")
+            if not (torch.equal(mean, loss) and same):
+                raise RuntimeError(f"{name}: the step under a group of one "
+                                   "is not the plain step")
+        idx = sharded_vq.sharded_find_nearest(
+            mesh, *sharded_vq.shard_arrays(mesh, rows, book))
+        new, counts = sharded_vq.sharded_kmeans_update(
+            mesh, *sharded_vq.shard_arrays(mesh, rows, book))
+        want_cb, want_counts = lbg.kmeans_update(rows, book, book.shape[0])
+        same = (torch.equal(idx, lbg.find_nearest(rows, book)),
+                torch.equal(new, want_cb), torch.equal(counts, want_counts))
+        print(f"sharded search, k-means book and counts at world 1 on "
+              f"{tuple(rows.shape)} rows x {tuple(book.shape)} book equal "
+              f"the single ones: {same}")
+        if not all(same):
+            raise RuntimeError("the sharded codebook search at world 1 is "
+                               "not the single search")
+    finally:
+        dist.destroy_process_group()
+
+
+def plots(dev, work: str):
+    """(e) train_frame with train.plot_every=1 (one debugging epoch of
+    phase 20's recipe): with or without matplotlib, it finishes."""
+    phase("the last modules (e): train_frame with train.plot_every=1")
+    print(f"matplotlib present: {diagnostics.have_matplotlib()}")
+    cfg = apply_overrides(Config(label="smoke_plots"), [
+        *PIPE_RECIPE, "train.epochs=1", "train.debugging=true",
+        "train.plot_every=1", f"train.save_dir={work}"])
+    train_frame.run(cfg, device=dev)
+    d = os.path.join(work, "smoke_plots", "diagnostics")
+    print(f"diagnostics written: "
+          f"{sorted(os.listdir(d)) if os.path.isdir(d) else []}")
+
+
+def last_modules(dev, work: str, smi: str, flagship, book, rows, wn_model):
+    """Phase 22: tracing, metrics, reference import, data parallelism at
+    world 1 and the diagnostics on the card."""
+    t0 = time.perf_counter()
+    trace_decode(dev, work, flagship)
+    score_decode(dev, work, flagship, smi)
+    import_reference(dev, wn_model)
+    world_one(dev, work, book, rows)
+    plots(dev, work)
+    print(json.dumps({"last_modules_s": time.perf_counter() - t0,
+                      "card": smi}))
 
 
 def main() -> int:
@@ -3573,7 +4038,8 @@ def main() -> int:
     native_coder()
     rows = []
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
-        run = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True, "flagship")
+        run = flagship = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True,
+                                   "flagship")
         rows.append(main_shape(dev, run, UTT_FRAMES,
                                other_forms=[(2, False, False, False),
                                             (1, True, False, False)]))
@@ -3615,8 +4081,10 @@ def main() -> int:
         train_card_against_cpu(dev)
         phase("vocoder training (c): the trained checkpoint decodes")
         main_path(dev, work, FLAGSHIP + trained, UTT_FRAMES, True, "trained")
-        predictor = codec_pipeline(dev, work, smi, trained)
-        wavenet_family(dev, work, smi, predictor)
+        vocoder_cudnn_check(dev, work, smi)
+        predictor, book, lbg_rows = codec_pipeline(dev, work, smi, trained)
+        wn_model = wavenet_family(dev, work, smi, predictor)
+        last_modules(dev, work, smi, flagship, book, lbg_rows, wn_model)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)

@@ -209,12 +209,10 @@ def substitute_qtz_pitch(feat: np.ndarray) -> np.ndarray:
 def build_dataset(cfg: DataConfig, task: str = "train",
                   device=None) -> Dataset:
     """The dataset of cfg for `task`; synthetic fixtures are analysed on
-    `device` (the card unless device="cpu")."""
-    if cfg.shard_by_process and task == "train":
-        raise ValueError(
-            "data.shard_by_process=true needs process groups, which the "
-            "port does not have yet (ROADMAP Queue A 8, parallel/mesh.py "
-            "as torch.distributed data parallelism)")
+    `device` (the card unless device="cpu").  With data.shard_by_process
+    the training stream yields this process's rows of each global batch:
+    its rank and the world size of the torch.distributed process group,
+    (0, 1) without one, as JAX's process_index / process_count."""
     if cfg.synthetic:
         n = cfg.synthetic_utterances if task == "train" else max(
             2, cfg.synthetic_utterances // 4)
@@ -223,8 +221,16 @@ def build_dataset(cfg: DataConfig, task: str = "train",
                                style=cfg.synthetic_style, device=device)
     else:
         items = load_directory(cfg.root, task)
+    pi, pc = 0, 1
+    if cfg.shard_by_process and task == "train":
+        # only the training stream shards; validation and evaluation
+        # iterate small batches that every process replicates
+        import torch.distributed as dist
+        if dist.is_initialized():
+            pi, pc = dist.get_rank(), dist.get_world_size()
     return Dataset(items, cfg.chunks, task, cfg.normalize,
-                   qtz_pitch=cfg.qtz_pitch)
+                   qtz_pitch=cfg.qtz_pitch,
+                   process_index=pi, process_count=pc)
 
 
 def predictor_inputs(batch: Dict[str, np.ndarray],

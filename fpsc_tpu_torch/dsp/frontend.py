@@ -1,6 +1,6 @@
 """Feature-extraction frontend: waveform -> (frames, 36) feature rows.
 
-Port of the batched analysis path of fpsc_tpu/dsp/frontend.py:42-61,
+Port of the batched analysis path of fpsc_tpu/dsp/frontend.py:42-70,
 165-273, 281-367 (`extract_features_batch` and what it runs):
 
 * pre-emphasis (dsp/emphasis.py::preemphasis_torch),
@@ -70,6 +70,16 @@ def frames_to_cepstra(frames: torch.Tensor) -> torch.Tensor:
         ceps = (torch.log10(band_e + 1e-7) @ _const(C.DCT_FWD_TABLE, power)
                 ) * float(C.IDCT_SCALE)
     return torch.cat([ceps[:, :1] - 4.0, ceps[:, 1:]], dim=1)
+
+
+def frame_signal(x: np.ndarray) -> np.ndarray:
+    """Slice x into (n_frames, 320) windows at a 160-sample hop; frame t
+    covers samples [t*160, t*160 + 320) (fpsc_tpu/dsp/frontend.py:
+    64-70, numpy)."""
+    n_frames = max(0, len(x) // C.FRAME_SIZE - 1)
+    idx = np.arange(C.WINDOW_SIZE)[None, :] + (
+        np.arange(n_frames)[:, None] * C.FRAME_SIZE)
+    return np.asarray(x, np.float32)[idx]
 
 
 def _slab_corr_table(ctx: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Port of scripts/probe_i8_matmul.py (bf16_kernel, i8_kernel and
 onehot_i8_kernel, pallas_call at :63 and :115) as csrc/probe_i8_matmul.cu.
 The sampler kernel converts int8 weights to float one at a time
-(ROADMAP Queue D 5); quantising the activations too would let the
+(PERF.md §6, the int8 row); quantising the activations too would let the
 products run on the int8 tensor cores, which Hopper rates at twice its
 bf16 peak.  This probe asks what that buys at GRU_A's geometry,
 (1152, 384) @ (384, b), on a chain of ITERS products that each need the

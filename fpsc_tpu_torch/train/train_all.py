@@ -11,6 +11,9 @@ with train_vocoder's loss and optimizer.  The checkpoints save the
 
 The predictor's encoder runs under torch.no_grad() (its parameters do
 not train); each vocoder step runs under `utils.device.no_tf32`.
+Under an initialised torch.distributed process group it trains
+data-parallel (parallel/mesh.py: this rank's rows of each global
+batch, the gradients averaged before the clip, rank 0 writing).
 
     python -m fpsc_tpu_torch.train.train_all data.synthetic=true \
         train.epochs=1 train.debugging=true [--device=cpu]
@@ -31,9 +34,10 @@ from fpsc_tpu_torch.data.dataset import build_dataset
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.models import wavenet as wn
+from fpsc_tpu_torch.parallel import mesh as meshlib
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train.train_frame import load_predictor
-from fpsc_tpu_torch.train.train_lpcnet import vocoder_inputs
+from fpsc_tpu_torch.train.train_lpcnet import local_rows, vocoder_inputs
 from fpsc_tpu_torch.train.train_vocoder import (build_optimizer, loss_fn,
                                                 make_step, model_config)
 from fpsc_tpu_torch.utils.device import resolve_device, split_device_arg
@@ -70,11 +74,13 @@ def run(cfg: Config, device=None
     card (device="cpu": the CPU); returns (predictor, vocoder, the
     smallest epoch loss)."""
     dev = resolve_device(device)
-    frame_model = load_predictor(cfg, dev).requires_grad_(False)
+    mesh = meshlib.make_mesh(device=dev)
+    frame_model = meshlib.replicate(
+        mesh, load_predictor(cfg, dev).requires_grad_(False))
     mcfg = model_config(cfg)
-    sample_model = wn.Wavenet(mcfg, torch.Generator().manual_seed(
-        cfg.train.seed + 1)).to(dev)
-    optimizer = build_optimizer(cfg, sample_model)
+    sample_model = meshlib.replicate(mesh, wn.Wavenet(
+        mcfg, torch.Generator().manual_seed(cfg.train.seed + 1)).to(dev))
+    optimizer = build_optimizer(cfg, sample_model, mesh)
 
     ds = build_dataset(cfg.data, "train", device=dev)
     train_step = make_step(optimizer, vocoder_loss, mcfg, frame_model,
@@ -94,25 +100,28 @@ def run(cfg: Config, device=None
                 :C.NB_USED_FEATURES].astype(np.float32)
             loss = train_step(sample_model, *(
                 torch.as_tensor(a, device=dev)
-                for a in (nm_feat, arrs["x"], arrs["lpc"])))
-            total += float(loss)
+                for a in local_rows(mesh, ds, (nm_feat, arrs["x"],
+                                               arrs["lpc"]))))
+            total += float(meshlib.data_mean(mesh, loss))
             n += 1
             if cfg.train.debugging or (
                     cfg.train.steps_per_epoch
                     and n >= cfg.train.steps_per_epoch):
                 break
-        ckpt.log_epoch(cfg.train.save_dir, label, epoch,
-                       time.time() - t0, total / max(n, 1), 0.0,
-                       cfg.train.debugging)
         should_save = (epoch % max(cfg.train.save_every, 1) == 0
                        or epoch == cfg.train.epochs - 1)
-        if not cfg.train.debugging and should_save:
-            ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir,
-                                           label + "_f", epoch),
-                      frame_model, None, step=epoch)
-            ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir,
-                                           label + "_s", epoch),
-                      sample_model, optimizer.state(), step=epoch)
+        if meshlib.is_main(mesh):
+            ckpt.log_epoch(cfg.train.save_dir, label, epoch,
+                           time.time() - t0, total / max(n, 1), 0.0,
+                           cfg.train.debugging)
+            if not cfg.train.debugging and should_save:
+                ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir,
+                                               label + "_f", epoch),
+                          frame_model, None, step=epoch)
+                ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir,
+                                               label + "_s", epoch),
+                          sample_model, optimizer.state(), step=epoch)
+        meshlib.barrier(mesh)
         min_loss = min(min_loss, total / max(n, 1))
     return frame_model, sample_model, min_loss
 

@@ -19,7 +19,10 @@ The teacher's parameters do not train (requires_grad off), but its
 through the synthesised signal, so it does not run under no_grad.
 Each step's z is drawn on the host from a torch.Generator seeded from
 (seed, step) (JAX: a split of PRNGKey(seed)); `loss_fn(z=...)` injects
-draws.  Each step runs under `utils.device.no_tf32`.
+draws.  Each step runs under `utils.device.no_tf32`.  Under an
+initialised torch.distributed process group it trains data-parallel
+(parallel/mesh.py: this rank's rows of each global batch and of its z,
+the gradients averaged before the clip, rank 0 writing).
 
     python -m fpsc_tpu_torch.train.train_iaf data.synthetic=true \
         train.epochs=1 train.debugging=true [--device=cpu]
@@ -41,9 +44,11 @@ from fpsc_tpu_torch.dsp.lpc import excitation, lpc_synthesis
 from fpsc_tpu_torch.dsp.stft import stft_mag
 from fpsc_tpu_torch.models import wavenet as wn
 from fpsc_tpu_torch.models import wavenet_iaf as iaf
+from fpsc_tpu_torch.parallel import mesh as meshlib
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import weights
-from fpsc_tpu_torch.train.train_lpcnet import ClippedAdam, vocoder_inputs
+from fpsc_tpu_torch.train.train_lpcnet import (ClippedAdam, local_rows,
+                                               vocoder_inputs)
 from fpsc_tpu_torch.train.train_vocoder import make_step, model_config
 from fpsc_tpu_torch.utils.device import (no_tf32, resolve_device,
                                          split_device_arg)
@@ -136,13 +141,15 @@ def run(cfg: Config, device=None) -> Tuple[iaf.IAF, float]:
     """Train the IAF student of cfg on the card (device="cpu": the CPU);
     returns (model, the smallest epoch loss)."""
     dev = resolve_device(device)
+    mesh = meshlib.make_mesh(device=dev)
     icfg = iaf_config(cfg)
     mcfg = model_config(cfg)
-    teacher = load_teacher(cfg, dev)
-    model = iaf.IAF(icfg, torch.Generator().manual_seed(
-        cfg.train.seed)).to(dev)
+    teacher = meshlib.replicate(mesh, load_teacher(cfg, dev))
+    model = meshlib.replicate(mesh, iaf.IAF(icfg, torch.Generator(
+        ).manual_seed(cfg.train.seed)).to(dev))
     optimizer = ClippedAdam([p for _, p in weights.named_leaves(model)],
-                            cfg.train.learning_rate, cfg.train.grad_clip)
+                            cfg.train.learning_rate, cfg.train.grad_clip,
+                            mesh=mesh)
 
     ds = build_dataset(cfg.data, "train", device=dev)
 
@@ -163,26 +170,32 @@ def run(cfg: Config, device=None) -> Tuple[iaf.IAF, float]:
         for batch in ds.iter_batches(cfg.data.batch_size,
                                      seed=cfg.train.seed + epoch):
             arrs = {k: torch.as_tensor(v, device=dev) for k, v in
-                    vocoder_inputs(batch, cfg.data.normalize).items()}
+                    local_rows(mesh, ds, vocoder_inputs(
+                        batch, cfg.data.normalize)).items()}
+            # the global batch's noise, this rank's rows
+            z = meshlib.shard_batch(mesh, torch.randn(
+                (cfg.data.batch_size, arrs["x"].shape[1]),
+                generator=z_generator(cfg.train.seed, step)))
             loss = train_step(model, arrs["feat"], arrs["periods"],
-                              arrs["x"], arrs["lpc"], distill_w, None,
-                              z_generator(cfg.train.seed, step))
+                              arrs["x"], arrs["lpc"], distill_w, z)
             step += 1
-            total += float(loss)
+            total += float(meshlib.data_mean(mesh, loss))
             n += 1
             if cfg.train.debugging or (
                     cfg.train.steps_per_epoch
                     and n >= cfg.train.steps_per_epoch):
                 break
-        ckpt.log_epoch(cfg.train.save_dir, label, epoch,
-                       time.time() - t0, total / max(n, 1), 0.0,
-                       cfg.train.debugging)
         should_save = (epoch % max(cfg.train.save_every, 1) == 0
                        or epoch == cfg.train.epochs - 1)
-        if not cfg.train.debugging and should_save:
-            ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
-                                           epoch),
-                      model, optimizer.state(), step=epoch)
+        if meshlib.is_main(mesh):
+            ckpt.log_epoch(cfg.train.save_dir, label, epoch,
+                           time.time() - t0, total / max(n, 1), 0.0,
+                           cfg.train.debugging)
+            if not cfg.train.debugging and should_save:
+                ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
+                                               epoch),
+                          model, optimizer.state(), step=epoch)
+        meshlib.barrier(mesh)
         min_loss = min(min_loss, total / max(n, 1))
     return model, min_loss
 

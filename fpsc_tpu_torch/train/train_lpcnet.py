@@ -14,7 +14,10 @@ README.md:30-40, and its `--quantize` finetune on coded features):
 * `data_dir=<generate_qtz output>` trains on coded feature windows,
 * mu-law noise injection with its warm-up ramp, the cubic GRU_A
   sparsity ramp applied after each step, the wall-time budget, the
-  checkpoint and results-line cadence of the JAX trainer.
+  checkpoint and results-line cadence of the JAX trainer,
+* data parallelism under a torch.distributed process group
+  (parallel/mesh.py; the wall-clock decisions are rank 0's), and the
+  train.plot_every images (utils/diagnostics.py).
 
 Each step runs on the card under `utils.device.no_tf32`, so that cuDNN's
 GRU and convolutions and the products compute in float32, as the
@@ -40,10 +43,13 @@ from torch import nn
 from fpsc_tpu_torch.config.config import Config, parse_cli
 from fpsc_tpu_torch.data.dataset import Dataset, Utterance, build_dataset
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.dsp.mulaw import u2l
 from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
+from fpsc_tpu_torch.parallel import mesh as meshlib
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import weights
+from fpsc_tpu_torch.utils import diagnostics
 from fpsc_tpu_torch.utils.device import (no_tf32, resolve_device,
                                          split_device_arg)
 
@@ -65,6 +71,14 @@ def vocoder_inputs(batch: Dict, normalize: bool = True) -> Dict:
         "lpc": feat[..., -C.LPC_ORDER:].astype(np.float32),
         "x": batch["x"].astype(np.float32),
     }
+
+
+def local_rows(mesh: meshlib.Mesh, ds: Dataset, batch):
+    """This rank's rows of a batch of ds: the batch itself where ds
+    already yields one rank's rows (data.shard_by_process), else
+    mesh.shard_batch of the global batch."""
+    return batch if ds.process_count > 1 else meshlib.shard_batch(mesh,
+                                                                  batch)
 
 
 def coded_dataset(coded_dir: str, base: Dataset) -> Dataset:
@@ -132,12 +146,16 @@ class ClippedAdam:
     alone); mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu; the
     update -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) added
     to the parameter.  The step reads the parameters'
-    .grad; nothing is read back to the host."""
+    .grad; nothing is read back to the host.  Given a mesh
+    (parallel/mesh.py), the step first averages the gradients over its
+    data group, so that the clip sees the global gradient."""
 
     def __init__(self, params: List[nn.Parameter], lr: float,
                  max_norm: Optional[float], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 mesh: Optional[meshlib.Mesh] = None):
         self.params = list(params)
+        self.mesh = mesh
         self.lr, self.max_norm = lr, max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
@@ -177,6 +195,8 @@ class ClippedAdam:
     def step(self) -> None:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
+        if self.mesh is not None:
+            grads = meshlib.mean_gradients(self.mesh, grads)
         for p, u in zip(self.params, self.updates(grads)):
             p.add_(u)
 
@@ -198,10 +218,11 @@ def trained_parameters(module: nn.Module, upd_f_only: bool
     return out
 
 
-def build_optimizer(cfg: Config, module: nn.Module) -> ClippedAdam:
+def build_optimizer(cfg: Config, module: nn.Module,
+                    mesh: Optional[meshlib.Mesh] = None) -> ClippedAdam:
     return ClippedAdam([p for _, p in trained_parameters(
         module, cfg.train.upd_f_only)], cfg.train.learning_rate,
-        cfg.train.grad_clip)
+        cfg.train.grad_clip, mesh=mesh)
 
 
 def noise_generator(seed: int, step: int) -> torch.Generator:
@@ -211,21 +232,32 @@ def noise_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(((seed + 77) << 32) + step)
 
 
+def noise_draw(seed: int, step: int, levels: int, shape) -> torch.Tensor:
+    """A step's integer mu-law noise in [-levels, levels] of the global
+    batch's shape (B, T), from noise_generator(seed, step) on the host:
+    the draw lpcnet.noisy_streams makes from that generator.  A rank of
+    a data-parallel run keeps its own rows (mesh.shard_batch), so that
+    the step does not depend on the world size."""
+    return torch.randint(-levels, levels + 1, tuple(shape),
+                         generator=noise_generator(seed, step))
+
+
 def make_step(optimizer: ClippedAdam, loss_fn=None, noise_levels: int = 0,
               time_chunks: int = 0):
     """(train_step, eval_step).  train_step(module, feat, periods, x,
-    lpc, noise_key) computes the loss and its gradients, takes an
+    lpc, noise) computes the loss and its gradients, takes an
     optimizer step and returns the loss (a tensor on the device);
-    noise_levels > 0 enables mu-law noise injection from the generator
-    noise_key (lpcnet.noisy_streams); eval always runs clean.
+    noise_levels > 0 enables mu-law noise injection of the integer
+    offsets noise (B, T) (`noise_draw`, lpcnet.noisy_streams); eval
+    always runs clean.
     time_chunks > 0 computes the loss over that many rematerialised
     time segments.  Both run under no_tf32."""
     loss_fn = loss_fn or lpcnet.loss_fn
 
-    def train_step(module, feat, periods, x, lpc, noise_key=None):
-        kw = ({"noise_key": noise_key, "noise_levels": noise_levels}
-              if noise_levels > 0 else {})
+    def train_step(module, feat, periods, x, lpc, noise=None):
         with no_tf32():
+            kw = ({"streams": lpcnet.noisy_streams(x, lpc, noise=noise)}
+                  if noise_levels > 0 and noise is not None else {})
             for p in module.parameters():
                 p.grad = None
             loss = loss_fn(module, feat, periods, x, lpc,
@@ -250,6 +282,27 @@ def _bunch_of(tree) -> int:
     return {3: 1, 5: 2, 9: 4}[weights.lpcnet_config(base).gru_a_embeds]
 
 
+def _plot_diagnostics(cfg: Config, label: str, epoch: int,
+                      model: nn.Module, arrs: Dict, bunch: int):
+    """The plot_every-epoch images (the reference's src/train.py:153-165
+    excitation traces and utils.py:160-179 spectrograms): the teacher
+    excitation of the batch's first item beside the model's argmax draw
+    (bunch=1), and the log-mel spectrogram of its signal."""
+    exc_tgt, pred_t = lpcnet.teacher_streams(arrs["x"][:1], arrs["lpc"][:1])
+    exc_out = None
+    if bunch == 1:
+        with torch.no_grad(), no_tf32():
+            logits = lpcnet.forward(model, arrs["feat"][:1],
+                                    arrs["periods"][:1], arrs["x"][:1],
+                                    exc_tgt, pred_t)
+        exc_out = (u2l(torch.argmax(logits, dim=-1))[0] / 32768.0
+                   ).cpu().numpy()
+    diagnostics.save_excitation_plot(cfg.train.save_dir, label, epoch,
+                                     exc_tgt[0].cpu().numpy(), exc_out)
+    diagnostics.save_spectrogram(cfg.train.save_dir, label, epoch,
+                                 arrs["x"][0].cpu().numpy(), name="signal")
+
+
 def _sparsify(module: nn.Module, bunch: int, density: float, block):
     if bunch == 1:
         lpcnet.sparsify_gru_a(module, density, block)
@@ -262,16 +315,15 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
     """Train the vocoder of cfg on the card (device="cpu": the CPU);
     returns (module, the smallest epoch loss).  init_params (a JAX or
     port parameter tree of numpy arrays) warm-starts in-process, as
-    train.transfer_model does from a checkpoint."""
-    if cfg.train.plot_every > 0:
-        raise ValueError(
-            "train.plot_every > 0: the diagnostic plots "
-            "(fpsc_tpu/utils/diagnostics.py) are not ported yet "
-            "(ROADMAP Queue A 8, utilities)")
+    train.transfer_model does from a checkpoint.  Under an initialised
+    torch.distributed process group it trains data-parallel
+    (parallel/mesh.py): this rank's rows of each global batch, the
+    gradients averaged before the clip, rank 0 writing."""
     if cfg.lpcnet.bunch not in lpcnet_bunched.VOCODERS:
         raise ValueError(f"lpcnet.bunch={cfg.lpcnet.bunch}: 1 (plain "
                          "LPCNet), 2 (pairs) and 4 are implemented")
     dev = resolve_device(device)
+    mesh = meshlib.make_mesh(device=dev)
     bunch = cfg.lpcnet.bunch
     if init_params is not None:
         bunch = _bunch_of(init_params)
@@ -292,8 +344,8 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
             cfg.train.transfer_epoch))
         ckpt.restore(model, payload, f"vocoder (bunch={cfg.lpcnet.bunch})")
         print("loaded transfer vocoder checkpoint")
-    model = model.to(dev)
-    optimizer = build_optimizer(cfg, model)
+    model = meshlib.replicate(mesh, model.to(dev))
+    optimizer = build_optimizer(cfg, model, mesh)
 
     train_ds = build_dataset(cfg.data, "train", device=dev)
     if data_dir:
@@ -332,23 +384,29 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
         for batch in train_ds.iter_batches(cfg.data.batch_size,
                                            seed=cfg.train.seed + epoch):
             arrs = {k: torch.as_tensor(v, device=dev) for k, v in
-                    vocoder_inputs(batch, cfg.data.normalize).items()}
+                    local_rows(mesh, train_ds, vocoder_inputs(
+                        batch, cfg.data.normalize)).items()}
             if ramp:
                 if cfg.train.max_seconds:
-                    noise_on = (train_t0 is not None
-                                and time.time() - train_t0
-                                >= cfg.lpcnet.noise_warmup_frac
-                                * cfg.train.max_seconds)
+                    noise_on = meshlib.from_main(
+                        mesh, train_t0 is not None
+                        and time.time() - train_t0
+                        >= cfg.lpcnet.noise_warmup_frac
+                        * cfg.train.max_seconds)
                 else:
                     noise_on = (epoch >= cfg.lpcnet.noise_warmup_frac
                                 * cfg.train.epochs)
             else:
                 noise_on = cfg.lpcnet.noise_levels > 0
             step_fn = train_step if noise_on else clean_step
+            noise = None
+            if noise_on and cfg.lpcnet.noise_levels > 0:
+                noise = meshlib.shard_batch(mesh, noise_draw(
+                    cfg.train.seed, global_step, cfg.lpcnet.noise_levels,
+                    (cfg.data.batch_size, arrs["x"].shape[1])))
             loss_t = step_fn(model, arrs["feat"], arrs["periods"], arrs["x"],
-                             arrs["lpc"],
-                             noise_generator(cfg.train.seed, global_step))
-            loss_v = float(loss_t)
+                             arrs["lpc"], noise)
+            loss_v = float(meshlib.data_mean(mesh, loss_t))
             if train_t0 is None:
                 train_t0 = time.time()
             global_step += 1
@@ -367,17 +425,23 @@ def run(cfg: Config, data_dir: Optional[str] = None, init_params=None,
                     and n >= cfg.train.steps_per_epoch):
                 break
         duration = time.time() - t0
-        ckpt.log_epoch(cfg.train.save_dir, label, epoch, duration,
-                       total / max(n, 1), 0.0, cfg.train.debugging)
         should_save = (epoch % max(cfg.train.save_every, 1) == 0
                        or epoch == cfg.train.epochs - 1)
-        if not cfg.train.debugging and should_save:
-            ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
-                                           epoch),
-                      model, optimizer.state(), step=epoch)
+        if meshlib.is_main(mesh):
+            ckpt.log_epoch(cfg.train.save_dir, label, epoch, duration,
+                           total / max(n, 1), 0.0, cfg.train.debugging)
+            if diagnostics.should_plot(cfg.train.plot_every, epoch):
+                _plot_diagnostics(cfg, label, epoch, model, arrs, bunch)
+            if not cfg.train.debugging and should_save:
+                ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
+                                               epoch),
+                          model, optimizer.state(), step=epoch)
+        meshlib.barrier(mesh)
         min_loss = min(min_loss, total / max(n, 1))
-        if (cfg.train.max_seconds and train_t0 is not None
-                and time.time() - train_t0 > cfg.train.max_seconds):
+        if meshlib.from_main(mesh, cfg.train.max_seconds
+                             and train_t0 is not None
+                             and time.time() - train_t0
+                             > cfg.train.max_seconds):
             print(f"wall-time budget {cfg.train.max_seconds:.0f}s "
                   f"reached after epoch {epoch} "
                   f"({global_step} updates)", flush=True)

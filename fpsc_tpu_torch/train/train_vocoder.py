@@ -13,6 +13,9 @@ coded features (the Libri_lpc_data_retrain path).
 
 The loss and each step run under `utils.device.no_tf32`, whatever the
 caller set: every WaveNet convolution is a cuDNN call on the card.
+Under an initialised torch.distributed process group it trains
+data-parallel (parallel/mesh.py: this rank's rows of each global
+batch, the gradients averaged before the clip, rank 0 writing).
 
     python -m fpsc_tpu_torch.train.train_vocoder data.synthetic=true \
         train.epochs=1 train.debugging=true [--device=cpu]
@@ -33,10 +36,11 @@ from fpsc_tpu_torch.data.dataset import build_dataset
 from fpsc_tpu_torch.dsp.gaussian import gaussian_nll
 from fpsc_tpu_torch.dsp.lpc import excitation
 from fpsc_tpu_torch.models import wavenet as wn
+from fpsc_tpu_torch.parallel import mesh as meshlib
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train import weights
 from fpsc_tpu_torch.train.train_lpcnet import (ClippedAdam, coded_dataset,
-                                               vocoder_inputs)
+                                               local_rows, vocoder_inputs)
 from fpsc_tpu_torch.utils.device import (no_tf32, resolve_device,
                                          split_device_arg)
 
@@ -85,10 +89,11 @@ def trained_parameters(model: wn.Wavenet, upd_f_only: bool
             if not upd_f_only or n.startswith("upsampler.")]
 
 
-def build_optimizer(cfg: Config, model: wn.Wavenet) -> ClippedAdam:
+def build_optimizer(cfg: Config, model: wn.Wavenet,
+                    mesh: Optional[meshlib.Mesh] = None) -> ClippedAdam:
     return ClippedAdam([p for _, p in trained_parameters(
         model, cfg.train.upd_f_only)], cfg.train.learning_rate,
-        cfg.train.grad_clip)
+        cfg.train.grad_clip, mesh=mesh)
 
 
 def make_step(optimizer: ClippedAdam, loss, *args):
@@ -113,6 +118,7 @@ def run(cfg: Config, data_dir: Optional[str] = None, device=None
     """Train the WaveNet of cfg on the card (device="cpu": the CPU);
     returns (model, the smallest epoch loss)."""
     dev = resolve_device(device)
+    mesh = meshlib.make_mesh(device=dev)
     mcfg = model_config(cfg)
     model = wn.Wavenet(mcfg, torch.Generator().manual_seed(cfg.train.seed))
     if cfg.train.transfer_model:
@@ -121,8 +127,8 @@ def run(cfg: Config, data_dir: Optional[str] = None, device=None
             cfg.train.transfer_epoch))
         ckpt.restore(model, payload, "vocoder")
         print("loaded transfer vocoder checkpoint")
-    model = model.to(dev)
-    optimizer = build_optimizer(cfg, model)
+    model = meshlib.replicate(mesh, model.to(dev))
+    optimizer = build_optimizer(cfg, model, mesh)
 
     train_ds = build_dataset(cfg.data, "train", device=dev)
     if data_dir:
@@ -139,24 +145,27 @@ def run(cfg: Config, data_dir: Optional[str] = None, device=None
         for batch in train_ds.iter_batches(cfg.data.batch_size,
                                            seed=cfg.train.seed + epoch):
             arrs = {k: torch.as_tensor(v, device=dev) for k, v in
-                    vocoder_inputs(batch, cfg.data.normalize).items()}
+                    local_rows(mesh, train_ds, vocoder_inputs(
+                        batch, cfg.data.normalize)).items()}
             loss = train_step(model, arrs["feat"], arrs["periods"],
                               arrs["x"], arrs["lpc"], inp_ch)
-            total += float(loss)
+            total += float(meshlib.data_mean(mesh, loss))
             n += 1
             if cfg.train.debugging or (
                     cfg.train.steps_per_epoch
                     and n >= cfg.train.steps_per_epoch):
                 break
-        ckpt.log_epoch(cfg.train.save_dir, label, epoch,
-                       time.time() - t0, total / max(n, 1), 0.0,
-                       cfg.train.debugging)
         should_save = (epoch % max(cfg.train.save_every, 1) == 0
                        or epoch == cfg.train.epochs - 1)
-        if not cfg.train.debugging and should_save:
-            ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
-                                           epoch),
-                      model, optimizer.state(), step=epoch)
+        if meshlib.is_main(mesh):
+            ckpt.log_epoch(cfg.train.save_dir, label, epoch,
+                           time.time() - t0, total / max(n, 1), 0.0,
+                           cfg.train.debugging)
+            if not cfg.train.debugging and should_save:
+                ckpt.save(ckpt.checkpoint_path(cfg.train.save_dir, label,
+                                               epoch),
+                          model, optimizer.state(), step=epoch)
+        meshlib.barrier(mesh)
         min_loss = min(min_loss, total / max(n, 1))
     return model, min_loss
 

@@ -14,7 +14,7 @@ with numpy, and the uniforms are JAX's own stream.
   1e-5, at least B-2 items flip-free) against pallas_generate(
   interpret=True) and lpcnet_bunched.generate4 in f32, and against the
   bf16 pallas_generate run in a child process with XLA's
-  --xla_allow_excess_precision=false (ROADMAP Queue C 1).
+  --xla_allow_excess_precision=false (ROADMAP Queue C settled 2).
 * So does the cdf product (cdf_matmul=True, forced at B=8), and
   prepare's default takes it above 128 items only, as pallas_prepare.
 """

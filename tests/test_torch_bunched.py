@@ -14,7 +14,7 @@ and the uniforms are JAX's own stream.
   trajectory contract of tests/test_bunched.py:97-121 against
   lpcnet_bunched.generate and pallas_generate(interpret=True) in f32,
   and against the bf16 pallas_generate, run in a child process with
-  XLA's --xla_allow_excess_precision=false (ROADMAP Queue C 1).
+  XLA's --xla_allow_excess_precision=false (ROADMAP Queue C settled 2).
 * The plain bunch=1 block-sparse sampler tracks pallas_generate with the
   same pattern (tests/test_pallas_sampler.py:65-91).
 * Samplers wrong in one bunched or sparse part fail `replay_faults`.

@@ -1406,3 +1406,71 @@ def test_full_width_iaf_distillation_loss_matches_cpu(cuda_device):
     # each flow's last residual convolution: no gradient
     assert sum(float(g.abs().max()) > 0 for g in want_g) == \
         len(want_g) - 3 * student.cfg.num_flows
+
+
+# ------------------------------------------------ tracing, metrics, DP
+
+
+@pytest.mark.cuda
+def test_profile_trace_lists_the_sampler_kernels(cuda_device, tmp_path):
+    """utils/logging.py::profile_trace around a sampler call on the card:
+    the Chrome trace lists the sample and fold kernels as device
+    events."""
+    from fpsc_tpu_torch.utils.logging import profile_trace
+    ops, meta = _form_operands("bunch2_sparse", torch.float32,
+                               device=cuda_device)
+    ts.sample(ops, meta)                      # build and warm up
+    with profile_trace(str(tmp_path)):
+        ts.sample(ops, meta)
+    (trace,) = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    with open(tmp_path / trace) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert any("sample_kernel" in n for n in names), names
+    assert any("fold_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_lsd_on_the_card_equals_the_cpu(cuda_device):
+    """eval/metrics.py::log_spectral_distance with device=None (the card)
+    against device="cpu": within rtol 1e-5."""
+    from fpsc_tpu_torch.data.synthetic import synth_waveform
+    from fpsc_tpu_torch.eval.metrics import log_spectral_distance
+    x = synth_waveform(np.random.RandomState(1), 8000)
+    y = x + 0.05 * np.random.RandomState(2).randn(len(x)).astype(np.float32)
+    card = log_spectral_distance(x, y)
+    cpu = log_spectral_distance(x, y, device="cpu")
+    assert abs(card - cpu) <= 1e-5 * abs(cpu), (card, cpu)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_step_equals_the_plain_step(cuda_device, tmp_path):
+    """An NCCL group of one: a train_frame warm step whose optimizer
+    averages the gradients over the group gives, bit for bit, the
+    parameters of the plain optimizer's step on the same gradients, and
+    the loss through the group is the loss."""
+    import torch.distributed as dist
+    from fpsc_tpu_torch.parallel import mesh as meshlib
+    from fpsc_tpu_torch.train import train_frame as ttf
+    from fpsc_tpu_torch.train import weights
+    rng = np.random.RandomState(1)
+    feat = torch.as_tensor(np.cumsum(rng.randn(2, 20, 20).astype(
+        np.float32) * 0.06, 1), device=cuda_device)
+    init = _flagship_predictor().to(cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = meshlib.make_mesh(device=cuda_device)
+        a, b = copy.deepcopy(init), copy.deepcopy(init)
+        opt_a, opt_b = (ttf.ClippedAdam(
+            [p for _, p in weights.named_leaves(m)], 1e-3, None, mesh=ms)
+            for m, ms in ((a, mesh), (b, None)))
+        loss = ttf.make_steps(opt_a)[0](a, feat)
+        for pa, pb in zip(opt_a.params, opt_b.params):
+            pb.grad = None if pa.grad is None else pa.grad.clone()
+        opt_b.step()
+        assert torch.equal(meshlib.data_mean(mesh, loss), loss)
+        for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+            assert torch.equal(x, y), n
+    finally:
+        dist.destroy_process_group()

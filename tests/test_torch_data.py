@@ -241,9 +241,19 @@ def test_build_dataset_matches_jax(task):
 
 
 def test_build_dataset_refuses_shard_by_process():
-    _, tc = _cfgs(["data.shard_by_process=true"])
-    with pytest.raises(ValueError, match="ROADMAP Queue A 8"):
-        tds.build_dataset(tc.data, "train", device="cpu")
+    """data.shard_by_process, refused until the port had process groups:
+    without a group the process is rank 0 of 1, as a single JAX process
+    is, and the batches are JAX's."""
+    jc, tc = _cfgs(["data.shard_by_process=true", "data.synthetic=true",
+                    "data.synthetic_utterances=4", "data.chunks=2",
+                    "data.seed=3"])
+    want = jds.build_dataset(jc.data, "train")
+    got = tds.build_dataset(tc.data, "train", device="cpu")
+    assert (got.process_index, got.process_count) == (0, 1) == (
+        want.process_index, want.process_count)
+    got.items = _port_items(want.items)
+    _same_batch(next(got.iter_batches(2, seed=1)),
+                next(want.iter_batches(2, seed=1)))
 
 
 def test_native_extractor_matches_jax():

@@ -15,7 +15,7 @@ own stream.
   the trajectory contract (ts.trajectory_flips) against
   pallas_generate(weights_int8=True, interpret=True) in f32, and against
   the bf16 pallas_generate run in a child process with XLA's
-  --xla_allow_excess_precision=false (ROADMAP Queue C 1).
+  --xla_allow_excess_precision=false (ROADMAP Queue C settled 2).
 * `generate` is sample(*prepare(...)).
 """
 import os

@@ -21,7 +21,7 @@ than 5e-6.
 
 The bf16 oracles run in a child process with XLA's
 --xla_allow_excess_precision=false: by default XLA's CPU compiler may
-keep bf16 intermediates in f32 (ROADMAP Queue C 1).
+keep bf16 intermediates in f32 (ROADMAP Queue C settled 2).
 """
 import contextlib
 import importlib.util

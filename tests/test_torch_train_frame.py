@@ -41,6 +41,7 @@ from fpsc_tpu_torch.train import checkpoint as tckpt
 from fpsc_tpu_torch.train import train_frame as ttf
 from fpsc_tpu_torch.train import weights
 from fpsc_tpu_torch.train.train_lpcnet import ClippedAdam
+from fpsc_tpu_torch.utils import diagnostics
 from fpsc_tpu_torch.utils.device import torch_threads
 
 
@@ -236,8 +237,8 @@ def test_trainer_matches_jax(corpus, tmp_path, monkeypatch):
 
 
 def test_entry_point_refusals(tmp_path):
-    """The CLI trains on the card unless --device=cpu; plots name the
-    ROADMAP item that will bring them."""
+    """The CLI trains on the card unless --device=cpu; the plots, refused
+    until the port had them, now run and draw the two heatmaps."""
     args = ["data.synthetic=true", "data.synthetic_utterances=2",
             "data.chunks=1", "data.batch_size=2", *SMALL,
             "train.epochs=1", "train.debugging=true",
@@ -245,6 +246,9 @@ def test_entry_point_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttf.main(args)
-    with pytest.raises(ValueError, match="Queue A 8"):
-        ttf.main(args + ["train.plot_every=1", "--device=cpu"])
+    assert ttf.main(args + ["train.plot_every=1", "label=plots",
+                            "--device=cpu"]) == 0
+    if diagnostics.have_matplotlib():
+        assert sorted(os.listdir(tmp_path / "plots" / "diagnostics")) == [
+            "feat_0.png", "feat_out_0.png"]
     assert ttf.main(args + ["--device=cpu"]) == 0

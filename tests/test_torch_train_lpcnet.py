@@ -51,6 +51,7 @@ from fpsc_tpu_torch.models import lpcnet as tl
 from fpsc_tpu_torch.train import checkpoint as tckpt
 from fpsc_tpu_torch.train import train_lpcnet as tt
 from fpsc_tpu_torch.train import weights
+from fpsc_tpu_torch.utils import diagnostics
 from fpsc_tpu_torch.utils.device import torch_threads
 
 
@@ -290,8 +291,9 @@ def test_coded_dataset_matches_jax(tmp_path):
 
 
 def test_entry_point_refusals(tmp_path):
-    """The CLI trains on the card unless --device=cpu; plots and
-    process sharding name the ROADMAP item that will bring them."""
+    """The CLI trains on the card unless --device=cpu and refuses an
+    unknown bunch; the plots and process sharding, refused until the
+    port had them, now run (one process: rank 0 of 1)."""
     args = ["data.synthetic=true", "data.synthetic_utterances=2",
             "data.chunks=1", "data.batch_size=2", *SMALL,
             "train.epochs=1", "train.debugging=true",
@@ -300,10 +302,13 @@ def test_entry_point_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tt.main(args)
     assert tt.main(args + ["--device=cpu"]) == 0
-    with pytest.raises(ValueError, match="ROADMAP Queue A 8"):
-        tt.main(args + ["train.plot_every=1", "--device=cpu"])
-    with pytest.raises(ValueError, match="ROADMAP Queue A 8"):
-        tt.main(args + ["data.shard_by_process=true", "--device=cpu"])
+    assert tt.main(args + ["train.plot_every=1", "label=plots",
+                           "--device=cpu"]) == 0
+    if diagnostics.have_matplotlib():
+        assert sorted(os.listdir(tmp_path / "plots_s" / "diagnostics")) == [
+            "exc_0.png", "exc_out_0.png", "signal_0.png"]
+    assert tt.main(args + ["data.shard_by_process=true",
+                           "--device=cpu"]) == 0
     with pytest.raises(ValueError, match="lpcnet.bunch=3"):
         tt.main(args + ["lpcnet.bunch=3", "--device=cpu"])
 
