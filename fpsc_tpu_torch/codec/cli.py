@@ -71,6 +71,7 @@ from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train.train_frame import load_predictor
 from fpsc_tpu_torch.utils.device import resolve_device, split_device_arg
+from fpsc_tpu_torch.utils.logging import span
 
 # (frames, batch) -> (frames, batch, 160) uniforms in [0, 1)
 UniformSource = Callable[[int, int], np.ndarray]
@@ -147,22 +148,55 @@ def save_wav(path: str, x: np.ndarray, sr: int = C.SAMPLE_RATE) -> None:
 
 
 class _Phases:
-    """Wall time per phase of an encode or a decode, the device
-    synchronised at each boundary; only when the caller passed a dict to
-    fill."""
+    """The spans of an encode or a decode (utils/logging.py): a root span
+    `<kind>` over the call and under it `<kind>.<name>` for each phase,
+    each beginning where the one before ends.  With a dict to fill (the
+    caller's `timings=`), each boundary first synchronises the device,
+    and each phase's wall seconds are added under its name."""
 
-    def __init__(self, out: Optional[Dict[str, float]], device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
+    def __init__(self, kind: str, out: Optional[Dict[str, float]], device):
+        self.kind, self.out, self.device = kind, out, device
+        self.root = span(kind)
+        self.open: Optional[span] = None
 
-    def mark(self, name: str) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
+    def __enter__(self) -> "_Phases":
+        self.root.__enter__()
+        return self
+
+    def __exit__(self, failed, *exc) -> None:
+        if failed is None:
+            self.end()
+        elif self.open is not None:
+            self.open.end(time.perf_counter_ns())
+        self.root.__exit__()
+
+    def begin(self, name: str, **attrs) -> None:
+        """End the phase that is open and begin `name`."""
+        now = self._boundary()
+        self.open = span(f"{self.kind}.{name}", **attrs)
+        self.open.begin(now)
+
+    def note(self, **attrs) -> None:
+        """Attributes of the phase that is open."""
+        self.open.attrs.update(attrs)
+
+    def end(self) -> None:
+        """End the phase that is open, if any."""
+        self._boundary()
+        self.open = None
+
+    def _boundary(self) -> int:
+        """The clock reading at which the phase that is open ends."""
+        if self.open is None:
+            return time.perf_counter_ns()
+        if self.out is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + (now - self.t)
-        self.t = now
+        now = time.perf_counter_ns()
+        self.open.end(now)
+        if self.out is not None:
+            name = self.open.name[len(self.kind) + 1:]
+            self.out[name] = self.out.get(name, 0.0) + self.open.seconds
+        return now
 
 
 def read_wav(path: str) -> np.ndarray:
@@ -196,11 +230,20 @@ def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
     frame count and each bucket is encoded as one batch; the closed loop
     is conditioned on the dequantised pitch, what the decoder
     reconstructs, so that the two loops track bit for bit.  Runs on the
-    card unless device="cpu"; `timings`, when given, collects the wall
-    seconds of the read, analysis, encode, fec, pack and write phases.
+    card unless device="cpu".  The phases (read, analysis, encode, fec,
+    pack and write) are spans `encode.<phase>` under a span `encode`;
+    `timings`, when given, collects their wall seconds, the device
+    synchronised at each boundary.
     """
     dev = resolve_device(device)
-    phases = _Phases(timings, dev)
+    with _Phases("encode", timings, dev) as phases:
+        return _encode_paths(cfg, wav_paths, out_path, artifacts, dev,
+                             phases)
+
+
+def _encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
+                  artifacts, dev, phases: _Phases) -> dict:
+    phases.begin("read")
     if artifacts is None:
         artifacts = load_artifacts(cfg, device=dev)
     predictor, codebooks, sizes, priors, orders, _ = artifacts
@@ -213,9 +256,9 @@ def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
             "duplicate wav basenames would silently collide in the "
             f"container: {dupes} — rename the inputs")
     waves = [read_wav(p) for p in wav_paths]
-    phases.mark("read")
+    phases.begin("analysis")
     all_rows = extract_features_batch(waves, device=dev)
-    phases.mark("analysis")
+    phases.begin("encode" if waves else "pack")
     feats, buckets = {}, {}
     for path, name, rows in zip(wav_paths, names, all_rows):
         if rows.shape[0] == 0:
@@ -236,16 +279,17 @@ def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
         fec_sizes = codebook_sizes(fec_books)
 
     coded = {}
-    for names_b in buckets.values():
+    for i, names_b in enumerate(buckets.values()):
         feat = torch.as_tensor(np.stack([feats[n] for n in names_b]) / scale,
                                device=dev)
         enc = encode(predictor, codebooks, feat, l1=cfg.codec.l1,
                      l2=cfg.codec.l2, use_mask=cfg.codec.use_mask,
                      scale=cfg.codec.mask_scale)
-        phases.mark("encode")
+        phases.begin("fec")
         fidx = (plc.fec_requantize(fec_books, enc["r"], enc["ind1"],
                                    enc["ind2"]) if cfg.codec.fec else None)
-        phases.mark("fec")
+        # this bucket's copies to the host count to the phase after
+        phases.begin("encode" if i + 1 < len(buckets) else "pack")
 
         def host(d):
             return None if d is None else {k: v.cpu().numpy()
@@ -285,7 +329,7 @@ def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
             nbytes = len(payload)
         utts.append((name, payload))
         rates[name] = bs.bitrate_bps(nbytes, feats[name].shape[0])
-    phases.mark("pack")
+    phases.begin("write")
     total = container.write_fpsc(
         out_path, utts, sizes, entropy=cfg.codec.entropy_coding,
         use_mask=cfg.codec.use_mask, l1=cfg.codec.l1, l2=cfg.codec.l2,
@@ -293,7 +337,7 @@ def encode_paths(cfg: Config, wav_paths: Sequence[str], out_path: str,
         sample_rate=C.SAMPLE_RATE, packet_frames=packet_frames,
         fec=cfg.codec.fec,
         frame_counts={n: f.shape[0] for n, f in feats.items()})
-    phases.mark("write")
+    phases.end()
     for name, bps in rates.items():
         print(f"{name}: {bps:.0f} b/s")
     print(f"wrote {out_path}: {len(utts)} utterance(s), {total} bytes")
@@ -320,12 +364,24 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     from a torch.Generator seeded with 0 (the JAX decoder uses
     PRNGKey(0) per bucket), or from `uniforms(frames, batch)`.  The
     sampler works in bf16 on the card and in f32 on the CPU, as the
-    JAX decoder's Pallas and XLA samplers do.  `timings`, when given,
-    collects the wall seconds of each phase.
+    JAX decoder's Pallas and XLA samplers do.
+
+    The phases (unpack, then for each bucket feature_decode, ceps2lpc,
+    prologue and sampler, then write) are spans `decode.<phase>` under a
+    span `decode`; `timings`, when given, collects their wall seconds,
+    the device synchronised at each boundary.
     """
     dev = resolve_device(device)
+    with _Phases("decode", timings, dev) as phases:
+        return _decode_file(cfg, in_path, out_dir, artifacts, vocoder, dev,
+                            uniforms, phases)
+
+
+def _decode_file(cfg: Config, in_path: str, out_dir: str, artifacts,
+                 vocoder, dev, uniforms: Optional[UniformSource],
+                 phases: _Phases) -> List[dict]:
     sampler_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    phases = _Phases(timings, dev)
+    phases.begin("unpack")
     if artifacts is None:
         *artifacts, vocoder = load_artifacts(cfg, need_vocoder=True,
                                              device=dev)
@@ -381,10 +437,15 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
         unpacked[name] = (got, nbytes)
         buckets.setdefault(len(got["ind1"]), []).append(name)
         order.append(name)
-    phases.mark("unpack")
+    phases.note(bytes=sum(n for _, n in unpacked.values()),
+                utterances=len(order))
+    phases.root.attrs.update(utterances=len(order), buckets=len(buckets))
+    phases.begin("feature_decode" if buckets else "write")
 
     out = {}
-    for n_frames, names in buckets.items():
+    for b, (n_frames, names) in enumerate(buckets.items()):
+        phases.note(batch=len(names), frames=n_frames)
+
         def stack(f):
             return torch.as_tensor(
                 np.stack([f(unpacked[n][0]) for n in names]), device=dev)
@@ -406,12 +467,12 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
             coded = (plc.conceal_decode(predictor, codebooks, *symbols,
                                         stack(lambda g: g["lost"]))
                      if pf else decode(predictor, codebooks, *symbols))
-        phases.mark("feature_decode")
+        phases.begin("ceps2lpc")
         coded_un = coded * scale
         periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)
         _, lpc, _ = ceps2lpc(coded_un.reshape(-1, 20)[:, :18])
         lpc = lpc.reshape(coded_un.shape[0], -1, 16)
-        phases.mark("ceps2lpc")
+        phases.begin("prologue")
         if uniforms is None:
             gen = torch.Generator(device=dev).manual_seed(0)
             u = torch.rand((n_frames, len(names), C.FRAME_SIZE),
@@ -421,6 +482,8 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
                                 dtype=torch.float32, device=dev)
         y = _synthesize(vocoder, coded, periods, lpc, coded_un[..., 19], u,
                         sampler_dtype, phases)
+        # this bucket's copies to the host count to the phase after
+        phases.begin("feature_decode" if b + 1 < len(buckets) else "write")
         coded, lpc, y = (x.cpu().numpy() for x in (coded, lpc, y))
         for i, name in enumerate(names):
             out[name] = {"name": name, "coded": coded[i], "lpc": lpc[i],
@@ -434,7 +497,7 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
         print(f"{name}: {unpacked[name][1]} bytes -> "
               f"{len(r['wav'])} samples -> {wav_path}")
         results.append(r)
-    phases.mark("write")
+    phases.end()
     return results
 
 
@@ -448,10 +511,8 @@ def _synthesize(vocoder, coded, periods, lpc, corr, u,
     ops, meta = lpcnet_sampler.prepare(
         vocoder, coded, periods, lpc, u, corr=corr, dtype=dtype,
         gru_a_pattern=lpcnet_sampler.auto_block_pattern(vocoder))
-    phases.mark("prologue")
-    y = lpcnet_sampler.sample(ops, meta)
-    phases.mark("sampler")
-    return y
+    phases.begin("sampler")
+    return lpcnet_sampler.sample(ops, meta)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

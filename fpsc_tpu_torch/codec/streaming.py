@@ -26,7 +26,9 @@ codec/ticks.py: one CUDA graph per instance (the batch is fixed per
 instance, as a JIT shape is), captured once after an eager warm-up and
 replayed every call, with one host transfer of the packed row a tick;
 `graph=False` runs the same tick eagerly on the card (to hold the graph
-to it and to count its launches).  The per-tick step functions below are pure and take the same
+to it and to count its launches).  Each public tick method hands its
+staging and its unpacking to `TickRunner.call`, which records the tick
+as spans.  The per-tick step functions below are pure and take the same
 arguments as JAX's; on the CPU they run eagerly.  They reuse the port's
 modules: frame_predictor.step and _quantize_residual (JAX's VQ
 distances bit for bit), quant/, gru_step, lpcnet.frame_net, ceps2lpc,
@@ -397,7 +399,8 @@ class StreamingFrontend:
             return step((ring, last_raw), pcm_rows)
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, C.FRAME_SIZE)], graph)
+                                [_zeros(dev, batch, C.FRAME_SIZE)], graph,
+                                owner="StreamingFrontend", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -406,10 +409,15 @@ class StreamingFrontend:
         """pcm_rows (160,)/(batch, 160) RAW samples -> (20,)/(B, 20)
         normalised features for frame k-1 (one warmup tick)."""
         squeeze = np.ndim(pcm_rows) == 1
-        self._tick.stage[0][...] = _rows(pcm_rows, self.batch,
-                                         C.FRAME_SIZE)
-        feat = self._tick.run()
-        return feat[0] if squeeze and self.batch == 1 else feat
+
+        def stage():
+            self._tick.stage[0][...] = _rows(pcm_rows, self.batch,
+                                             C.FRAME_SIZE)
+
+        def unpack(feat):
+            return feat[0] if squeeze and self.batch == 1 else feat
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingEncoder:
@@ -429,7 +437,8 @@ class StreamingEncoder:
             return step((h1, h2, prev), feat_rows)
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, 20)], graph)
+                                [_zeros(dev, batch, 20)], graph,
+                                owner="StreamingEncoder", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -437,10 +446,15 @@ class StreamingEncoder:
     def encode_frame(self, feat_rows: np.ndarray) -> Dict:
         """feat_rows: (20,) or (batch, 20) normalised [ceps|pitch]."""
         squeeze = np.ndim(feat_rows) == 1
-        self._tick.stage[0][...] = _rows(feat_rows, self.batch, 20)
-        p = self._tick.run()                     # single host transfer
-        out, _ = _split_symbols(p, self._n_vq, self._n_vq_bl)
-        return _squeeze(out) if squeeze and self.batch == 1 else out
+
+        def stage():
+            self._tick.stage[0][...] = _rows(feat_rows, self.batch, 20)
+
+        def unpack(p):
+            out, _ = _split_symbols(p, self._n_vq, self._n_vq_bl)
+            return _squeeze(out) if squeeze and self.batch == 1 else out
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingDecoder:
@@ -461,7 +475,8 @@ class StreamingDecoder:
                         sym["indices"], row[:, w:w + 2])
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, 4 + s + sb + 2)], graph)
+                                [_zeros(dev, batch, 4 + s + sb + 2)], graph,
+                                owner="StreamingDecoder", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -470,12 +485,17 @@ class StreamingDecoder:
                      pitch_rows: np.ndarray) -> np.ndarray:
         """-> (20,) / (batch, 20) normalised coded frame."""
         squeeze = np.ndim(pitch_rows) == 1
-        row = self._tick.stage[0]
-        w = _put_symbols(row, ind1, ind2, indices, self._n_vq,
-                         self._n_vq_bl)
-        row[:, w:w + 2] = _rows(pitch_rows, self.batch, 2)
-        coded = self._tick.run()
-        return coded[0] if squeeze and self.batch == 1 else coded
+
+        def stage():
+            row = self._tick.stage[0]
+            w = _put_symbols(row, ind1, ind2, indices, self._n_vq,
+                             self._n_vq_bl)
+            row[:, w:w + 2] = _rows(pitch_rows, self.batch, 2)
+
+        def unpack(coded):
+            return coded[0] if squeeze and self.batch == 1 else coded
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingVocoder:
@@ -498,7 +518,7 @@ class StreamingVocoder:
         self._tick = TickRunner(
             tick, self.state,
             [_zeros(dev, C.FRAME_SIZE, batch, 1), _zeros(dev, batch, 20)],
-            graph)
+            graph, owner="StreamingVocoder", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -507,10 +527,15 @@ class StreamingVocoder:
                          uniforms=None) -> np.ndarray:
         """coded_rows: (20,) / (batch, 20) -> (160,) / (batch, 160)."""
         squeeze = np.ndim(coded_rows) == 1
-        self._uniforms.stage(self._tick.hosts[0], uniforms)
-        self._tick.stage[1][...] = _rows(coded_rows, self.batch, 20)
-        ys = self._tick.run()
-        return ys[0] if squeeze and self.batch == 1 else ys
+
+        def stage():
+            self._uniforms.stage(self._tick.hosts[0], uniforms)
+            self._tick.stage[1][...] = _rows(coded_rows, self.batch, 20)
+
+        def unpack(ys):
+            return ys[0] if squeeze and self.batch == 1 else ys
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingReceiver:
@@ -576,7 +601,8 @@ class StreamingReceiver:
         self._tick = TickRunner(
             tick, self.dec_state + self.voc_state,
             [_zeros(dev, C.FRAME_SIZE, batch, 1),
-             _zeros(dev, batch, width)], graph)
+             _zeros(dev, batch, width)], graph,
+            owner="StreamingReceiver", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -592,21 +618,26 @@ class StreamingReceiver:
         emits both layouts).  Returns {'coded' (B, 20), 'audio'
         (B, 160)} (squeezed for batch=1 scalar input)."""
         squeeze = np.ndim(pitch_rows) == 1
-        self._uniforms.stage(self._tick.hosts[0], uniforms)
-        row = self._tick.stage[1]
-        w = _put_symbols(row, ind1, ind2, indices, self._n_vq,
-                         self._n_vq_bl)
-        row[:, w:w + 2] = _rows(pitch_rows, self.batch, 2)
-        row[:, w + 2] = np.asarray(lost, bool)
-        if self._fec:
-            fw = _put_symbols(row[:, w + 3:], False, False,
-                              fec_indices if fec_indices is not None
-                              else self._fec_placeholder,
-                              *self._fec_stages)
-            row[:, w + 3 + fw] = np.asarray(from_fec, bool)
-        p = self._tick.run()                     # single host transfer
-        res = {"coded": p[:, :20], "audio": p[:, 20:]}
-        return _squeeze(res) if squeeze and self.batch == 1 else res
+
+        def stage():
+            self._uniforms.stage(self._tick.hosts[0], uniforms)
+            row = self._tick.stage[1]
+            w = _put_symbols(row, ind1, ind2, indices, self._n_vq,
+                             self._n_vq_bl)
+            row[:, w:w + 2] = _rows(pitch_rows, self.batch, 2)
+            row[:, w + 2] = np.asarray(lost, bool)
+            if self._fec:
+                fw = _put_symbols(row[:, w + 3:], False, False,
+                                  fec_indices if fec_indices is not None
+                                  else self._fec_placeholder,
+                                  *self._fec_stages)
+                row[:, w + 3 + fw] = np.asarray(from_fec, bool)
+
+        def unpack(p):
+            res = {"coded": p[:, :20], "audio": p[:, 20:]}
+            return _squeeze(res) if squeeze and self.batch == 1 else res
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingTransmitter:
@@ -640,7 +671,8 @@ class StreamingTransmitter:
             return (*front_state, *enc_state), packed
 
         self._tick = TickRunner(tick, self.front_state + self.enc_state,
-                                [_zeros(dev, batch, C.FRAME_SIZE)], graph)
+                                [_zeros(dev, batch, C.FRAME_SIZE)], graph,
+                                owner="StreamingTransmitter", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -650,11 +682,16 @@ class StreamingTransmitter:
         symbol dict {'coded', 'ind1', 'ind2', 'indices'} (tick 0 is
         warmup — discard)."""
         squeeze = np.ndim(pcm_rows) == 1
-        self._tick.stage[0][...] = _rows(pcm_rows, self.batch,
-                                         C.FRAME_SIZE)
-        p = self._tick.run()                     # single host transfer
-        out, _ = _split_symbols(p, self._n_vq, self._n_vq_bl)
-        return _squeeze(out) if squeeze and self.batch == 1 else out
+
+        def stage():
+            self._tick.stage[0][...] = _rows(pcm_rows, self.batch,
+                                             C.FRAME_SIZE)
+
+        def unpack(p):
+            out, _ = _split_symbols(p, self._n_vq, self._n_vq_bl)
+            return _squeeze(out) if squeeze and self.batch == 1 else out
+
+        return self._tick.call(stage, unpack)
 
 
 class StreamingCodec:
@@ -721,19 +758,24 @@ class StreamingCodec:
         self._tick = TickRunner(
             tick, states,
             [_zeros(dev, C.FRAME_SIZE, batch, 1), _zeros(dev, batch, width)],
-            graph)
+            graph, owner="StreamingCodec", batch=batch)
 
     def reset(self):
         self._tick.reset()
 
     def _run(self, rows, width: int, uniforms) -> Dict:
         squeeze = np.ndim(rows) == 1
-        self._uniforms.stage(self._tick.hosts[0], uniforms)
-        self._tick.stage[1][...] = _rows(rows, self.batch, width)
-        p = self._tick.run()                     # single host transfer
-        res, w = _split_symbols(p, self._n_vq, self._n_vq_bl)
-        res["audio"] = p[:, w:]
-        return _squeeze(res) if squeeze and self.batch == 1 else res
+
+        def stage():
+            self._uniforms.stage(self._tick.hosts[0], uniforms)
+            self._tick.stage[1][...] = _rows(rows, self.batch, width)
+
+        def unpack(p):
+            res, w = _split_symbols(p, self._n_vq, self._n_vq_bl)
+            res["audio"] = p[:, w:]
+            return _squeeze(res) if squeeze and self.batch == 1 else res
+
+        return self._tick.call(stage, unpack)
 
     def process_frame(self, feat_rows: np.ndarray, uniforms=None) -> Dict:
         """feat_rows (20,)/(batch, 20) normalised [ceps|pitch] ->

@@ -31,16 +31,26 @@ functions.
 
 `reset()` zeroes the state buffers in place: the graph holds their
 addresses, so they are never reallocated.
+
+A tick runs only through `call(stage, unpack)`, from a class's public
+tick method, which records it as spans (utils/logging.py): a root
+`tick` (the class and batch its owner gave the runner, whether a graph
+replays) over `tick.stage` (the caller writes its inputs into the
+staged buffers), `tick.launch` (the copies in, the replay or the eager
+tick, the copy out and the event's record; on the CPU the eager tick),
+`tick.wait` (the event's synchronize; not on the CPU) and `tick.unpack`
+(the row's copy and its split into the caller's result).  The capture
+is the span `tick.capture`.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
 from fpsc_tpu_torch.utils.device import no_tf32
+from fpsc_tpu_torch.utils.logging import span
 
 
 class TickRunner:
@@ -48,8 +58,10 @@ class TickRunner:
     device): eager on the CPU, a replayed CUDA graph on the card."""
 
     def __init__(self, tick: Callable, states: Sequence[torch.Tensor],
-                 inputs: Sequence[torch.Tensor], graph: bool = True):
+                 inputs: Sequence[torch.Tensor], graph: bool = True, *,
+                 owner: str, batch: int):
         self.tick = tick
+        self.owner, self.batch = owner, batch
         self.states: List[torch.Tensor] = list(states)
         self.inputs: List[torch.Tensor] = list(inputs)
         self.device = self.inputs[0].device
@@ -65,7 +77,9 @@ class TickRunner:
         if cuda:
             self._done = torch.cuda.Event()
             if graph:
-                self._capture()
+                with span("tick.capture", cls=owner, batch=batch) as s:
+                    self._capture()
+                self.capture_s = s.seconds
 
     def _step(self):
         """The tick on the static buffers -> (new states, output row).
@@ -81,7 +95,6 @@ class TickRunner:
         return out
 
     def _capture(self):
-        t0 = time.perf_counter()
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -97,30 +110,45 @@ class TickRunner:
         self._host_out = torch.empty(out.shape, dtype=out.dtype,
                                      pin_memory=True)
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
 
     def reset(self):
         for s in self.states:
             s.zero_()
 
-    def run(self) -> np.ndarray:
-        """One tick on the staged inputs (`stage[i]`, written by the
-        caller) -> the packed output row, a host array of its own."""
+    def call(self, stage: Callable[[], None],
+             unpack: Callable[[np.ndarray], object]):
+        """One tick of a class's public method: `stage()` writes the
+        inputs into `stage[i]`, the runner ticks, and `unpack(row)` turns
+        a copy of the output row into the result, each as a span under a
+        root `tick`."""
+        with span("tick", cls=self.owner, batch=self.batch,
+                  graph=self.graph is not None):
+            with span("tick.stage"):
+                stage()
+            row = self._row()
+            with span("tick.unpack"):
+                return unpack(row.copy())
+
+    def _row(self) -> np.ndarray:
+        """One tick -> the output row, which the next tick may
+        overwrite."""
         if self.device.type != "cuda":
-            with torch.no_grad():
-                return self._advance().numpy().copy()
-        for x, h in zip(self.inputs, self.hosts):
-            x.copy_(h, non_blocking=True)
-        if self.graph is not None:
-            self.graph.replay()
-            out = self._out
-        else:
-            with torch.no_grad(), no_tf32():
-                out = self._advance()
-            if self._host_out is None:
-                self._host_out = torch.empty(out.shape, dtype=out.dtype,
-                                             pin_memory=True)
-        self._host_out.copy_(out, non_blocking=True)
-        self._done.record()
-        self._done.synchronize()
-        return self._host_out.numpy().copy()
+            with span("tick.launch"), torch.no_grad():
+                return self._advance().numpy()
+        with span("tick.launch"):
+            for x, h in zip(self.inputs, self.hosts):
+                x.copy_(h, non_blocking=True)
+            if self.graph is not None:
+                self.graph.replay()
+                out = self._out
+            else:
+                with torch.no_grad(), no_tf32():
+                    out = self._advance()
+                if self._host_out is None:
+                    self._host_out = torch.empty(
+                        out.shape, dtype=out.dtype, pin_memory=True)
+            self._host_out.copy_(out, non_blocking=True)
+            self._done.record()
+        with span("tick.wait"):
+            self._done.synchronize()
+        return self._host_out.numpy()

@@ -88,6 +88,7 @@ from fpsc_tpu_torch.models.gru import gate_update
 from fpsc_tpu_torch.models.lpcnet import excitation_cdf, frame_net, round_to
 from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.utils.device import host_array, no_tf32
+from fpsc_tpu_torch.utils.logging import span
 
 SOURCE = "lpcnet_sampler.cu"
 # Embeddings into each further sub-sample's head: bunch=2 [x1, pred2],
@@ -946,17 +947,29 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
 
     CUDA tensors launch the kernels (or raise): the fold of the
     embedding tables from these operands, then the sampler on the same
-    stream.  CPU tensors run sample_plain."""
+    stream.  CPU tensors run sample_plain.
+
+    The fold's launch is the span `sampler.fold` and the sampler's the
+    span `sampler.launch` (utils/logging.py), with its kernel (its
+    launch counter's name, or sample_plain on the CPU), batch, frames,
+    bunch and GRU steps; on the card both hold the host's time to
+    launch, not the kernel's."""
     _check(ops, meta)
     dev = ops.u.device
+    launch = span("sampler.launch", kernel=(
+        "sample_plain" if dev.type == "cpu" else kernel_name(meta)),
+        batch=meta.batch, frames=meta.frames, bunch=meta.bunch,
+        steps=meta.frames * C.FRAME_SIZE // meta.bunch)
     if dev.type == "cpu":
-        return sample_plain(ops, meta, trace=trace)
+        with launch:
+            return sample_plain(ops, meta, trace=trace)
     if dev.type != "cuda":
         raise ValueError(f"the sampler runs on cuda or cpu, not {dev}")
     _check_alignment(ops, meta)
     fn = _library().fpsc_lpcnet_sample
     empty = torch.empty((0,), dtype=torch.float32, device=dev)
-    ta, th = fold_tables(ops, meta)
+    with span("sampler.fold"):
+        ta, th = fold_tables(ops, meta)
     th = empty if th is None else th
     kw = kernel_weights(ops, meta)
     n = meta.frames * C.FRAME_SIZE
@@ -969,7 +982,7 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
         (rb, cb), n_live = meta.block, blocks[1].numel()
         block_ptrs = tuple(x.data_ptr() for x in blocks)
     name = kernel_name(meta)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch:
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.count_launch(name)
         err = fn(int(meta.dtype == torch.bfloat16), meta.bunch,

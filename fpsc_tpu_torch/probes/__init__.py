@@ -19,7 +19,9 @@ launch raises too: no arm is skipped.
 
 Beside them, chain_parts, draw_parts (the draw's and the wide store's
 template instances) and gates_sass and draw_sass (instruction bounds
-from the kernels' SASS) take the probes apart on the card.
+from the kernels' SASS) take the probes apart on the card, and
+span_cost measures what the span recorder (utils/logging.py) costs a
+live duplex tick.
 
 This module holds what the wrappers share: the operand check and the
 launch of a kernel through its plain C interface.

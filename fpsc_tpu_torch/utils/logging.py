@@ -1,19 +1,37 @@
-"""Structured metrics logging, profiler tracing and NaN debugging.
+"""Structured metrics logging, profiler tracing, spans and NaN debugging.
 
 Port of fpsc_tpu/utils/logging.py:17-55: the append-only JSONL metrics
 stream beside the reference-format epoch lines, `torch.profiler` in
 place of jax.profiler, and autograd's anomaly mode in place of
 jax_debug_nans.
+
+Spans are the program's own record of where its host time goes: a
+named interval on the host clock (`time.perf_counter_ns`, the clock of
+`time.perf_counter`), with an id, the id of the span open around it on
+its thread (0 at the top) and attributes (counts and shapes, never
+tensors).  Finished spans go to a ring of the last SPAN_RING, with a
+count of those pushed out of it: `spans()` reads the ring,
+`dropped_spans()` the count, `clear_spans()` empties both, and
+`record_spans(False)` stops the recording (a span still reads the clock
+then, so that `span.seconds` holds).  While a torch.profiler records,
+each span also opens the annotation "fpsc.<name>"
+(`record_function`), so that the spans lie on the kernels' own timeline
+in its trace.  No span is opened inside a function that a CUDA graph
+captures.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class MetricsLogger:
@@ -71,6 +89,97 @@ def profile_trace(log_dir: Optional[str]):
         raise RuntimeError(
             f"the profile under {log_dir} holds no CUDA activity: the "
             "profiler did not trace the card")
+
+
+SPAN_RING = 65536
+
+_ring: collections.deque = collections.deque(maxlen=SPAN_RING)
+_dropped = 0
+_recording = True
+_ids = itertools.count(1)
+_open = threading.local()           # .ids: the open spans' ids, innermost last
+
+
+class span:
+    """A span around a block:
+
+        with span("decode.unpack", utterances=n) as s:
+            ...
+            s.attrs["bytes"] = size
+
+    `begin(t0)` and `end(t1)` (nanoseconds of perf_counter_ns) open and
+    close it at a clock reading the caller took, for spans that follow
+    one another without a gap.  Attributes may be added until it ends."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "t0", "t1", "_note")
+
+    def __init__(self, name: str, **attrs):
+        self.name, self.attrs = name, attrs
+        self.id = self.parent = self.t0 = self.t1 = 0
+        self._note = None
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1 - self.t0) * 1e-9
+
+    def begin(self, t0: int) -> None:
+        self.t0 = t0
+        if not _recording:
+            return
+        ids = getattr(_open, "ids", None)
+        if ids is None:
+            ids = _open.ids = []
+        self.id = next(_ids)
+        self.parent = ids[-1] if ids else 0
+        ids.append(self.id)
+        if _autograd_profiler._is_profiler_enabled:
+            self._note = _autograd_profiler.record_function(
+                "fpsc." + self.name)
+            self._note.__enter__()
+
+    def end(self, t1: int) -> None:
+        global _dropped
+        self.t1 = t1
+        if self._note is not None:
+            self._note.__exit__(None, None, None)
+            self._note = None
+        if not self.id:
+            return
+        _open.ids.remove(self.id)
+        if len(_ring) == SPAN_RING:
+            _dropped += 1
+        _ring.append(self)
+
+    def __enter__(self) -> "span":
+        self.begin(time.perf_counter_ns())
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end(time.perf_counter_ns())
+
+
+def spans() -> List[span]:
+    """The finished spans in the ring, in the order they ended."""
+    return list(_ring)
+
+
+def dropped_spans() -> int:
+    """Spans pushed out of the ring (the oldest go first) since the last
+    `clear_spans()`."""
+    return _dropped
+
+
+def clear_spans() -> None:
+    global _dropped
+    _ring.clear()
+    _dropped = 0
+
+
+def record_spans(on: bool = True) -> bool:
+    """Turn the recording of spans on or off -> whether it was on."""
+    global _recording
+    was, _recording = _recording, bool(on)
+    return was
 
 
 def enable_nan_debugging(enable: bool = True):

@@ -926,11 +926,13 @@ def test_streaming_capture_refuses_a_host_sync(cuda_device, sync):
         return (y[:4],), y[:4]
 
     with pytest.raises(RuntimeError):
-        TickRunner(bad, [state], [x])
-    runner = TickRunner(lambda s, x: ((s + x,), s + x), [state], [x])
+        TickRunner(bad, [state], [x], owner="test", batch=4)
+    runner = TickRunner(lambda s, x: ((s + x,), s + x), [state], [x],
+                        owner="test", batch=4)
     runner.stage[0][...] = 2.0
-    np.testing.assert_array_equal(runner.run(), np.full(4, 2.0))
-    np.testing.assert_array_equal(runner.run(), np.full(4, 4.0))
+    for want in (2.0, 4.0):
+        np.testing.assert_array_equal(
+            runner.call(lambda: None, lambda row: row), np.full(4, want))
 
 
 # Vocoder training on the card: cuDNN's fused GRU against the eager scan,
