@@ -82,7 +82,9 @@ def decode(model: fp.FramePredictor, codebooks: fp.Codebooks,
            ind1: torch.Tensor, ind2: torch.Tensor, indices: Dict,
            pitch: torch.Tensor, pitch_lag: int = 0) -> torch.Tensor:
     """ind1/ind2 (B, L) bool, index streams, pitch (B, L, 2) ->
-    (B, L, 20) normalised coded frames."""
+    (B, L, 20) normalised coded frames.  On the card the closed loop
+    replays the predictor's captured chunks (frame_predictor.decoder;
+    grad mode is off here)."""
     r_qtz = dequantize_residual(codebooks, ind1, ind2, indices)
     return fp.decoder(model, pitch, r_qtz, pitch_lag=pitch_lag)
 

@@ -17,10 +17,12 @@ residuals then pull the loop back.  Policy, as in the JAX module:
     normalised units a frame; the faded frame is what feeds back.
 
 The JAX `lax.scan` is a Python loop over frames here, batched over
-utterances, as models/frame_predictor.py::decoder is; it holds no
-kernel.  With `lost` all False it computes frame_predictor.decoder's
-frames exactly.  `AdaptiveFecPolicy` (fpsc_tpu/codec/plc.py:207-253)
-is the sender's in-band FEC controller of streaming serving.
+utterances, as models/frame_predictor.py::decoder's eager loop is; it
+holds no kernel, and it runs eagerly on the card too, launch by launch,
+where `decoder` replays captured chunks of its loop.  With `lost` all
+False it computes frame_predictor.decoder's frames exactly.
+`AdaptiveFecPolicy` (fpsc_tpu/codec/plc.py:207-253) is the sender's
+in-band FEC controller of streaming serving.
 """
 from __future__ import annotations
 

@@ -8,31 +8,46 @@ quantisation, the learned-mask `mask_forward` / `mask_enc`, and the
 `decoder`.  Each loop is a plain Python loop over frames, batched over
 utterances, with no host synchronisation inside it (no `.item()`, no
 branch on a tensor's value: the `send`, `mask` and `qtz` branches are
-fixed before the loop); it holds no kernel.  The encode passes run
-their products under `no_tf32`.  The loops build an autograd graph when
-the parameters require gradients (`mask_enc` is the predictor trainer's
-mask loss); the encode and decode callers (codec/codec.py,
-codec/plc.py, the streaming ticks, the CLI) run them under
-`torch.no_grad()`.  `forward`'s two `gru_seq` calls run with cuDNN off:
-on the H100 cuDNN's float32 GRU gives the 384-wide GRU's activations to
-6e-6 and, at trained weights, gradients 2e-3 (of each leaf's largest)
-from float64, where PyTorch's own GRU kernels stay within 1e-6 (ROADMAP
-Queue C 15); the sequences are 90 frames, so the per-frame kernels
-cost little.
+fixed before the loop); it holds no kernel of its own.  The encode
+passes run their products under `no_tf32`.  The loops build an autograd
+graph when the parameters require gradients (`mask_enc` is the
+predictor trainer's mask loss); the encode and decode callers
+(codec/codec.py, codec/plc.py, the streaming ticks, the CLI) run them
+under `torch.no_grad()`.
+
+On the card, with grad mode off and no stream capture under way
+(`replays`), `decoder` runs its loop as replays of one captured CUDA
+graph of DECODE_CHUNK frames (`DecodeChunks`): the same ATen and cuBLAS
+kernels on the same float32 operands, captured under `no_tf32`, so the
+coded frames are those of the eager loop bit for bit, with one host
+call a chunk in place of about 35 launches a frame.  Everywhere else
+(the CPU, autograd, a caller inside another capture) the eager loop
+runs; so do the encode loops, `mask_enc` and codec/plc.py's concealment
+loop on every device.
+
+`forward`'s two `gru_seq` calls run with cuDNN off: on the H100 cuDNN's
+float32 GRU gives the 384-wide GRU's activations to 6e-6 and, at
+trained weights, gradients 2e-3 (of each leaf's largest) from float64,
+where PyTorch's own GRU kernels stay within 1e-6 (ROADMAP Queue C 15);
+the sequences are 90 frames, so the per-frame kernels cost little.
 """
 from __future__ import annotations
 
+import collections
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fpsc_tpu_torch.models.common import Dense
 from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_seq, gru_step
 from fpsc_tpu_torch.quant.vq import mbest_search
 from fpsc_tpu_torch.utils.device import no_cudnn, no_tf32
+from fpsc_tpu_torch.utils.logging import span
 
 NB_CEPS = 18
 
@@ -216,22 +231,174 @@ def _lag_pitch(pitch: torch.Tensor, pitch_lag: int) -> torch.Tensor:
                       pitch[:, :-pitch_lag]], dim=1)
 
 
+# The replayed decode: frames a captured chunk, and chunks kept a
+# predictor (each a graph with its private memory pool).
+DECODE_CHUNK = 16
+DECODE_GRAPHS = 4
+
+
+def replays(device: torch.device) -> bool:
+    """Whether `decoder` replays a captured graph for operands on
+    `device`: on the card, with grad mode off and no stream capture
+    under way on the current stream."""
+    return (device.type == "cuda" and not torch.is_grad_enabled()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class DecodeChunks:
+    """`decoder`'s closed loop over chunks of K = DECODE_CHUNK frames on
+    static buffers of one batch: the chunk's input `x` (B, K, 20) =
+    [residual | lagged pitch], the carried `h1`, `h2` and `prev`, and the
+    chunk's coded cepstra `out` (B, K, 18).
+
+    On the card the chunk is run once eagerly on a side stream (a
+    warm-up: cuBLAS's handle and workspace), then captured once as a
+    `torch.cuda.CUDAGraph` under `no_tf32` (the flags are read when a
+    product is captured, not when it is replayed), as
+    codec/ticks.py::TickRunner captures a tick; the capture is the span
+    `predictor.capture` [batch, chunk], and one that fails raises.  The
+    graph reads the parameters at the addresses they had at the capture
+    (an edit in place is followed; `decoder` captures anew for
+    parameters that moved).  On the CPU the chunk runs eagerly, with
+    the same function.  It builds no autograd graph."""
+
+    def __init__(self, model: FramePredictor, batch: int,
+                 like: torch.Tensor):
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+        self.chunk = chunk = DECODE_CHUNK
+        self.x = zeros(batch, chunk, NB_CEPS + 2)
+        self.h1 = zeros(batch, model.rnn1.units)
+        self.h2 = zeros(batch, model.rnn2.units)
+        self.prev = zeros(batch, NB_CEPS)
+        self.out = zeros(batch, chunk, NB_CEPS)
+        self.graph = None
+        if like.is_cuda:
+            with span("predictor.capture", batch=batch, chunk=chunk):
+                self._capture(model)
+
+    def _chunk(self, model: FramePredictor) -> None:
+        """`decoder`'s loop over the chunk in `x` from the carried
+        state: the coded cepstra into `out`, the state carried on."""
+        h1, h2, prev = self.h1, self.h2, self.prev
+        coded = []
+        for k in range(self.chunk):
+            f_out, h1, h2 = step(model, h1, h2, torch.cat(
+                [prev, self.x[:, k, NB_CEPS:]], dim=-1))
+            prev = f_out + self.x[:, k, :NB_CEPS]
+            coded.append(prev)
+        torch.stack(coded, dim=1, out=self.out)
+        for s, new in ((self.h1, h1), (self.h2, h2), (self.prev, prev)):
+            s.copy_(new)
+
+    @torch.no_grad()
+    def _capture(self, model: FramePredictor) -> None:
+        dev = self.x.device
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with no_tf32():
+            with torch.cuda.stream(side):
+                self._chunk(model)              # warm-up, results dropped
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                self._chunk(model)
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+
+    @torch.no_grad()
+    def run(self, model: FramePredictor, x: torch.Tensor) -> torch.Tensor:
+        """x (B, L, 20) [residual | lagged pitch] -> coded cepstra (B, L,
+        18): x padded with zero frames to whole chunks, the chunks in
+        turn from a zero state, the padded frames dropped (the loop is
+        causal, so the first L frames are the unpadded loop's)."""
+        b, length, _ = x.shape
+        k = self.chunk
+        n = -(-length // k)
+        x = F.pad(x, (0, 0, 0, n * k - length))
+        out = x.new_empty((b, n * k, NB_CEPS))
+        for s in (self.h1, self.h2, self.prev):
+            s.zero_()
+        for c in range(n):
+            self.x.copy_(x[:, c * k:(c + 1) * k])
+            if self.graph is None:
+                self._chunk(model)
+            else:
+                self.graph.replay()
+            out[:, c * k:(c + 1) * k].copy_(self.out)
+        return out[:, :length]
+
+
+# device -> the one side stream of every DecodeChunks capture on it:
+# cuBLAS keeps a workspace for each stream it has run on, so a new stream
+# a capture would hold one more workspace each time
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+# predictor -> its DecodeChunks by (batch, device, dtype, the loop's
+# parameter addresses), least recently used first; dropped with it
+_CHUNKS: "weakref.WeakKeyDictionary[FramePredictor, collections.OrderedDict]" \
+    = weakref.WeakKeyDictionary()
+
+
+def _decode_chunks(model: FramePredictor, batch: int,
+                   like: torch.Tensor) -> DecodeChunks:
+    """The predictor's DecodeChunks for this batch and these parameters,
+    made (on the card, captured) at first use; at most DECODE_GRAPHS are
+    kept, the least recently used dropped."""
+    params = [*model.rnn1.parameters(), *model.rnn2.parameters(),
+              *model.fc.parameters()]
+    key = (batch, like.device, like.dtype,
+           tuple(p.data_ptr() for p in params))
+    kept = _CHUNKS.setdefault(model, collections.OrderedDict())
+    if key not in kept:
+        kept[key] = DecodeChunks(model, batch, like)
+        while len(kept) > DECODE_GRAPHS:
+            kept.popitem(last=False)
+    kept.move_to_end(key)
+    return kept[key]
+
+
 def decoder(model: FramePredictor, pitch: torch.Tensor, r: torch.Tensor,
             pitch_lag: int = 0) -> torch.Tensor:
     """Closed-loop decode: pitch (B, L, 2), dequantised residuals
-    r (B, L, 18) -> coded frames (B, L, 20)."""
+    r (B, L, 18) -> coded frames (B, L, 20).
+
+    Where `replays(r.device)`, through the predictor's `DecodeChunks`
+    of this batch; elsewhere as the eager loop below.  Each call is a
+    span `predictor.decoder` [batch, frames; graph: whether a captured
+    graph replayed; chunk: its frames (0 on the eager loop); replays:
+    the chunks run; padded: the zero frames that filled the last]."""
     b, length, _ = pitch.shape
-    h1 = r.new_zeros((b, model.rnn1.units))
-    h2 = r.new_zeros((b, model.rnn2.units))
-    prev = r.new_zeros((b, NB_CEPS))
     pit = _lag_pitch(pitch, pitch_lag)
-    coded = []
-    for t in range(length):
-        f_out, h1, h2 = step(model, h1, h2,
-                             torch.cat([prev, pit[:, t]], dim=-1))
-        prev = f_out + r[:, t]
-        coded.append(prev)
-    return torch.cat([torch.stack(coded, dim=1), pitch], dim=-1)
+    with span("predictor.decoder", batch=b, frames=length) as s:
+        if replays(r.device):
+            chunks = _decode_chunks(model, b, r)
+            coded = chunks.run(model, torch.cat([r, pit], dim=-1))
+            n = -(-length // chunks.chunk)
+            s.attrs.update(graph=chunks.graph is not None,
+                           chunk=chunks.chunk, replays=n,
+                           padded=n * chunks.chunk - length)
+        else:
+            h1 = r.new_zeros((b, model.rnn1.units))
+            h2 = r.new_zeros((b, model.rnn2.units))
+            prev = r.new_zeros((b, NB_CEPS))
+            frames = []
+            for t in range(length):
+                f_out, h1, h2 = step(model, h1, h2,
+                                     torch.cat([prev, pit[:, t]], dim=-1))
+                prev = f_out + r[:, t]
+                frames.append(prev)
+            coded = torch.stack(frames, dim=1)
+            s.attrs.update(graph=False, chunk=0, replays=0, padded=0)
+    return torch.cat([coded, pitch], dim=-1)
 
 
 def encoder(model: FramePredictor, feat: torch.Tensor, l1: float, l2: float,

@@ -935,6 +935,166 @@ def test_streaming_capture_refuses_a_host_sync(cuda_device, sync):
             runner.call(lambda: None, lambda row: row), np.full(4, want))
 
 
+# The feature decode's replayed chunks (models/frame_predictor.py::
+# DecodeChunks) against the eager decoder loop, at full width.
+
+def _decode_operands(device, batch, frames, seed=0):
+    rng = np.random.RandomState(seed)
+    pitch = np.stack([rng.uniform(-1.3, 3.7, (batch, frames)),
+                      rng.uniform(-0.5, 0.5, (batch, frames))], -1)
+    r = rng.randn(batch, frames, 18) * 0.05
+    return (torch.as_tensor(pitch.astype(np.float32), device=device),
+            torch.as_tensor(r.astype(np.float32), device=device))
+
+
+def _decoder_both(model, pitch, r, pitch_lag=0):
+    """(the replayed decode, the eager loop's: grad mode on, which keeps
+    the decoder on its loop; the parameters want no gradient)."""
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    with torch.no_grad():
+        got = fp.decoder(model, pitch, r, pitch_lag=pitch_lag)
+    with torch.enable_grad():
+        want = fp.decoder(model, pitch, r, pitch_lag=pitch_lag)
+    return got, want
+
+
+def _decode_predictor(device):
+    """The flagship predictor (GRU 384 / 128), its head scaled to
+    cepstra of speech size, on `device`, wanting no gradient."""
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    model = fp.FramePredictor(fp.FramePredictorConfig(),
+                              torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.fc.w.mul_(0.05)
+        model.fc.b.mul_(0.05)
+    return model.to(device).requires_grad_(False)
+
+
+def _decoder_spans():
+    from fpsc_tpu_torch.utils import logging as log
+    got = log.spans()
+    return ([s for s in got if s.name == "predictor.capture"],
+            [s for s in got if s.name == "predictor.decoder"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,pitch_lag", [(1, 0), (64, 1)])
+def test_decoder_graph_equals_the_eager_loop(cuda_device, batch,
+                                             pitch_lag):
+    """The replayed chunks give the eager loop's coded frames bit for
+    bit (the same kernels on the same operands), at batch 1 and 64."""
+    from fpsc_tpu_torch.utils import logging as log
+    model = _decode_predictor(cuda_device)
+    pitch, r = _decode_operands(cuda_device, batch, 400, seed=batch)
+    log.clear_spans()
+    got, want = _decoder_both(model, pitch, r, pitch_lag)
+    captures, decoders = _decoder_spans()
+    assert len(captures) == 1
+    assert [s.attrs["graph"] for s in decoders] == [True, False]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_decoder_graph_lengths_share_one_capture(cuda_device):
+    """Two lengths at one batch: one capture serves both, and each gives
+    the eager loop's frames."""
+    from fpsc_tpu_torch.utils import logging as log
+    model = _decode_predictor(cuda_device)
+    log.clear_spans()
+    for frames in (200, 1237):
+        got, want = _decoder_both(
+            model, *_decode_operands(cuda_device, 4, frames, seed=frames))
+        assert torch.equal(got, want), frames
+    captures, decoders = _decoder_spans()
+    assert [s.attrs["batch"] for s in captures] == [4]
+    assert [(s.attrs["frames"], s.attrs["graph"]) for s in decoders] == [
+        (200, True), (200, False), (1237, True), (1237, False)]
+
+
+@pytest.mark.cuda
+def test_decoder_graph_follows_a_weight_edited_in_place(cuda_device):
+    """Weights edited in place after the capture: the graph reads them
+    (no new capture) and gives the eager loop's frames with them."""
+    from fpsc_tpu_torch.utils import logging as log
+    model = _decode_predictor(cuda_device)
+    pitch, r = _decode_operands(cuda_device, 8, 100, seed=3)
+    before, _ = _decoder_both(model, pitch, r)
+    with torch.no_grad():
+        model.rnn1.wh.mul_(0.9)
+        model.fc.b.add_(0.01)
+    log.clear_spans()
+    got, want = _decoder_both(model, pitch, r)
+    assert _decoder_spans()[0] == []
+    assert not torch.equal(got, before)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_decoder_graph_cache_stays_bounded(cuda_device):
+    """A sweep of batch sizes keeps DECODE_GRAPHS chunks, the latest;
+    a second sweep captures each evicted batch anew, and its memory
+    comes back."""
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    from fpsc_tpu_torch.utils import logging as log
+    model = _decode_predictor(cuda_device)
+    batches = list(range(1, fp.DECODE_GRAPHS + 4))
+    log.clear_spans()
+    held = []
+    for sweep in range(2):
+        for b in batches:
+            with torch.no_grad():
+                fp.decoder(model, *_decode_operands(cuda_device, b, 40))
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        assert [key[0] for key in fp._CHUNKS[model]] == \
+            batches[-fp.DECODE_GRAPHS:]
+    assert len(_decoder_spans()[0]) == 2 * len(batches)
+    assert held[1] == held[0]
+
+
+@pytest.mark.cuda
+def test_decoder_inside_a_capture_takes_the_eager_loop(cuda_device):
+    """A decoder call inside the caller's own capture runs the eager loop
+    (no nested capture): the caller's graph replays it to the eager
+    loop's frames."""
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    model = _decode_predictor(cuda_device)
+    pitch, r = _decode_operands(cuda_device, 2, 20, seed=4)
+    _, want = _decoder_both(model, pitch, r)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad():
+        with torch.cuda.stream(side):
+            fp.decoder(model, pitch, r)            # warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(fp._CHUNKS[model])
+        with torch.cuda.graph(graph, stream=side):
+            out = fp.decoder(model, pitch, r)
+    assert dict(fp._CHUNKS[model]) == before
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_decoder_graph_with_tf32_on_gives_the_f32_frames(cuda_device):
+    """Captured with TF32 turned on for matmuls: the graph is captured
+    under no_tf32 and gives the eager loop's frames of TF32 off."""
+    from fpsc_tpu_torch.models import frame_predictor as fp
+    model = _decode_predictor(cuda_device)
+    pitch, r = _decode_operands(cuda_device, 16, 100, seed=5)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = fp.decoder(model, pitch, r)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, want = _decoder_both(model, pitch, r)
+    assert torch.equal(got, want)
+
+
 # Vocoder training on the card: cuDNN's fused GRU against the eager scan,
 # a training step under PyTorch's default settings, and a flagship-width
 # step against the CPU.

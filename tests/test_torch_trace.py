@@ -8,10 +8,13 @@ recorded, and with no profiler none is made.  The program: a decode of
 a two-bucket container on the CPU records its phases under one root and
 one sampler launch a bucket, with the bucket's batch and frames, and
 `timings=` keeps its keys and adds the phases' own seconds; the phases
-synchronise the card only where the caller asked for timings; every
-streaming class's tick records a root with its stage, launch and
-unpack.  Judged by structure, with no timing threshold.  Nothing here
-loads JAX.
+synchronise the card only where the caller asked for timings; each
+bucket's feature decode records one `predictor.decoder` with its batch,
+frames and path (the eager loop, or the chunks with their replays and
+padded frames), and on the card the first call of a batch records its
+`predictor.capture` inside it; every streaming class's tick records a
+root with its stage, launch and unpack.  Judged by structure, with no
+timing threshold.  Nothing here loads JAX.
 """
 import json
 import types
@@ -290,6 +293,67 @@ def test_decode_timings_keep_their_keys_and_read_the_spans(two_buckets):
     for k, v in timings.items():
         assert v == pytest.approx(sum(s.seconds for s in by[f"decode.{k}"]),
                                   rel=1e-12)
+
+
+def test_decode_file_records_one_decoder_span_a_bucket(two_buckets):
+    _, got = _decode(two_buckets)
+    by = _by_name(got)
+    decoders = by["predictor.decoder"]
+    assert len(decoders) == 2
+    for s, phase in zip(decoders, by["decode.feature_decode"]):
+        assert s.parent == phase.id
+        assert s.attrs == {"batch": phase.attrs["batch"],
+                           "frames": phase.attrs["frames"], "graph": False,
+                           "chunk": 0, "replays": 0, "padded": 0}
+    assert "predictor.capture" not in by        # the CPU captures nothing
+
+
+def test_decoder_span_counts_the_chunks_and_their_padding(two_buckets,
+                                                          monkeypatch):
+    """The chunked path on the CPU (its chunks run eagerly there): one
+    replay a whole chunk, the last filled with zero frames."""
+    monkeypatch.setattr(fp, "replays", lambda device: True)
+    _, got = _decode(two_buckets)
+    k = fp.DECODE_CHUNK
+    assert [s.attrs for s in _by_name(got)["predictor.decoder"]] == [
+        {"batch": 2, "frames": 3, "graph": False, "chunk": k,
+         "replays": 1, "padded": k - 3},
+        {"batch": 1, "frames": 4, "graph": False, "chunk": k,
+         "replays": 1, "padded": k - 4}]
+
+
+@pytest.mark.cuda
+def test_on_the_card_a_batch_records_one_capture_then_replays():
+    """Two decoder calls of one batch on the card: the first records the
+    capture inside its own span, the second none; both replay the
+    graph, a chunk at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decoder's graph is captured "
+                    "on the card only")
+    dev = torch.device("cuda")
+    model = fp.FramePredictor(fp.FramePredictorConfig(gru_units1=24,
+                                                      gru_units2=12),
+                              torch.Generator().manual_seed(3)).to(dev)
+    k = fp.DECODE_CHUNK
+    rng = np.random.RandomState(2)
+    log.clear_spans()
+    with torch.no_grad():
+        for frames in (200, 1237):
+            fp.decoder(model, torch.as_tensor(
+                rng.randn(2, frames, 2).astype(np.float32), device=dev),
+                torch.as_tensor(rng.randn(2, frames, 18).astype(np.float32)
+                                * 0.05, device=dev))
+    by = _by_name(log.spans())
+    (capture,) = by["predictor.capture"]
+    first, second = by["predictor.decoder"]
+    assert capture.attrs == {"batch": 2, "chunk": k}
+    assert capture.parent == first.id
+    assert first.t0 <= capture.t0 <= capture.t1 <= first.t1
+    for s, frames in ((first, 200), (second, 1237)):
+        n = -(-frames // k)
+        assert s.attrs == {"batch": 2, "frames": frames, "graph": True,
+                           "chunk": k, "replays": n,
+                           "padded": n * k - frames}
 
 
 # Every streaming class's tick at the small widths of
