@@ -9,7 +9,8 @@
     # decode: .fpsc in, wavs out
     python -m fpsc_tpu_torch.codec.cli decode IN.fpsc OUT_DIR \
         train.transfer_model=<label> codec.codebook_path=cb.npz \
-        train.vocoder_model=<label_s> [key=value ...] [--device=cpu]
+        train.vocoder_model=<label_s> [codec.vocoder=wavenet] \
+        [key=value ...] [--device=cpu]
 
 Port of fpsc_tpu/codec/cli.py.  Encode (`encode_paths`, cli.py:120-253):
 read the wavs (mono, 16 kHz, resampled otherwise) -> the batched
@@ -19,12 +20,17 @@ dequantised pitch, threshold or learned-mask path -> in-band FEC
 requantisation when asked (codec/plc.py::fec_requantize) -> the coders
 -> one container; it writes the bytes JAX's encoder writes.  Decode
 (`decode_file`, cli.py:256-415): unpack the symbols -> closed-loop
-feature decode -> ceps2lpc -> frame-rate prologue -> the CUDA LPCNet
-sampler, bunch=1, 2 or 4 (lpcnet.bunch=2 with for example
+feature decode -> ceps2lpc -> the vocoder of one of two families
+(`codec.vocoder`): `lpcnet`, the default, a frame-rate prologue then the
+CUDA LPCNet sampler, bunch=1, 2 or 4 (lpcnet.bunch=2 with for example
 lpcnet.gru_b_units=32; lpcnet.bunch=4 with lpcnet.gru_b_units=64),
 dense or with GRU_A's block-sparse product where the checkpoint's
-recurrent weights are block-sparse.  Both sides bucket utterances by
-frame count and run each bucket as one batch; a decode bucket of more
+recurrent weights are block-sparse; or `wavenet`, the WaveNet-with-LPC
+vocoder that train/train_all.py trains on the predictor's coded
+features (at `wavenet.*`'s widths; its checkpoint `<label>_s`): the
+upsampler, then generation replayed as captured chunks of sample steps
+on the card (models/wavenet.py::generate).  Both sides bucket utterances
+by frame count and run each bucket as one batch; a decode bucket of more
 than 128 utterances takes the sampler's cdf_matmul form, as the JAX
 decoder does.
 
@@ -64,12 +70,14 @@ from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.ceps2lpc import ceps2lpc
 from fpsc_tpu_torch.dsp.frontend import extract_features_batch
 from fpsc_tpu_torch.eval.stoi import resample_poly
+from fpsc_tpu_torch.models import wavenet as wn
 from fpsc_tpu_torch.models.frame_predictor import codebook_sizes
 from fpsc_tpu_torch.models.lpcnet import LPCNetConfig
 from fpsc_tpu_torch.models.lpcnet_bunched import VOCODERS
 from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train.train_frame import load_predictor
+from fpsc_tpu_torch.train.train_vocoder import model_config
 from fpsc_tpu_torch.utils.device import resolve_device, split_device_arg
 from fpsc_tpu_torch.utils.logging import span
 
@@ -113,24 +121,35 @@ def load_artifacts(cfg: Config, need_vocoder: bool = False, device=None):
 
 
 def load_vocoder(cfg: Config, device):
-    """LPCNet for lpcnet.bunch=1, BunchedLPCNet for 2, Bunched4LPCNet
-    for 4."""
-    bunch = cfg.lpcnet.bunch
-    if bunch not in VOCODERS:
-        raise ValueError(f"lpcnet.bunch={bunch}: the sampler runs "
-                         "bunch=1, bunch=2 and bunch=4 vocoders only")
-    lcfg = LPCNetConfig(
-        gru_a_units=cfg.lpcnet.gru_a_units,
-        gru_b_units=cfg.lpcnet.gru_b_units,
-        embed_dim=cfg.lpcnet.embed_dim,
-        cond_units=cfg.lpcnet.cond_units)
+    """The vocoder of cfg.codec.vocoder's family: for `lpcnet`, LPCNet
+    for lpcnet.bunch=1, BunchedLPCNet for 2, Bunched4LPCNet for 4; for
+    `wavenet`, the WaveNet-with-LPC vocoder at cfg.wavenet's widths.
+    Seeded random, or restored from train.vocoder_model."""
+    family = cfg.codec.vocoder
     gen = torch.Generator().manual_seed(cfg.train.seed + 2)
-    vocoder = VOCODERS[bunch](lcfg, gen)
+    if family == "wavenet":
+        vocoder, what = wn.Wavenet(model_config(cfg), gen), "WaveNet vocoder"
+    elif family == "lpcnet":
+        bunch = cfg.lpcnet.bunch
+        if bunch not in VOCODERS:
+            raise ValueError(
+                f"lpcnet.bunch={bunch}: the sampler runs bunch=1, bunch=2 "
+                "and bunch=4 LPCNets only (codec.vocoder=wavenet decodes "
+                "with the WaveNet-with-LPC vocoder instead)")
+        lcfg = LPCNetConfig(
+            gru_a_units=cfg.lpcnet.gru_a_units,
+            gru_b_units=cfg.lpcnet.gru_b_units,
+            embed_dim=cfg.lpcnet.embed_dim,
+            cond_units=cfg.lpcnet.cond_units)
+        vocoder, what = VOCODERS[bunch](lcfg, gen), f"vocoder (bunch={bunch})"
+    else:
+        raise ValueError(f"codec.vocoder={family!r}: the decoder's vocoder "
+                         "families are lpcnet, wavenet")
     if cfg.train.vocoder_model:
         payload = ckpt.load(ckpt.checkpoint_path(
             cfg.train.save_dir, cfg.train.vocoder_model,
             cfg.train.vocoder_epoch))
-        ckpt.restore(vocoder, payload, f"vocoder (bunch={bunch})")
+        ckpt.restore(vocoder, payload, what)
     return vocoder.to(device)
 
 
@@ -366,10 +385,18 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     sampler works in bf16 on the card and in f32 on the CPU, as the
     JAX decoder's Pallas and XLA samplers do.
 
+    With cfg.codec.vocoder=wavenet each bucket is voiced by the WaveNet:
+    its coded features and periods as train/train_all.py feeds them,
+    each frame's LPC held over its samples, the upsampler, then
+    `wavenet.generate` in float32 with TF32 off.  Its eps (samples,
+    batch) come from `torch.randn` of a torch.Generator on the device
+    seeded with 0 a bucket, so that a caller can draw them again.
+
     The phases (unpack, then for each bucket feature_decode, ceps2lpc,
-    prologue and sampler, then write) are spans `decode.<phase>` under a
-    span `decode`; `timings`, when given, collects their wall seconds,
-    the device synchronised at each boundary.
+    prologue and sampler, or with the WaveNet prologue and wavenet, then
+    write) are spans `decode.<phase>` under a span `decode`; `timings`,
+    when given, collects their wall seconds, the device synchronised at
+    each boundary.
     """
     dev = resolve_device(device)
     with _Phases("decode", timings, dev) as phases:
@@ -473,15 +500,19 @@ def _decode_file(cfg: Config, in_path: str, out_dir: str, artifacts,
         _, lpc, _ = ceps2lpc(coded_un.reshape(-1, 20)[:, :18])
         lpc = lpc.reshape(coded_un.shape[0], -1, 16)
         phases.begin("prologue")
-        if uniforms is None:
-            gen = torch.Generator(device=dev).manual_seed(0)
-            u = torch.rand((n_frames, len(names), C.FRAME_SIZE),
-                           generator=gen, device=dev)
+        if cfg.codec.vocoder == "wavenet":
+            y = _synthesize_wavenet(vocoder, coded, periods, lpc, phases)
         else:
-            u = torch.as_tensor(np.asarray(uniforms(n_frames, len(names))),
-                                dtype=torch.float32, device=dev)
-        y = _synthesize(vocoder, coded, periods, lpc, coded_un[..., 19], u,
-                        sampler_dtype, phases)
+            if uniforms is None:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                u = torch.rand((n_frames, len(names), C.FRAME_SIZE),
+                               generator=gen, device=dev)
+            else:
+                u = torch.as_tensor(
+                    np.asarray(uniforms(n_frames, len(names))),
+                    dtype=torch.float32, device=dev)
+            y = _synthesize(vocoder, coded, periods, lpc, coded_un[..., 19],
+                            u, sampler_dtype, phases)
         # this bucket's copies to the host count to the phase after
         phases.begin("feature_decode" if b + 1 < len(buckets) else "write")
         coded, lpc, y = (x.cpu().numpy() for x in (coded, lpc, y))
@@ -513,6 +544,25 @@ def _synthesize(vocoder, coded, periods, lpc, corr, u,
         gru_a_pattern=lpcnet_sampler.auto_block_pattern(vocoder))
     phases.begin("sampler")
     return lpcnet_sampler.sample(ops, meta)
+
+
+def _synthesize_wavenet(vocoder: wn.Wavenet, coded, periods, lpc,
+                        phases: _Phases) -> torch.Tensor:
+    """The WaveNet-with-LPC vocoder on the NORMALISED coded features
+    (B, L, 20) and the periods, as train/train_all.py trains it: each
+    frame's LPC held over its samples, the eps drawn, the upsampler and
+    the shifted conditioning (phase prologue), then generation (phase
+    wavenet) -> (B, L * 160) de-emphasised audio."""
+    dev = coded.device
+    b, length, _ = coded.shape
+    samples = length * C.FRAME_SIZE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    e = torch.randn((samples, b), generator=gen, device=dev)
+    cond, lpc_rev = wn.step_inputs(vocoder, vocoder.cfg,
+                                   coded.transpose(1, 2), periods,
+                                   wn.sample_lpc(lpc))
+    phases.begin("wavenet")
+    return wn.generate(vocoder, cond, lpc_rev, e)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

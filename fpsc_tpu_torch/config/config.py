@@ -85,6 +85,10 @@ class CodecConfig:
     # conceal via codec/plc.  Only meaningful on packetized streams.
     sim_drop: float = 0.0
     sim_seed: int = 0
+    # The decoder's vocoder family: "lpcnet" (the sampler kernel, at
+    # cfg.lpcnet's widths) or "wavenet" (the WaveNet-with-LPC vocoder of
+    # train_all, at cfg.wavenet's widths).
+    vocoder: str = "lpcnet"
 
 
 @dataclass

@@ -46,7 +46,8 @@ from torch import nn
 from fpsc_tpu_torch.models.common import Dense
 from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_seq, gru_step
 from fpsc_tpu_torch.quant.vq import mbest_search
-from fpsc_tpu_torch.utils.device import no_cudnn, no_tf32
+from fpsc_tpu_torch.utils.device import (capture_stream, no_cudnn, no_tf32,
+                                         replays)
 from fpsc_tpu_torch.utils.logging import span
 
 NB_CEPS = 18
@@ -237,14 +238,6 @@ DECODE_CHUNK = 16
 DECODE_GRAPHS = 4
 
 
-def replays(device: torch.device) -> bool:
-    """Whether `decoder` replays a captured graph for operands on
-    `device`: on the card, with grad mode off and no stream capture
-    under way on the current stream."""
-    return (device.type == "cuda" and not torch.is_grad_enabled()
-            and not torch.cuda.is_current_stream_capturing())
-
-
 class DecodeChunks:
     """`decoder`'s closed loop over chunks of K = DECODE_CHUNK frames on
     static buffers of one batch: the chunk's input `x` (B, K, 20) =
@@ -295,7 +288,7 @@ class DecodeChunks:
     @torch.no_grad()
     def _capture(self, model: FramePredictor) -> None:
         dev = self.x.device
-        side = _capture_stream(dev)
+        side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with no_tf32():
             with torch.cuda.stream(side):
@@ -328,18 +321,6 @@ class DecodeChunks:
                 self.graph.replay()
             out[:, c * k:(c + 1) * k].copy_(self.out)
         return out[:, :length]
-
-
-# device -> the one side stream of every DecodeChunks capture on it:
-# cuBLAS keeps a workspace for each stream it has run on, so a new stream
-# a capture would hold one more workspace each time
-_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-
-
-def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
-    if device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return _CAPTURE_STREAMS[device]
 
 
 # predictor -> its DecodeChunks by (batch, device, dtype, the loop's

@@ -24,16 +24,19 @@ and the config.  `forward` and `generate_lpc` run under
 their inputs to TF32 by PyTorch's default.
 
 `generate_lpc` runs JAX's ring-buffer recurrence (wavenet.py:258-342)
-as a Python loop of eager steps: the weight-normalised weights are
-computed once a call, each layer's conditioning term for a block of
-samples in one product before the steps, and each layer
-keeps its past inputs in a preallocated ring of dilation + 1 rows that
-the step writes in place.  About 200 small launches a sample: it is
-bound by the host.
+through `generate` and its `GenerateChunks`: the weight-normalised
+weights copied once a call into static buffers, each layer's
+conditioning term for a block of samples in one product, each layer's
+past inputs in a ring of dilation + 1 rows indexed by a position kept on
+the device, so that a chunk of 128 sample steps (about 220 small
+kernels a step) is captured once as a CUDA graph on the card and
+replayed chunk after chunk (codec/cli.py::decode_file's WaveNet path,
+train/synthesis.py); on the CPU the same chunk runs eagerly.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -42,11 +45,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from fpsc_tpu_torch.dsp import constants as C
+from fpsc_tpu_torch.dsp.emphasis import PREEMPH
 from fpsc_tpu_torch.models.common import Dense, Embedding
-from fpsc_tpu_torch.utils.device import no_tf32
+from fpsc_tpu_torch.utils.device import capture_stream, no_tf32, replays
+from fpsc_tpu_torch.utils.logging import span
 
 SQRT_HALF = math.sqrt(0.5)
-# samples of conditioning projected at once by generate_lpc
+# samples of conditioning projected at once by generation
 COND_BLOCK = 2048
 
 
@@ -280,95 +285,319 @@ def _step_weights(p: ResBlock):
 @torch.no_grad()
 def generate_lpc(model: Wavenet, cfg: WavenetConfig, feat: torch.Tensor,
                  periods: torch.Tensor, lpc_sample: torch.Tensor,
-                 deemphasis: float = 0.85,
+                 deemphasis: float = PREEMPH,
                  generator: Optional[torch.Generator] = None,
                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Autoregressive synthesis with LPC prediction (the reference's
-    wavenet.py:137-193, without its per-sample full recompute).
+    wavenet.py:137-193, without its per-sample full recompute):
+    `step_inputs`, then `generate`.
 
     feat: (B, cin, L) frame features; periods: (B, L); lpc_sample:
     (B, T, 16) per-sample LPC, T = L * 160.  eps: (T, B) standard normal
     draws (JAX's `jax.random.normal(key, (T, B))`), else drawn on the
     host from generator (None: PyTorch's default generator), so that
-    every device gets the same draws.  Returns (B, T) de-emphasised
-    audio.
+    every device gets the same draws.  Returns (B, T) audio,
+    de-emphasised at `deemphasis`.
 
     Sample t conditions on cond[t - 1] (the training pairs of the
     reference's train.py:137-139; JAX's `cond_shift`), not the
     reference generator's cond[t].
     """
-    if cfg.inp_channels != 1 or cfg.kernel_size != 2:
-        raise ValueError(
-            f"generate_lpc feeds back one input channel through kernel-2 "
-            f"layers (wavenet.inp_channels={cfg.inp_channels}, "
-            f"wavenet.kernel_size={cfg.kernel_size})")
+    _check_generation(cfg)
     dev = feat.device
     b, length = feat.shape[0], feat.shape[-1]
     t_total = length * C.FRAME_SIZE
     if eps is None:
         eps = torch.randn((t_total, b), generator=generator)
     eps = torch.as_tensor(eps, dtype=torch.float32).to(dev)
-    if tuple(eps.shape) != (t_total, b):
-        raise ValueError(f"eps has shape {tuple(eps.shape)}, not "
-                         f"{(t_total, b)}")
+    cond, lpc = step_inputs(model, cfg, feat, periods, lpc_sample)
+    return generate(model, cond, lpc, eps, deemphasis)
+
+
+def sample_lpc(lpc: torch.Tensor) -> torch.Tensor:
+    """Per-frame LPC (B, L, 16) -> per-sample (B, L * 160, 16): each
+    frame's coefficients held over its 160 samples."""
+    return lpc.repeat_interleave(C.FRAME_SIZE, dim=1)
+
+
+def step_inputs(model: Wavenet, cfg: WavenetConfig, feat: torch.Tensor,
+                periods: torch.Tensor, lpc_sample: torch.Tensor):
+    """The per-sample operands of generation's steps: the shifted
+    conditioning (T, B, cout), from the upsampler, and the LPC reversed
+    into the history's order (T, B, 16), a view of lpc_sample."""
+    t_total = feat.shape[-1] * C.FRAME_SIZE
     with no_tf32():
         cond = _shifted_cond(model, cfg, feat, periods)
-        cond = cond.permute(2, 0, 1).contiguous()           # (T, B, cout)
-        lpc = lpc_sample[:, :t_total].flip(-1).transpose(0, 1)  # (T, B, 16)
-        return _generate_steps(model, cfg, cond, lpc, eps, deemphasis)
+    cond = cond.permute(2, 0, 1).contiguous()
+    return cond, lpc_sample[:, :t_total].flip(-1).transpose(0, 1)
 
 
-def _generate_steps(model: Wavenet, cfg: WavenetConfig, cond, lpc, eps,
-                    deemphasis: float) -> torch.Tensor:
-    t_total, b, _ = cond.shape
-    dev = cond.device
-    dils = dilations(cfg)
-    rc, gc = cfg.residual_channels, cfg.gate_channels
-    k = cfg.front_kernel
-    layers = [_step_weights(p) for p in model.blocks]
-    front_w = wn_weight(model.front)[:, 0, :].T.contiguous()   # (K, rc)
-    front_b = model.front.b
-    f1 = wn_weight(model.final1)[:, :, 0].T.contiguous()
-    f2 = wn_weight(model.final2)[:, :, 0].T.contiguous()
-    # x[t] at row t + lead: the front window x[t-K .. t-1] and the LPC
-    # history x[t-16 .. t-1] are views of it
-    lead = max(k, C.LPC_ORDER)
-    xbuf = torch.zeros((t_total + lead, b), device=dev)
-    # layer i's input h[t] at ring row t % (d + 1); h[t - d] is row
-    # (t + 1) % (d + 1)
-    rings = [torch.zeros((d + 1, b, rc), device=dev) for d in dils]
-    ys = torch.zeros((t_total + 1, b), device=dev)
-    for t0 in range(0, t_total, COND_BLOCK):
-        t1 = min(t0 + COND_BLOCK, t_total)
-        cproj = [torch.addmm(cb, cond[t0:t1].reshape(-1, cond.shape[-1]),
-                             cw).reshape(t1 - t0, b, 2 * gc)
-                 for _, _, cw, cb, _, _, _ in layers]
-        for t in range(t0, t1):
-            hist = xbuf[t + lead - C.LPC_ORDER:t + lead]       # (16, B)
-            pred = -torch.sum(hist.T * lpc[t], dim=-1)
-            window = xbuf[t + lead - k:t + lead].T            # (B, K)
+def _check_generation(cfg: WavenetConfig) -> None:
+    if cfg.inp_channels != 1 or cfg.kernel_size != 2:
+        raise ValueError(
+            f"generation feeds back one input channel through kernel-2 "
+            f"layers (wavenet.inp_channels={cfg.inp_channels}, "
+            f"wavenet.kernel_size={cfg.kernel_size})")
+
+
+# --------------------------------------------------------------------------
+# Generation as chunks of sample steps, replayed from a captured graph
+# --------------------------------------------------------------------------
+
+# Sample steps a chunk: a divisor of COND_BLOCK, so that no chunk
+# straddles two projected blocks of conditioning.
+WAVENET_CHUNK = 128
+
+
+class GenerateChunks:
+    """Generation's loop over chunks of K = WAVENET_CHUNK sample steps on
+    static buffers of `rows` rows of the batch: the layers' rings, one
+    flat buffer of (d + 1) rows a layer (layer i's input h[t] at row
+    base_i + t % (d_i + 1); h[t - d] is row base_i + (t + 1) % (d_i +
+    1)); the signal x[t - lead .. t + K) (the front window and the LPC
+    history); the chunk's eps (K, rows) and LPC reversed into the
+    history's order (K, rows, 16); a block of COND_BLOCK samples of every
+    layer's conditioning projection (n, block, rows, 2 gc), the
+    conditioning's product computed for a block at once; the output
+    y[t - 1 .. t + K), de-emphasised at `deemphasis`; the step's
+    weights; and the position t, on the device.
+
+    Each step reads its ring rows and its row of the projection by index
+    arithmetic on the position, so one captured chunk serves every chunk
+    of a call: nothing of the position is baked into it.  A step sums
+    the dilated taps' products, then adds the conditioning term, as
+    JAX's step does.
+
+    On the card the chunk is run once eagerly on a side stream (a
+    warm-up), then captured once as a `torch.cuda.CUDAGraph` under
+    `no_tf32`, as models/frame_predictor.py::DecodeChunks captures its
+    chunk; the capture is the span `wavenet.capture` [batch, chunk], and
+    one that fails raises.  On the CPU the chunk runs eagerly, with the
+    same function, as it does on the card without `capture`.  `run`
+    copies the WaveNet's step weights into the static buffers first, so
+    an edited or moved module is followed."""
+
+    def __init__(self, model: Wavenet, rows: int, device: torch.device,
+                 deemphasis: float = PREEMPH, capture: bool = True):
+        cfg = model.cfg
+        _check_generation(cfg)
+        chunk = WAVENET_CHUNK
+        if COND_BLOCK % chunk:
+            raise ValueError(f"a chunk of {chunk} steps does not divide "
+                             f"COND_BLOCK={COND_BLOCK}")
+        dev = torch.device(device)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        dils = dilations(cfg)
+        ring_rows = [d + 1 for d in dils]
+        rc, gc = cfg.residual_channels, cfg.gate_channels
+        self.rows, self.device, self.deemphasis = rows, dev, deemphasis
+        self.chunk = chunk
+        self.lead = max(cfg.front_kernel, C.LPC_ORDER)
+        self.mod = torch.tensor(ring_rows, dtype=torch.long, device=dev)
+        self.base = torch.tensor(
+            [sum(ring_rows[:i]) for i in range(len(dils))], dtype=torch.long,
+            device=dev)
+        self.pos = zeros(dtype=torch.long)
+        self.rings = zeros(sum(ring_rows), rows, rc)
+        self.hs = zeros(len(dils), rows, rc)       # a step's layer inputs
+        self.x = zeros(self.lead + chunk, rows)
+        self.y = zeros(chunk + 1, rows)
+        self.eps = zeros(chunk, rows)
+        self.lpc = zeros(chunk, rows, C.LPC_ORDER)
+        self.cond = zeros(len(dils), COND_BLOCK, rows, 2 * gc)
+        self.layers = [tuple(torch.empty_like(w) for w in _step_weights(p))
+                       for p in model.blocks]
+        self.front = (zeros(cfg.front_kernel, rc), zeros(rc))
+        self.finals = tuple(torch.empty_like(w) for w in (
+            model.final1.b, model.final2.b, *_final_weights(model)))
+        self.load(model)
+        self.graph = None
+        if capture and dev.type == "cuda":
+            with span("wavenet.capture", batch=rows, chunk=chunk):
+                self._capture()
+
+    @torch.no_grad()
+    def load(self, model: Wavenet) -> None:
+        """The WaveNet's step weights into the static buffers."""
+        for dst, p in zip(self.layers, model.blocks):
+            for d, s in zip(dst, _step_weights(p)):
+                d.copy_(s)
+        self.front[0].copy_(wn_weight(model.front)[:, 0, :].T)
+        self.front[1].copy_(model.front.b)
+        for d, s in zip(self.finals, (model.final1.b, model.final2.b,
+                                      *_final_weights(model))):
+            d.copy_(s)
+
+    def _chunk(self) -> None:
+        """K sample steps from the carried state: the de-emphasised
+        samples into y[1:], the state and the position carried on."""
+        k_front, lead, chunk = self.front[0].shape[0], self.lead, self.chunk
+        gc = self.cond.shape[-1] // 2
+        rc = self.rings.shape[-1]
+        front_w, front_b = self.front
+        f1_b, f2_b, f1, f2 = self.finals
+        n = len(self.layers)
+        for k in range(chunk):
+            t = self.pos
+            now = torch.remainder(t, self.mod).add_(self.base)
+            past = self.rings.index_select(
+                0, torch.remainder(t + 1, self.mod).add_(self.base))
+            crow = self.cond.index_select(
+                1, torch.remainder(t, COND_BLOCK).view(1))[:, 0]
+            hist = self.x[k + lead - C.LPC_ORDER:k + lead]
+            pred = -torch.sum(hist.T * self.lpc[k], dim=-1)
+            window = self.x[k + lead - k_front:k + lead].T
             torch.clamp(torch.addmm(front_b, window, front_w), min=0.0,
-                        out=rings[0][t % (dils[0] + 1)])
+                        out=self.hs[0])
             skip = None
             for i, (past_w, now_w, _, _, conv_b, rs_w, rs_b) in enumerate(
-                    layers):
-                d = dils[i]
-                h = rings[i][t % (d + 1)]
-                past = rings[i][(t + 1) % (d + 1)]
-                pre = torch.addmm(conv_b, past, past_w).addmm_(h, now_w)
-                pre += cproj[i][t - t0]
+                    self.layers):
+                h = self.hs[i]
+                pre = torch.addmm(conv_b, past[i], past_w).addmm_(h, now_w)
+                pre += crow[i]
                 out = torch.tanh(pre[:, :gc]) * torch.sigmoid(pre[:, gc:])
                 rs = torch.addmm(rs_b, out, rs_w)
                 skip = rs[:, rc:] if skip is None else skip + rs[:, rc:]
-                if i + 1 < len(layers):
-                    nd = dils[i + 1]
-                    torch.mul(h + rs[:, :rc], SQRT_HALF,
-                              out=rings[i + 1][t % (nd + 1)])
-            out = torch.relu(torch.addmm(model.final1.b, torch.relu(skip),
-                                         f1))
-            dist = torch.addmm(model.final2.b, out, f2)        # (B, 2)
-            exc = dist[:, 0] + torch.exp(dist[:, 1]) * eps[t]
-            torch.add(exc, pred, out=xbuf[t + lead])
-            torch.add(xbuf[t + lead], ys[t], alpha=deemphasis,
-                      out=ys[t + 1])
-    return ys[1:].T.contiguous()
+                if i + 1 < n:
+                    torch.mul(h + rs[:, :rc], SQRT_HALF, out=self.hs[i + 1])
+            self.rings.index_copy_(0, now, self.hs)
+            out = torch.relu(torch.addmm(f1_b, torch.relu(skip), f1))
+            dist = torch.addmm(f2_b, out, f2)
+            exc = dist[:, 0] + torch.exp(dist[:, 1]) * self.eps[k]
+            torch.add(exc, pred, out=self.x[k + lead])
+            torch.add(self.x[k + lead], self.y[k], alpha=self.deemphasis,
+                      out=self.y[k + 1])
+            self.pos += 1
+        self.x[:lead].copy_(self.x[chunk:].clone())
+        self.y[0].copy_(self.y[chunk])
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        dev = self.x.device
+        side = capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with no_tf32():
+            with torch.cuda.stream(side):
+                self._chunk()                   # warm-up, results dropped
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                self._chunk()
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+
+    def _project(self, cond: torch.Tensor) -> None:
+        """Every layer's conditioning term of the samples `cond` (n, b,
+        cout), one product a layer, into the block's first n samples and
+        b rows (the rows past b zeroed)."""
+        n, b, _ = cond.shape
+        flat = cond.reshape(n * b, -1)
+        if b < self.rows:
+            self.cond[:, :n, b:].zero_()
+        for i, (_, _, cw, cb, _, _, _) in enumerate(self.layers):
+            if b == self.rows:
+                torch.addmm(cb, flat, cw, out=self.cond[i, :n].view(n * b,
+                                                                   -1))
+            else:
+                self.cond[i, :n, :b].copy_(
+                    torch.addmm(cb, flat, cw).view(n, b, -1))
+
+    @torch.no_grad()
+    def run(self, model: Wavenet, cond: torch.Tensor, lpc: torch.Tensor,
+            eps: torch.Tensor) -> torch.Tensor:
+        """cond (T, b, cout) and lpc (T, b, 16) as `step_inputs` gives
+        them, eps (T, b), b <= rows -> (b, T) de-emphasised audio: the
+        steps padded with zero eps, LPC and conditioning to whole chunks
+        and to `rows` rows, the chunks in turn from a zero state, each
+        block of COND_BLOCK samples projected before its first chunk, the
+        padding dropped (generation is causal, and its rows do not mix,
+        so the first T samples of the first b rows are the unpadded
+        loop's)."""
+        t_total, b, _ = cond.shape
+        if b > self.rows:
+            raise ValueError(f"a batch of {b} is wider than the chunks' "
+                             f"{self.rows} rows")
+        k = self.chunk
+        n = -(-t_total // k)
+        with no_tf32():
+            self.load(model)
+            for s in (self.pos, self.rings, self.x, self.y):
+                s.zero_()
+            out = cond.new_empty((n * k, b))
+            for c in range(n):
+                t0 = c * k
+                if t0 % COND_BLOCK == 0:
+                    self._project(cond[t0:t0 + COND_BLOCK])
+                m = min(k, t_total - t0)
+                for dst, src in ((self.eps, eps), (self.lpc, lpc)):
+                    if m < k or b < self.rows:
+                        dst.zero_()
+                    dst[:m, :b].copy_(src[t0:t0 + m])
+                if self.graph is None:
+                    self._chunk()
+                else:
+                    self.graph.replay()
+                out[t0:t0 + k].copy_(self.y[1:, :b])
+        return out[:t_total].T.contiguous()
+
+
+def _final_weights(model: Wavenet):
+    """final1's and final2's product matrices (skip, skip), (skip, out)."""
+    return (wn_weight(model.final1)[:, :, 0].T.contiguous(),
+            wn_weight(model.final2)[:, :, 0].T.contiguous())
+
+
+# WaveNet -> the GenerateChunks it keeps captured; dropped with it
+_CHUNKS: "weakref.WeakKeyDictionary[Wavenet, GenerateChunks]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _generate_chunks(model: Wavenet, batch: int, device: torch.device,
+                     deemphasis: float) -> GenerateChunks:
+    """Where `replays(device)`, the one GenerateChunks the WaveNet keeps,
+    captured at the widest batch it has run: a narrower bucket runs in
+    its rows, padded; a wider one, or another device or de-emphasis,
+    captures anew in its place.  (A graph kept a batch size would hold a
+    block of projected conditioning each, 5.4 GB at batch 64 and the
+    published widths, and recapture whenever the sizes outnumbered the
+    graphs kept.)  Elsewhere a GenerateChunks of this batch, run
+    eagerly and not kept."""
+    if not replays(device):
+        return GenerateChunks(model, batch, device, deemphasis,
+                              capture=False)
+    kept = _CHUNKS.get(model)
+    if (kept is None or kept.rows < batch or kept.device != device
+            or kept.deemphasis != deemphasis):
+        kept = _CHUNKS.pop(model, None)     # its memory freed first
+        del kept
+        _CHUNKS[model] = GenerateChunks(model, batch, device, deemphasis)
+    return _CHUNKS[model]
+
+
+@torch.no_grad()
+def generate(model: Wavenet, cond: torch.Tensor, lpc: torch.Tensor,
+             eps: torch.Tensor, deemphasis: float = PREEMPH) -> torch.Tensor:
+    """Generation's steps on `step_inputs`' operands through a
+    GenerateChunks: cond (T, B, cout), lpc (T, B, 16), eps (T, B)
+    standard normal -> (B, T) audio, de-emphasised at `deemphasis`.  On
+    the card, outside another stream capture, the chunks replay the
+    WaveNet's captured graph; elsewhere they run eagerly.  The call is a
+    span `wavenet.generate` [batch, samples; rows: the batch the chunks
+    ran, padding included; chunk: their steps; replays: the chunks run;
+    padded: the steps past the end of the last; graph: whether a
+    captured graph replayed]."""
+    t_total, b, _ = cond.shape
+    if tuple(eps.shape) != (t_total, b):
+        raise ValueError(f"eps has shape {tuple(eps.shape)}, not "
+                         f"{(t_total, b)}")
+    with span("wavenet.generate", batch=b, samples=t_total) as s:
+        chunks = _generate_chunks(model, b, cond.device, deemphasis)
+        y = chunks.run(model, cond, lpc, eps)
+        n = -(-t_total // chunks.chunk)
+        s.attrs.update(graph=chunks.graph is not None, rows=chunks.rows,
+                       chunk=chunks.chunk, replays=n,
+                       padded=n * chunks.chunk - t_total)
+    return y

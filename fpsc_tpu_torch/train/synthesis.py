@@ -3,8 +3,9 @@
 Port of fpsc_tpu/train/synthesis.py:42-79 (the reference's
 src/synthesis.py): a vocoder checkpoint (or the seeded WaveNet), each
 validation utterance's features, periods and per-sample LPC through
-`wavenet.generate_lpc`, and two 16-bit wavs an utterance,
-`<name>_truth.wav` (the de-emphasised input) and `<name>_xout.wav`.
+`wavenet.generate_lpc` (replayed chunks of sample steps on the card),
+and two 16-bit wavs an utterance, `<name>_truth.wav` (the
+de-emphasised input) and `<name>_xout.wav`.
 The eps of utterance ns come from torch.Generator().manual_seed(ns) (JAX:
 PRNGKey(ns)), or from `eps(samples, 1)`, called once an utterance in
 order.
@@ -25,7 +26,6 @@ import torch
 from fpsc_tpu_torch.codec.cli import save_wav
 from fpsc_tpu_torch.config.config import Config, parse_cli
 from fpsc_tpu_torch.data.dataset import build_dataset
-from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.emphasis import deemphasis
 from fpsc_tpu_torch.models import wavenet as wn
 from fpsc_tpu_torch.train import checkpoint as ckpt
@@ -57,7 +57,7 @@ def run(cfg: Config, num_samples: int = 2, out_dir: Optional[str] = None,
             break
         arrs = {k: torch.as_tensor(v, device=dev) for k, v in
                 vocoder_inputs(batch, cfg.data.normalize).items()}
-        lpc_sample = arrs["lpc"].repeat_interleave(C.FRAME_SIZE, dim=1)
+        lpc_sample = wn.sample_lpc(arrs["lpc"])
         t = lpc_sample.shape[1]
         y = wn.generate_lpc(
             model, mcfg, arrs["feat"].transpose(1, 2), arrs["periods"],

@@ -102,3 +102,24 @@ def no_cudnn():
         yield
     finally:
         torch.backends.cudnn.enabled = enabled
+
+
+def replays(device: torch.device) -> bool:
+    """Whether a model's chunked loop (frame_predictor.DecodeChunks,
+    wavenet.GenerateChunks) replays a captured graph for operands on
+    `device`: on the card, with grad mode off and no stream capture
+    under way on the current stream."""
+    return (device.type == "cuda" and not torch.is_grad_enabled()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+# device -> the one side stream of every chunk capture on it: cuBLAS
+# keeps a workspace for each stream it has run on, so a new stream a
+# capture would hold one more workspace each time
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]

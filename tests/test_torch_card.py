@@ -1636,3 +1636,169 @@ def test_world_one_nccl_step_equals_the_plain_step(cuda_device, tmp_path):
             assert torch.equal(x, y), n
     finally:
         dist.destroy_process_group()
+
+
+# The WaveNet's generation replayed as captured chunks of sample steps
+# (models/wavenet.py::GenerateChunks) against the eager chunk, at full
+# width.
+
+def _wavenet_step_operands(device, batch, frames, seed=0):
+    from fpsc_tpu_torch.models import wavenet as wn
+    model = _full_wavenet(seed, head=0.05).to(device).requires_grad_(False)
+    feat, periods, _, lpc = (a.to(device) for a in _wavenet_batch(
+        seed, b=batch, frames=frames))
+    feat = feat.transpose(1, 2)
+    lpc_sample = wn.sample_lpc(lpc)
+    eps = torch.randn((frames * C.FRAME_SIZE, batch),
+                      generator=torch.Generator(device=device).manual_seed(
+                          seed), device=device)
+    return model, feat, periods, lpc_sample, eps
+
+
+def _wavenet_spans():
+    from fpsc_tpu_torch.utils import logging as log
+    got = log.spans()
+    return ([s for s in got if s.name == "wavenet.capture"],
+            [s for s in got if s.name == "wavenet.generate"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,frames", [(1, 3), (64, 14)])
+def test_wavenet_graph_equals_the_eager_steps(cuda_device, batch, frames):
+    """The replayed chunks give the eager chunk's samples bit for bit
+    (the same kernels on the same operands), at batch 1 (480 samples, a
+    part chunk last) and 64 (2,240 samples: two blocks of projected
+    conditioning); one capture, in the first call, serves the second
+    and generate_lpc's."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    from fpsc_tpu_torch.utils import logging as log
+    model, feat, periods, lpc_sample, eps = _wavenet_step_operands(
+        cuda_device, batch, frames, seed=batch)
+    cond, lpc = wn.step_inputs(model, model.cfg, feat, periods, lpc_sample)
+    log.clear_spans()
+    got = wn.generate(model, cond, lpc, eps)
+    again = wn.generate(model, cond, lpc, eps)
+    captures, gens = _wavenet_spans()
+    assert [(s.attrs["batch"], s.attrs["chunk"]) for s in captures] == [
+        (batch, wn.WAVENET_CHUNK)]
+    assert [s.attrs["graph"] for s in gens] == [True, True]
+    eager = wn.GenerateChunks(model, batch, cuda_device, capture=False)
+    assert eager.graph is None
+    want = eager.run(model, cond, lpc, eps)
+    loop = wn.generate_lpc(model, model.cfg, feat, periods, lpc_sample,
+                           eps=eps.cpu())
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    assert torch.equal(got, loop)
+    assert len(_wavenet_spans()[0]) == 1
+
+
+@pytest.mark.cuda
+def test_wavenet_narrower_bucket_replays_the_kept_graph(cuda_device):
+    """After a bucket of 8, a bucket of the first 3 rows replays the same
+    graph, padded to its 8 rows, and gives those rows' samples bit for
+    bit; a bucket of 12 captures anew in its place."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    from fpsc_tpu_torch.utils import logging as log
+    model, feat, periods, lpc_sample, eps = _wavenet_step_operands(
+        cuda_device, 12, 2, seed=7)
+    cond, lpc = wn.step_inputs(model, model.cfg, feat, periods, lpc_sample)
+    log.clear_spans()
+    whole = wn.generate(model, cond[:, :8], lpc[:, :8], eps[:, :8])
+    narrow = wn.generate(model, cond[:, :3], lpc[:, :3], eps[:, :3])
+    assert wn._CHUNKS[model].rows == 8
+    wide = wn.generate(model, cond, lpc, eps)
+    torch.cuda.synchronize()
+    captures, gens = _wavenet_spans()
+    assert [s.attrs["batch"] for s in captures] == [8, 12]
+    assert [(s.attrs["batch"], s.attrs["rows"], s.attrs["graph"])
+            for s in gens] == [(8, 8, True), (3, 8, True), (12, 12, True)]
+    assert torch.isfinite(wide).all()
+    assert torch.equal(narrow, whole[:3])
+    assert wn._CHUNKS[model].rows == 12
+
+
+@pytest.mark.cuda
+def test_wavenet_capture_that_fails_raises(cuda_device, monkeypatch):
+    """A chunk that synchronises with the host cannot be captured: the
+    capture raises, and no eager chunk stands in for it."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    model, feat, periods, lpc_sample, eps = _wavenet_step_operands(
+        cuda_device, 2, 1, seed=5)
+    real = wn.GenerateChunks._chunk
+
+    def syncing(self):
+        real(self)
+        float(self.pos)
+
+    monkeypatch.setattr(wn.GenerateChunks, "_chunk", syncing)
+    cond, lpc = wn.step_inputs(model, model.cfg, feat, periods, lpc_sample)
+    with pytest.raises(RuntimeError):
+        wn.generate(model, cond, lpc, eps)
+    assert not wn._CHUNKS.get(model)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wavenet_decode_file_replays_its_generation(cuda_device, tmp_path):
+    """decode_file with codec.vocoder=wavenet at the published widths on
+    the card: the generation replays a graph on every call, captured once
+    in the first; the phases are the decode cells' with wavenet in place
+    of sampler."""
+    from fpsc_tpu_torch.codec import cli, container
+    from fpsc_tpu_torch.codec import bitstream as tbs
+    from fpsc_tpu_torch.config.config import Config, apply_overrides
+    from fpsc_tpu_torch.utils import logging as log
+    rng = np.random.RandomState(3)
+    sizes = {"scl": 16, "scl_bl": 4, "vq": [32, 16], "vq_bl": [8]}
+    books = {"scl": np.sort(rng.randn(16)) * 0.05,
+             "scl_bl": np.sort(rng.randn(4)) * 0.02,
+             "vq_0": rng.randn(32, 17) * 0.03,
+             "vq_1": rng.randn(16, 17) * 0.015,
+             "vq_bl_0": rng.randn(8, 17) * 0.02}
+    cb = str(tmp_path / "books.npz")
+    np.savez(cb, **{k: v.astype(np.float32) for k, v in books.items()})
+    utts = []
+    frames = 5
+    for n in range(4):
+        idx = {"scl": rng.randint(0, 16, frames),
+               "scl_bl": rng.randint(0, 4, frames),
+               "vq": np.stack([rng.randint(0, e, frames)
+                               for e in (32, 16)], 1),
+               "vq_bl": rng.randint(0, 8, (frames, 1))}
+        pitch = np.stack([rng.uniform(-1.3, 3.7, frames),
+                          rng.uniform(-0.5, 0.5, frames)], 1)
+        utts.append((f"u{n}", tbs.pack_utterance(
+            rng.rand(frames) > 0.5, rng.rand(frames) > 0.5, idx, pitch,
+            sizes)))
+    path = str(tmp_path / "x.fpsc")
+    container.write_fpsc(path, utts, sizes)
+    cfg = apply_overrides(Config(), [
+        "codec.vocoder=wavenet", "codec.entropy_coding=false",
+        "codec.scl_entries=16", "codec.scl_entries_bl=4",
+        "codec.vq_entries=32,16", "codec.vq_entries_bl=8",
+        f"codec.codebook_path={cb}"])
+    *artifacts, vocoder = cli.load_artifacts(cfg, need_vocoder=True,
+                                             device=cuda_device)
+    with torch.no_grad():
+        artifacts[0].fc.w.mul_(0.05)
+        artifacts[0].fc.b.mul_(0.05)
+        vocoder.final2.g.mul_(0.05)
+    log.clear_spans()
+    runs = [cli.decode_file(cfg, path, str(tmp_path / "wav"),
+                            artifacts=artifacts, vocoder=vocoder,
+                            device=cuda_device, timings={})
+            for _ in range(2)]
+    captures, gens = _wavenet_spans()
+    names = {s.name for s in log.spans()}
+    assert len(captures) == 1
+    assert [(s.attrs["batch"], s.attrs["samples"], s.attrs["graph"])
+            for s in gens] == [(4, 800, True)] * 2
+    assert {"decode.unpack", "decode.feature_decode", "decode.ceps2lpc",
+            "decode.prologue", "decode.wavenet", "decode.write"} <= names
+    assert "decode.sampler" not in names
+    for a, b in zip(*runs):
+        assert np.isfinite(a["wav"]).all()
+        np.testing.assert_array_equal(a["wav"], b["wav"])
