@@ -51,6 +51,14 @@ exit and no result line:
    first two utterances in 5-frame packets; both coders must write the
    same bytes and give back the written symbols; each coder's host
    milliseconds a payload are printed (the card machine's CPU);
+3d. the WaveNet step kernel (csrc/wavenet_step.cu) at the published
+   widths, at 64 rows (wn_bulk_decode's: 6 clusters of 12) and at 1:
+   from the same carried state one chunk of 128 steps of the kernel
+   against one of the plain chunk (GenerateChunks._plain_chunk), the
+   rings, history and samples within 1e-5 of each buffer's largest and
+   the position equal, its one launch counted from a reset; each chunk's
+   time replayed from a captured graph and the kernel's bound printed,
+   the 64 rows' in the kernels line;
 4. the flagship main path (scripts/validate_flagship.py's deployment):
    8 utterances of 2 s (UTT_FRAMES, 200 frames) of random symbols
    at the reference codebook geometry, range-coded with seeded random
@@ -239,8 +247,8 @@ exit and no result line:
    loss finite, the last epoch's mean NLL below the first's, the median
    step seconds, samples a second and peak memory printed; (b)
    synthesis.run from (a)'s checkpoint on 1 utterance of 2,400 samples
-   (both wavs written, the audio finite; generate_lpc's samples a
-   second), then 2 x 320 samples of (a)'s model (lpc 0, de-emphasis 0)
+   (both wavs written, the audio finite, the WaveNet step kernel
+   launched; generate_lpc's samples a second), then 2 x 320 samples of (a)'s model (lpc 0, de-emphasis 0)
    held to their distributions recomputed in parallel
    (wavenet.generation_dists: rtol 1e-4, within 1e-5 of the peak), with
    tests/test_wavenet.py's contract (forward on the signal, rtol 1e-2,
@@ -315,8 +323,10 @@ from fpsc_tpu_torch.models import lpcnet, lpcnet_bunched
 from fpsc_tpu_torch.models import wavenet, wavenet_iaf
 from fpsc_tpu_torch.models.frame_predictor import Codebooks
 from fpsc_tpu_torch.ops import build, host_build, lpcnet_sampler, sampler_faults
+from fpsc_tpu_torch.ops import wavenet_step
 from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
                                    probe_i8_matmul, probe_wide_store, timing)
+from fpsc_tpu_torch.probes import wavenet_step as wn_step_probe
 from fpsc_tpu_torch.parallel import mesh as meshlib
 from fpsc_tpu_torch.parallel import sharded_vq
 from fpsc_tpu_torch.quant import lbg, vq
@@ -632,6 +642,69 @@ def probes(dev):
                     bound_ms=rate_ms, bound_by=rate_by,
                     library_ms=library_ms))
     return rows
+
+
+# The WaveNet step kernel's rows: wn_bulk_decode's 64 (6 clusters of 12)
+# and one; the kernels row is the first's.  Each carried buffer of the
+# kernel's chunk within WN_STEP_TOL of its largest value from the plain
+# chunk's (the card tests' tolerance: the kernel sums in another order
+# than cuBLAS, and the samples feed back through 128 steps; measured
+# about 3e-7, TF32 about 1e-3).
+WN_STEP_ROWS = (64, 1)
+WN_STEP_TOL = 1e-5
+
+
+def wavenet_step_row(dev):
+    """The WaveNet step kernel (ops/wavenet_step.py) at the published
+    widths, at each of WN_STEP_ROWS: from the same carried state one chunk
+    of the kernel (GenerateChunks._chunk) and one of the plain version
+    (_plain_chunk), held within WN_STEP_TOL, the kernel's launch counted
+    from a reset; then a chunk of each replayed from a captured graph, and
+    the kernel's bound (its own multiply-adds at the float32 peak, or its
+    weights read once) -> the kernels row at 64 rows."""
+    model = wn_step_probe.wavenet(dev)
+    row = None
+    for rows in WN_STEP_ROWS:
+        phase(f"the WaveNet step kernel at {rows} rows, published widths")
+        chunks = wn_step_probe.carried(model, rows, dev, seed=rows)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        got, want = wn_step_probe.kernel_and_plain(chunks)
+        torch.cuda.synchronize()
+        launches = build.launch_counts.get(wavenet_step.KERNEL, 0)
+        if launches != 1:
+            raise RuntimeError(f"the kernel's chunk launched "
+                               f"{dict(build.launch_counts)}")
+        diff = wn_step_probe.compare(got, want)
+        rel = max(diff[n] for n in ("rings", "x", "y"))
+        if diff["pos"] != 0 or rel > WN_STEP_TOL:
+            raise RuntimeError(f"the WaveNet step kernel at {rows} rows "
+                               f"against the plain chunk: {diff}")
+        err = max(float((got[n] - want[n]).abs().max())
+                  for n in ("rings", "x", "y"))
+        k = chunks.chunk
+        ms = wn_step_probe.step_us(chunks, chunks._chunk,
+                                   timing.REPS) * k / 1e3
+        plain_ms = wn_step_probe.step_us(chunks, chunks._plain_chunk,
+                                         PLAIN_REPS) * k / 1e3
+        bound_us, bound_by = wn_step_probe.least_step(model.cfg, rows)
+        bound_ms = bound_us * k / 1e3
+        print(f"wavenet_step at {rows} rows, a chunk of {k} steps: kernel "
+              f"{ms:.4f} ms, plain chunk's graph {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.2f}% "
+              f"of it; largest difference {err:.3g} ({rel:.3g} of its "
+              f"buffer's largest); launches {launches}: ok")
+        if row is None:
+            row = dict(name=wavenet_step.KERNEL, route="cuda",
+                       source=f"fpsc_tpu_torch/csrc/{wavenet_step.SOURCE}",
+                       replaces="none (fpsc_tpu/models/wavenet.py:341's "
+                                "lax.scan)",
+                       launches=launches, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+        del chunks, got, want
+        torch.cuda.empty_cache()
+    return row
 
 
 def vocoder(bunch: int, sparse: bool, seed: int, dev):
@@ -3250,10 +3323,19 @@ def wavenet_synthesis(dev, work: str, smi: str, model, trained: list):
     calls, gen = {}, wavenet.generate_lpc
     wavenet.generate_lpc = _timed_calls(calls, "generate_lpc", gen)
     out_dir = os.path.join(work, "wn_samples")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
     try:
         outs = synthesis.run(cfg, num_samples=1, out_dir=out_dir, device=dev)
     finally:
         wavenet.generate_lpc = gen
+    torch.cuda.synchronize()
+    # the warm-up and the capture launch the kernel; replays are not
+    # counted
+    launches = dict(build.launch_counts)
+    if launches.get(wavenet_step.KERNEL, 0) < 1:
+        raise RuntimeError(f"synthesis did not launch the WaveNet step "
+                           f"kernel: {launches}")
     name, y = outs[0]
     if y.shape != (1, C.SAMPLES_PER_CHUNK) or not np.isfinite(y).all():
         raise RuntimeError(f"synthesis gave {y.shape}, finite "
@@ -3279,6 +3361,7 @@ def wavenet_synthesis(dev, work: str, smi: str, model, trained: list):
                     WN_CHECK_B * (AR_SAMPLES - 1))
     print(json.dumps({"wavenet_synthesis": {
         "generate_lpc_s": secs, "samples": C.SAMPLES_PER_CHUNK,
+        "wavenet_step_launches": launches[wavenet_step.KERNEL],
         "samples_per_s": C.SAMPLES_PER_CHUNK / secs,
         "identity_s": time.perf_counter() - t0,
         "peak_abs": float(np.abs(y).max()), "card": smi}}))
@@ -4036,7 +4119,7 @@ def main() -> int:
     short_window(dev)
     probe_rows = probes(dev)
     native_coder()
-    rows = []
+    rows = [wavenet_step_row(dev)]
     with tempfile.TemporaryDirectory(prefix="fpsc_smoke_") as work:
         run = flagship = main_path(dev, work, FLAGSHIP, UTT_FRAMES, True,
                                    "flagship")

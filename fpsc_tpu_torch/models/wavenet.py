@@ -28,10 +28,11 @@ through `generate` and its `GenerateChunks`: the weight-normalised
 weights copied once a call into static buffers, each layer's
 conditioning term for a block of samples in one product, each layer's
 past inputs in a ring of dilation + 1 rows indexed by a position kept on
-the device, so that a chunk of 128 sample steps (about 220 small
-kernels a step) is captured once as a CUDA graph on the card and
-replayed chunk after chunk (codec/cli.py::decode_file's WaveNet path,
-train/synthesis.py); on the CPU the same chunk runs eagerly.
+the device, so that a chunk of 128 sample steps is captured once as a
+CUDA graph on the card and replayed chunk after chunk
+(codec/cli.py::decode_file's WaveNet path, train/synthesis.py).  On the
+card the chunk is one launch of the hand-written kernel of
+ops/wavenet_step.py; on the CPU its plain version runs eagerly.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from torch import nn
 from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.emphasis import PREEMPH
 from fpsc_tpu_torch.models.common import Dense, Embedding
+from fpsc_tpu_torch.ops import wavenet_step
 from fpsc_tpu_torch.utils.device import capture_stream, no_tf32, replays
 from fpsc_tpu_torch.utils.logging import span
 
@@ -360,7 +362,8 @@ class GenerateChunks:
     layer's conditioning projection (n, block, rows, 2 gc), the
     conditioning's product computed for a block at once; the output
     y[t - 1 .. t + K), de-emphasised at `deemphasis`; the step's
-    weights; and the position t, on the device.
+    weights, each kind stacked over the layers; and the position t, on
+    the device.
 
     Each step reads its ring rows and its row of the projection by index
     arithmetic on the position, so one captured chunk serves every chunk
@@ -368,14 +371,17 @@ class GenerateChunks:
     the dilated taps' products, then adds the conditioning term, as
     JAX's step does.
 
-    On the card the chunk is run once eagerly on a side stream (a
-    warm-up), then captured once as a `torch.cuda.CUDAGraph` under
-    `no_tf32`, as models/frame_predictor.py::DecodeChunks captures its
-    chunk; the capture is the span `wavenet.capture` [batch, chunk], and
-    one that fails raises.  On the CPU the chunk runs eagerly, with the
-    same function, as it does on the card without `capture`.  `run`
-    copies the WaveNet's step weights into the static buffers first, so
-    an edited or moved module is followed."""
+    A chunk (`_chunk`) is `wavenet_step.chunk`: on the card one launch
+    of the kernel (`kernel` names its launch counter), which refuses
+    widths its tiling does not divide; on the CPU `_plain_chunk`, the
+    same steps in PyTorch (`kernel` is "").  On the card the chunk is
+    run once eagerly on a side stream (a warm-up), then captured once as
+    a `torch.cuda.CUDAGraph` under `no_tf32`, as
+    models/frame_predictor.py::DecodeChunks captures its chunk; the
+    capture is the span `wavenet.capture` [batch, chunk], and one that
+    fails raises.  Without `capture` the chunk runs eagerly, on the card
+    the same kernel.  `run` copies the WaveNet's step weights into the
+    static buffers first, so an edited or moved module is followed."""
 
     def __init__(self, model: Wavenet, rows: int, device: torch.device,
                  deemphasis: float = PREEMPH, capture: bool = True):
@@ -408,12 +414,30 @@ class GenerateChunks:
         self.eps = zeros(chunk, rows)
         self.lpc = zeros(chunk, rows, C.LPC_ORDER)
         self.cond = zeros(len(dils), COND_BLOCK, rows, 2 * gc)
-        self.layers = [tuple(torch.empty_like(w) for w in _step_weights(p))
-                       for p in model.blocks]
+        # each kind of step weight stacked over the layers; a layer's
+        # tuple holds views of them
+        self.stacks = tuple(zeros(len(dils), *w.shape)
+                            for w in _step_weights(model.blocks[0]))
+        self.layers = [tuple(s[i] for s in self.stacks)
+                       for i in range(len(dils))]
         self.front = (zeros(cfg.front_kernel, rc), zeros(rc))
-        self.finals = tuple(torch.empty_like(w) for w in (
+        self.finals = tuple(torch.empty_like(w, device=dev) for w in (
             model.final1.b, model.final2.b, *_final_weights(model)))
+        self.shape = wavenet_step.StepShape(
+            rows, rc, gc, cfg.skip_channels, cfg.out_channels,
+            cfg.front_kernel, self.lead, chunk, COND_BLOCK, tuple(dils),
+            deemphasis)
+        self.kernel = wavenet_step.KERNEL if dev.type == "cuda" else ""
+        # the layers' weights as the kernel reads them, where it runs and
+        # takes the widths (else empty: the wrapper refuses them)
+        kernel_takes = self.kernel and not wavenet_step.refused(self.shape)
+        self.packed = zeros(*(self.shape.shapes()["packed"] if kernel_takes
+                              else (0,)))
         self.load(model)
+        f1_b, f2_b, f1, f2 = self.finals
+        self.operands = wavenet_step.StepOperands(
+            self.packed, *self.front, f1, f1_b, f2, f2_b, self.cond,
+            self.eps, self.lpc, self.rings, self.x, self.y, self.pos)
         self.graph = None
         if capture and dev.type == "cuda":
             with span("wavenet.capture", batch=rows, chunk=chunk):
@@ -430,10 +454,18 @@ class GenerateChunks:
         for d, s in zip(self.finals, (model.final1.b, model.final2.b,
                                       *_final_weights(model))):
             d.copy_(s)
+        if self.packed.numel():
+            past, now, _, _, conv_b, rs, rs_b = self.stacks
+            wavenet_step.pack(past, now, conv_b, rs, rs_b, self.shape,
+                              self.packed)
 
     def _chunk(self) -> None:
         """K sample steps from the carried state: the de-emphasised
         samples into y[1:], the state and the position carried on."""
+        wavenet_step.chunk(self.operands, self.shape, self._plain_chunk)
+
+    def _plain_chunk(self) -> None:
+        """`_chunk` in PyTorch: the kernel's steps, op by op."""
         k_front, lead, chunk = self.front[0].shape[0], self.lead, self.chunk
         gc = self.cond.shape[-1] // 2
         rc = self.rings.shape[-1]
@@ -588,7 +620,8 @@ def generate(model: Wavenet, cond: torch.Tensor, lpc: torch.Tensor,
     span `wavenet.generate` [batch, samples; rows: the batch the chunks
     ran, padding included; chunk: their steps; replays: the chunks run;
     padded: the steps past the end of the last; graph: whether a
-    captured graph replayed]."""
+    captured graph replayed; kernel: the launch counter of the chunk's
+    kernel, "" for the plain chunk on the CPU]."""
     t_total, b, _ = cond.shape
     if tuple(eps.shape) != (t_total, b):
         raise ValueError(f"eps has shape {tuple(eps.shape)}, not "
@@ -599,5 +632,6 @@ def generate(model: Wavenet, cond: torch.Tensor, lpc: torch.Tensor,
         n = -(-t_total // chunks.chunk)
         s.attrs.update(graph=chunks.graph is not None, rows=chunks.rows,
                        chunk=chunks.chunk, replays=n,
-                       padded=n * chunks.chunk - t_total)
+                       padded=n * chunks.chunk - t_total,
+                       kernel=chunks.kernel)
     return y

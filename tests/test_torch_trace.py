@@ -12,9 +12,11 @@ synchronise the card only where the caller asked for timings; each
 bucket's feature decode records one `predictor.decoder` with its batch,
 frames and path (the eager loop, or the chunks with their replays and
 padded frames), and on the card the first call of a batch records its
-`predictor.capture` inside it; every streaming class's tick records a
-root with its stage, launch and unpack.  Judged by structure, with no
-timing threshold.  Nothing here loads JAX.
+`predictor.capture` inside it; a WaveNet's generation records its
+chunks and the kernel they launched ("" for the plain chunk); every
+streaming class's tick records a root with its stage, launch and
+unpack.  Judged by structure, with no timing threshold.  Nothing here
+loads JAX.
 """
 import json
 import types
@@ -354,6 +356,30 @@ def test_on_the_card_a_batch_records_one_capture_then_replays():
         assert s.attrs == {"batch": 2, "frames": frames, "graph": True,
                            "chunk": k, "replays": n,
                            "padded": n * k - frames}
+
+
+def test_wavenet_generate_records_its_chunks_and_their_kernel():
+    """A WaveNet's generation on the CPU: one `wavenet.generate` with its
+    batch, samples, rows, chunks, padding, no graph, and no kernel (the
+    plain chunk); no capture."""
+    from fpsc_tpu_torch.models import wavenet as wn
+    model = wn.Wavenet(wn.WavenetConfig(
+        num_blocks=1, num_layers=2, residual_channels=16, gate_channels=24,
+        skip_channels=16, cout_channels=24, front_kernel=8),
+        torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        model.final2.g.mul_(0.05)
+    g = torch.Generator().manual_seed(2)
+    t = 200
+    wn.generate(model, torch.randn((t, 2, 24), generator=g),
+                torch.zeros((t, 2, 16)), torch.randn((t, 2), generator=g))
+    by = _by_name(log.spans())
+    (gen,) = by["wavenet.generate"]
+    k = wn.WAVENET_CHUNK
+    assert gen.attrs == {"batch": 2, "samples": t, "graph": False,
+                         "rows": 2, "chunk": k, "replays": 2,
+                         "padded": 2 * k - t, "kernel": ""}
+    assert "wavenet.capture" not in by
 
 
 # Every streaming class's tick at the small widths of
