@@ -152,7 +152,7 @@ exit and no result line:
    seeded priors and their lean preset for FEC, the plain bunch=1
    LPCNet): the transmitter, the receiver with FEC books and the duplex
    codec from PCM, batch 8 for 50 ticks of `_speech`, captured against
-   the same classes run eagerly on the card (graph=False), the same
+   the same classes run eagerly on the card (`eager()`), the same
    uniforms: the symbols equal exactly, the audio bit for bit (or, the
    first differing tick and the largest difference printed, the
    trajectory contract with B - 1 items flip-free);
@@ -180,17 +180,8 @@ exit and no result line:
    flagged from_fec, frames of two dropped packets in a row lost and
    concealed, every received and recovered row the sent one, the audio
    finite and below PEAK_LIMIT;
-18. timing, a JSON line each, with the card's name and power limit: the
-   per-tick wall (host clock; a tick ends with its one readback) p50 and
-   p99 over 200 ticks at batch 1, 8, 128 and 512 of the duplex codec
-   from PCM and the transmitter (each with the encoder bank's push) and
-   the receiver (with the decoder bank's tick), stream-frames per 10 ms,
-   the capture time; the eager tick beside the graph at batch 1 and 8;
-   the eager tick's kernels and launch calls counted once by
-   torch.profiler at batch 8 (also the encoder's alone: the closed loop
-   of the encode path a frame); the time to first audio at batch 1 (a
-   captured codec after reset(), its first two blocks) beside the 10 ms
-   algorithmic lookahead;
+18. (none: the benchmark's cell `b1_live_calls` times the live tick; the
+   numbers after it are cited elsewhere, so they stay)
 19. vocoder training (fpsc_tpu_torch/train/train_lpcnet.py, the second
    main path): (a) train_lpcnet.run on the card with the flagship recipe
    (TRAIN_RECIPE, scripts/validate_flagship.py's vocoder stage: bunch=2,
@@ -336,7 +327,7 @@ from fpsc_tpu_torch.train import (frame_evaluation, generate_qtz_features,
                                   train_cb, train_frame, train_iaf,
                                   train_lpcnet, train_vocoder, weights)
 from fpsc_tpu_torch.utils import diagnostics, torch_import
-from fpsc_tpu_torch.utils.device import no_cudnn, no_tf32
+from fpsc_tpu_torch.utils.device import eager, no_cudnn, no_tf32
 from fpsc_tpu_torch.utils.logging import (MetricsLogger, enable_nan_debugging,
                                           profile_trace)
 
@@ -1955,8 +1946,6 @@ def int8_path(dev, flagship, frames: int):
 # ---------------------------------------------------------------- streaming
 
 STREAM_B, STREAM_TICKS = 8, 50
-STREAM_BATCHES = (1, 8, 128, 512)
-TIMED_TICKS, EAGER_TICKS = 200, 20
 # the drop rate of the lossy receive path (as PACKET_LOSS's channel)
 STREAM_DROP = 0.1
 
@@ -2087,7 +2076,7 @@ def _same_audio(got, want, what: str):
 def stream_graph_against_eager(dev, m: StreamModels):
     """The transmitter, the receiver with FEC books and the duplex codec
     from PCM, each captured as a CUDA graph and replayed, against the
-    same class run eagerly on the card (graph=False), batch STREAM_B for
+    same class run eagerly on the card (`eager()`), batch STREAM_B for
     STREAM_TICKS ticks on `_speech` PCM, the same uniforms in both (one
     seed): the symbols equal exactly, the audio bit for bit (or, printed,
     under the trajectory contract)."""
@@ -2096,16 +2085,17 @@ def stream_graph_against_eager(dev, m: StreamModels):
     pcm = _stream_pcm(STREAM_B, STREAM_TICKS, seed=21)
     runs, n_vq = [], len(m.books.vq)
     rx_in = None
-    for graph in (True, False):
-        kw = dict(batch=STREAM_B, device=dev, graph=graph)
-        tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1, m.l2,
-                                            **kw)
-        rx = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder,
-                                         seed=5, fec_codebooks=m.fec_books,
-                                         **kw)
-        codec = streaming.StreamingCodec(m.predictor, m.books, m.vocoder,
-                                         m.l1, m.l2, seed=5, from_pcm=True,
-                                         **kw)
+    for scope in (contextlib.nullcontext, eager):
+        kw = dict(batch=STREAM_B, device=dev)
+        with scope():
+            tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1,
+                                                m.l2, **kw)
+            rx = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder,
+                                             seed=5,
+                                             fec_codebooks=m.fec_books, **kw)
+            codec = streaming.StreamingCodec(m.predictor, m.books, m.vocoder,
+                                             m.l1, m.l2, seed=5,
+                                             from_pcm=True, **kw)
         tx_rows = [_sym_rows(tx.process_pcm(_block(pcm, k)))
                    for k in range(STREAM_TICKS)]
         if rx_in is None:
@@ -2123,19 +2113,19 @@ def stream_graph_against_eager(dev, m: StreamModels):
             co_audio=[o["audio"] for o in co_out],
             capture=(tx._tick.capture_s, rx._tick.capture_s,
                      codec._tick.capture_s)))
-    graph, eager = runs
+    graph, ticked = runs
     for key, what in (("tx", "transmitter symbols"),
                       ("rx_coded", "receiver coded frames"),
                       ("co", "codec symbols")):
-        if not np.array_equal(graph[key], eager[key]):
-            bad = np.flatnonzero((graph[key] != eager[key]).any(
+        if not np.array_equal(graph[key], ticked[key]):
+            bad = np.flatnonzero((graph[key] != ticked[key]).any(
                 axis=tuple(range(1, graph[key].ndim))))
             raise RuntimeError(f"{what}: the replayed graph differs from the "
                                f"eager tick from tick {bad[0]} on")
         print(f"  {what}: replayed graph equal to the eager tick "
               f"({graph[key].shape[0]} ticks x {STREAM_B} streams)")
-    _same_audio(graph["rx_audio"], eager["rx_audio"], "receiver")
-    _same_audio(graph["co_audio"], eager["co_audio"], "codec")
+    _same_audio(graph["rx_audio"], ticked["rx_audio"], "receiver")
+    _same_audio(graph["co_audio"], ticked["co_audio"], "codec")
     for a in (graph["rx_audio"], graph["co_audio"]):
         _check_audio(np.stack(a), "streaming")
     lost = sum(int(x[4].sum()) for x in rx_in)
@@ -2149,8 +2139,8 @@ def _stream_features(pcm, dev):
     """StreamingFrontend (eager) over pcm (B, ticks * 160) on dev -> the
     features of every tick (B, ticks, 20) and the ring after it (B,
     ticks, 576), on the host."""
-    sf = streaming.StreamingFrontend(batch=pcm.shape[0], device=dev,
-                                     graph=False)
+    with eager():
+        sf = streaming.StreamingFrontend(batch=pcm.shape[0], device=dev)
     feats, rings = [], []
     for k in range(pcm.shape[1] // C.FRAME_SIZE):
         feats.append(sf.process_block(_block(pcm, k)))
@@ -2484,136 +2474,6 @@ def stream_entropy(dev, m: StreamModels, tx_rows, r):
           f"{int(np.sum(masks))} dropped; {n_fec} frames recovered from FEC "
           f"(flagged), {n_lost} lost and concealed, every received and "
           f"recovered row the sent one; audio peak {peak:.4g}")
-
-
-def _walls(fn, ticks: int) -> list:
-    out = []
-    for k in range(ticks):
-        t0 = time.perf_counter()
-        fn(k)
-        out.append(time.perf_counter() - t0)
-    return out
-
-
-def _pct(walls, q) -> float:
-    return float(np.percentile(np.asarray(walls) * 1e3, q))
-
-
-def _launches(fn) -> tuple:
-    """One call of fn under torch.profiler -> (kernels the card ran,
-    kernel launches the host issued)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = host = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device += 1
-        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-            host += 1
-    return device, host
-
-
-def stream_timing(dev, m: StreamModels, smi: str):
-    """Per-tick wall (host clock, a tick ends with its one readback) of
-    the duplex codec from PCM (with the encoder bank's push), the
-    transmitter (with the encoder bank's push) and the receiver (with
-    the decoder bank's tick), p50 and p99 over TIMED_TICKS ticks at each
-    of STREAM_BATCHES, and stream-frames per 10 ms (0.010 / wall x
-    batch); the capture time of each; the eager tick beside the graph at
-    batch 1 and 8 (EAGER_TICKS ticks); the eager tick's launches counted
-    once by torch.profiler; the time to first audio at batch 1."""
-    phase("streaming: per-tick wall, eager beside the graph, launches, "
-          "capture, time to first audio")
-    ticks = TIMED_TICKS
-    pcm_all = _stream_pcm(2, ticks, seed=51)
-    kw = dict(priors=m.priors, orders=m.orders)
-    n_vq = len(m.books.vq)
-    for b in STREAM_BATCHES:
-        pcm = np.tile(pcm_all, (b // 2 + 1, 1))[:b]
-        for graph in ((True, False) if b in (1, 8) else (True,)):
-            n = ticks if graph else EAGER_TICKS
-            tag = "graph" if graph else "eager"
-            tx = streaming.StreamingTransmitter(m.predictor, m.books, m.l1,
-                                                m.l2, batch=b, device=dev,
-                                                graph=graph)
-            ebank = native_rc.NativeRangeEncoderBank(b, m.sizes, **kw)
-            chunks = []
-
-            def tx_tick(k):
-                rows = _sym_rows(tx.process_pcm(_block(pcm, k)))
-                i1, i2, idx, pc = _rows_symbols(rows, n_vq)
-                c, lens = ebank.push_frames(i1, i2, idx, pc)
-                chunks.append((c.copy(), lens.copy(), rows))
-
-            w_tx = _walls(tx_tick, n)
-            rx = streaming.StreamingReceiver(m.predictor, m.books, m.vocoder,
-                                             batch=b, device=dev, graph=graph)
-            dbank = native_rc.NativeRangeDecoderBank(b, m.sizes, **kw)
-
-            def rx_tick(k):
-                ok, fr = dbank.tick(*chunks[k][:2])
-                rows = chunks[k][2]
-                rx.process_symbols(fr["ind1"].astype(bool),
-                                   fr["ind2"].astype(bool), fr["indices"],
-                                   rows[:, 18:20], lost=~ok.astype(bool))
-
-            w_rx = _walls(rx_tick, n)
-            co = streaming.StreamingCodec(m.predictor, m.books, m.vocoder,
-                                          m.l1, m.l2, batch=b,
-                                          from_pcm=True, device=dev,
-                                          graph=graph)
-            cbank = native_rc.NativeRangeEncoderBank(b, m.sizes, **kw)
-
-            def co_tick(k):
-                rows = _sym_rows(co.process_pcm(_block(pcm, k)))
-                cbank.push_frames(*_rows_symbols(rows, n_vq))
-
-            w_co = _walls(co_tick, n)
-            for name, w, obj in (("codec from PCM", w_co, co),
-                                 ("transmitter", w_tx, tx),
-                                 ("receiver", w_rx, rx)):
-                p50 = _pct(w[1:], 50)
-                print(json.dumps({
-                    "streaming": name, "batch": b, "tick": tag,
-                    "ticks": n - 1, "p50_ms": p50, "p99_ms": _pct(w[1:], 99),
-                    "first_ms": w[0] * 1e3,
-                    "stream_frames_per_10ms": 0.010 / (p50 / 1e3) * b,
-                    "capture_s": obj._tick.capture_s, "card": smi}))
-            if b == 8 and not graph:
-                enc = streaming.StreamingEncoder(m.predictor, m.books, m.l1,
-                                                 m.l2, batch=b, device=dev,
-                                                 graph=False)
-                for name, fn in (("codec from PCM", lambda: co_tick(n)),
-                                 ("transmitter", lambda: tx.process_pcm(
-                                     _block(pcm, n))),
-                                 ("receiver", lambda: rx.process_symbols(
-                                     *_rows_symbols(chunks[0][2], n_vq)[:3],
-                                     chunks[0][2][:, 18:20])),
-                                 ("encoder", lambda: enc.encode_frame(
-                                     chunks[0][2][:, :20]))):
-                    kernels, host = _launches(fn)
-                    print(json.dumps({"streaming": name, "batch": b,
-                                      "eager_tick_kernels": kernels,
-                                      "eager_tick_launch_calls": host,
-                                      "card": smi}))
-    # time to first audio: a captured codec, reset, a fresh session's
-    # first two blocks (tick 0 is the analysis warmup)
-    co = streaming.StreamingCodec(m.predictor, m.books, m.vocoder, m.l1, m.l2,
-                                  batch=1, from_pcm=True, device=dev)
-    first = []
-    for rep in range(5):
-        co.reset()
-        t0 = time.perf_counter()
-        co.process_pcm(pcm_all[0, :C.FRAME_SIZE])
-        audio = co.process_pcm(pcm_all[0, C.FRAME_SIZE:2 * C.FRAME_SIZE])
-        first.append(time.perf_counter() - t0)
-        _check_audio(audio["audio"][None], "first audio")
-    print(json.dumps({"streaming": "time to first audio", "batch": 1,
-                      "ms": [x * 1e3 for x in first],
-                      "algorithmic_lookahead_ms": 10.0, "card": smi}))
 
 
 # The flagship vocoder recipe (scripts/validate_flagship.py:85-90,
@@ -4159,7 +4019,6 @@ def main() -> int:
         stream_card_against_cpu(dev, m, _stream_models(work,
                                                       torch.device("cpu")))
         stream_entropy(dev, m, *stream_against_batch(dev, m, work))
-        stream_timing(dev, m, smi)
         trained = train_recipe(dev, work, smi)
         train_card_against_cpu(dev)
         phase("vocoder training (c): the trained checkpoint decodes")

@@ -25,14 +25,15 @@ Where the JAX class jits its tick, the port runs it through
 codec/ticks.py: one CUDA graph per instance (the batch is fixed per
 instance, as a JIT shape is), captured once after an eager warm-up and
 replayed every call, with one host transfer of the packed row a tick;
-`graph=False` runs the same tick eagerly on the card (to hold the graph
-to it and to count its launches).  Each public tick method hands its
-staging and its unpacking to `TickRunner.call`, which records the tick
-as spans.  The per-tick step functions below are pure and take the same
-arguments as JAX's; on the CPU they run eagerly.  They reuse the port's
-modules: frame_predictor.step and _quantize_residual (JAX's VQ
-distances bit for bit), quant/, gru_step, lpcnet.frame_net, ceps2lpc,
-mu-law, and the frontend's cepstra and correlation-slab pitch search.
+inside `utils.device.eager()` the same tick runs eagerly on the card
+(to hold the graph to it and to count its launches).  Each public tick
+method hands its staging and its unpacking to `TickRunner.call`, which
+records the tick as spans.  The per-tick step functions below are pure
+and take the same arguments as JAX's; on the CPU they run eagerly.
+They reuse the port's modules: frame_predictor.step, decode_frame and
+_quantize_residual (JAX's VQ distances bit for bit), quant/, gru_step,
+lpcnet.frame_net, ceps2lpc, mu-law, and the frontend's cepstra and
+correlation-slab pitch search.
 
 What the card needs handled, and where it is:
 
@@ -257,9 +258,8 @@ def _decoder_step(params: fp.FramePredictor, codebooks: fp.Codebooks):
     def step(state, ind1, ind2, indices, pitch_rows):
         h1, h2, prev = state
         r_qtz = _dequant_frame(codebooks, ind1, ind2, indices)
-        x = torch.cat([prev, pitch_rows], dim=-1)
-        f_out, h1, h2 = fp.step(params, h1, h2, x)
-        coded = f_out + r_qtz
+        coded, h1, h2 = fp.decode_frame(params, h1, h2, prev, pitch_rows,
+                                        r_qtz)
         return (h1, h2, coded), torch.cat([coded, pitch_rows], dim=-1)
 
     return step
@@ -388,8 +388,7 @@ class StreamingFrontend:
     feature rows out, batched over independent streams (the batch
     counterpart is dsp/frontend.extract_features)."""
 
-    def __init__(self, preemph: float = 0.85, batch: int = 1, device=None,
-                 graph: bool = True):
+    def __init__(self, preemph: float = 0.85, batch: int = 1, device=None):
         self.batch = batch
         dev = _device(device)
         self.state = _front_state(dev, batch)
@@ -399,7 +398,7 @@ class StreamingFrontend:
             return step((ring, last_raw), pcm_rows)
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, C.FRAME_SIZE)], graph,
+                                [_zeros(dev, batch, C.FRAME_SIZE)],
                                 owner="StreamingFrontend", batch=batch)
 
     def reset(self):
@@ -423,8 +422,7 @@ class StreamingFrontend:
 class StreamingEncoder:
     def __init__(self, params: fp.FramePredictor,
                  codebooks: fp.Codebooks, l1: float = 0.09,
-                 l2: float = 0.28, batch: int = 1, device=None,
-                 graph: bool = True):
+                 l2: float = 0.28, batch: int = 1, device=None):
         dev = _device(device)
         self.params = _on(params, dev)
         self.codebooks = _books_to(codebooks, dev)
@@ -437,7 +435,7 @@ class StreamingEncoder:
             return step((h1, h2, prev), feat_rows)
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, 20)], graph,
+                                [_zeros(dev, batch, 20)],
                                 owner="StreamingEncoder", batch=batch)
 
     def reset(self):
@@ -459,8 +457,7 @@ class StreamingEncoder:
 
 class StreamingDecoder:
     def __init__(self, params: fp.FramePredictor,
-                 codebooks: fp.Codebooks, batch: int = 1, device=None,
-                 graph: bool = True):
+                 codebooks: fp.Codebooks, batch: int = 1, device=None):
         dev = _device(device)
         self.params = _on(params, dev)
         self.codebooks = _books_to(codebooks, dev)
@@ -475,7 +472,7 @@ class StreamingDecoder:
                         sym["indices"], row[:, w:w + 2])
 
         self._tick = TickRunner(tick, self.state,
-                                [_zeros(dev, batch, 4 + s + sb + 2)], graph,
+                                [_zeros(dev, batch, 4 + s + sb + 2)],
                                 owner="StreamingDecoder", batch=batch)
 
     def reset(self):
@@ -503,7 +500,7 @@ class StreamingVocoder:
     over independent streams; the plain bunch=1 LPCNet."""
 
     def __init__(self, params: lpcnet.LPCNet, seed: int = 0,
-                 batch: int = 1, device=None, graph: bool = True):
+                 batch: int = 1, device=None):
         dev = _device(device)
         self.params = _on(params, dev)
         self.batch = batch
@@ -518,7 +515,7 @@ class StreamingVocoder:
         self._tick = TickRunner(
             tick, self.state,
             [_zeros(dev, C.FRAME_SIZE, batch, 1), _zeros(dev, batch, 20)],
-            graph, owner="StreamingVocoder", batch=batch)
+            owner="StreamingVocoder", batch=batch)
 
     def reset(self):
         self._tick.reset()
@@ -557,7 +554,7 @@ class StreamingReceiver:
                  fade_after: int = 3, fade_step: float = 0.012,
                  fec_codebooks: Optional[fp.Codebooks] = None,
                  damp: float = 0.0, energy_cap: bool = True,
-                 device=None, graph: bool = True):
+                 device=None):
         dev = _device(device)
         self.batch = batch
         self._enc_params = _on(enc_params, dev)
@@ -601,7 +598,7 @@ class StreamingReceiver:
         self._tick = TickRunner(
             tick, self.dec_state + self.voc_state,
             [_zeros(dev, C.FRAME_SIZE, batch, 1),
-             _zeros(dev, batch, width)], graph,
+             _zeros(dev, batch, width)],
             owner="StreamingReceiver", batch=batch)
 
     def reset(self):
@@ -654,7 +651,7 @@ class StreamingTransmitter:
     def __init__(self, enc_params: fp.FramePredictor,
                  codebooks: fp.Codebooks, l1: float = 0.09,
                  l2: float = 0.28, batch: int = 1,
-                 preemph: float = 0.85, device=None, graph: bool = True):
+                 preemph: float = 0.85, device=None):
         dev = _device(device)
         self.batch = batch
         self._enc_params = _on(enc_params, dev)
@@ -671,7 +668,7 @@ class StreamingTransmitter:
             return (*front_state, *enc_state), packed
 
         self._tick = TickRunner(tick, self.front_state + self.enc_state,
-                                [_zeros(dev, batch, C.FRAME_SIZE)], graph,
+                                [_zeros(dev, batch, C.FRAME_SIZE)],
                                 owner="StreamingTransmitter", batch=batch)
 
     def reset(self):
@@ -707,7 +704,7 @@ class StreamingCodec:
                  l1: float = 0.09, l2: float = 0.28,
                  seed: int = 0, batch: int = 1,
                  from_pcm: bool = False, preemph: float = 0.85,
-                 device=None, graph: bool = True):
+                 device=None):
         dev = _device(device)
         self.batch = batch
         self._uniforms = _Uniforms(seed)
@@ -758,7 +755,7 @@ class StreamingCodec:
         self._tick = TickRunner(
             tick, states,
             [_zeros(dev, C.FRAME_SIZE, batch, 1), _zeros(dev, batch, width)],
-            graph, owner="StreamingCodec", batch=batch)
+            owner="StreamingCodec", batch=batch)
 
     def reset(self):
         self._tick.reset()

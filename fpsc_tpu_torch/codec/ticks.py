@@ -8,26 +8,23 @@ tensors, and hands a pure tick function to a `TickRunner`:
 
     tick(*states, *inputs) -> (new states, packed output row)
 
-On the card the runner runs the tick once eagerly on a side stream (a
-warm-up whose results are dropped: it makes the libraries' handles, the
-cuFFT plans and the constant tables of dsp/, so that nothing is copied
-from the host during the capture), then captures it once as a
-`torch.cuda.CUDAGraph` that computes the new states into temporaries and
-copies them into the static state buffers at its end.  Each call copies
-its inputs from pinned host buffers into the static inputs, replays the
-graph, and copies the packed row back to a pinned host buffer, waited
-for by one event: the one host transfer of a tick, as the JAX classes
-pull a single array.  The graph is captured with TF32 off
-(`utils.device.no_tf32`): the flags are read when a product is
-captured, not when it is replayed.
+On the card the runner captures the tick once
+(`utils.device.captured`: an eager warm-up, then the capture, under
+`no_tf32`) as a CUDA graph that computes the new states into
+temporaries and copies them into the static state buffers at its end;
+the warm-up's tick advances the states, so the runner zeroes them after
+it.  Each call copies its inputs from pinned host buffers into the
+static inputs, replays the graph, and copies the packed row back to a
+pinned host buffer, waited for by one event: the one host transfer of a
+tick, as the JAX classes pull a single array.
 
 A capture that fails raises; nothing falls back to running the tick
 eagerly.  A tick must not synchronise with the host (no `.item()`,
 `.cpu()`, `bool(tensor)`, boolean-mask indexing, `nonzero` or a numpy
-round trip): the capture refuses it.  `graph=False` asks for the eager
-tick on the card, for comparison with the graph and for counting its
-launches; on the CPU the tick always runs eagerly, with the same
-functions.
+round trip): the capture refuses it.  Inside `utils.device.eager()` the
+runner captures nothing and ticks eagerly on the card, for comparison
+with the graph and for counting its launches; on the CPU the tick
+always runs eagerly, with the same functions.
 
 `reset()` zeroes the state buffers in place: the graph holds their
 addresses, so they are never reallocated.
@@ -49,7 +46,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from fpsc_tpu_torch.utils.device import no_tf32
+from fpsc_tpu_torch.utils.device import captured, no_tf32
 from fpsc_tpu_torch.utils.logging import span
 
 
@@ -58,8 +55,7 @@ class TickRunner:
     device): eager on the CPU, a replayed CUDA graph on the card."""
 
     def __init__(self, tick: Callable, states: Sequence[torch.Tensor],
-                 inputs: Sequence[torch.Tensor], graph: bool = True, *,
-                 owner: str, batch: int):
+                 inputs: Sequence[torch.Tensor], *, owner: str, batch: int):
         self.tick = tick
         self.owner, self.batch = owner, batch
         self.states: List[torch.Tensor] = list(states)
@@ -76,40 +72,21 @@ class TickRunner:
         self._out = self._host_out = None
         if cuda:
             self._done = torch.cuda.Event()
-            if graph:
-                with span("tick.capture", cls=owner, batch=batch) as s:
-                    self._capture()
-                self.capture_s = s.seconds
+            s = span("tick.capture", cls=owner, batch=batch)
+            self.graph = captured(self._advance, self.device, s)
+            self.capture_s = s.seconds
+            if self.graph is not None:
+                self.reset()            # the warm-up's tick advanced them
 
-    def _step(self):
-        """The tick on the static buffers -> (new states, output row).
-        The new states are fresh tensors (or views of the inputs), so
-        copying them into the state buffers in turn reads no value
-        already overwritten."""
-        return self.tick(*self.states, *self.inputs)
-
-    def _advance(self):
-        new, out = self._step()
+    def _advance(self) -> torch.Tensor:
+        """The tick on the static buffers: the new states copied into the
+        state buffers, the output row kept as `_out` and returned.  The
+        new states are fresh tensors (or views of the inputs), so
+        copying them in turn reads no value already overwritten."""
+        new, self._out = self.tick(*self.states, *self.inputs)
         for s, n in zip(self.states, new):
             s.copy_(n)
-        return out
-
-    def _capture(self):
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.no_grad(), no_tf32():
-            with torch.cuda.stream(side):
-                self._step()                    # warm-up, results dropped
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                out = self._advance()
-        torch.cuda.synchronize(dev)
-        self._out = out
-        self._host_out = torch.empty(out.shape, dtype=out.dtype,
-                                     pin_memory=True)
-        self.graph = graph
+        return self._out
 
     def reset(self):
         for s in self.states:
@@ -140,14 +117,13 @@ class TickRunner:
                 x.copy_(h, non_blocking=True)
             if self.graph is not None:
                 self.graph.replay()
-                out = self._out
             else:
                 with torch.no_grad(), no_tf32():
-                    out = self._advance()
-                if self._host_out is None:
-                    self._host_out = torch.empty(
-                        out.shape, dtype=out.dtype, pin_memory=True)
-            self._host_out.copy_(out, non_blocking=True)
+                    self._advance()
+            if self._host_out is None:
+                self._host_out = torch.empty(
+                    self._out.shape, dtype=self._out.dtype, pin_memory=True)
+            self._host_out.copy_(self._out, non_blocking=True)
             self._done.record()
         with span("tick.wait"):
             self._done.synchronize()

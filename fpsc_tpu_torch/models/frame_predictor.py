@@ -46,7 +46,7 @@ from torch import nn
 from fpsc_tpu_torch.models.common import Dense
 from fpsc_tpu_torch.models.gru import GRU, bigru_scan, gru_seq, gru_step
 from fpsc_tpu_torch.quant.vq import mbest_search
-from fpsc_tpu_torch.utils.device import (capture_stream, no_cudnn, no_tf32,
+from fpsc_tpu_torch.utils.device import (captured, no_cudnn, no_tf32,
                                          replays)
 from fpsc_tpu_torch.utils.logging import span
 
@@ -126,6 +126,17 @@ def step(model: FramePredictor, h1: torch.Tensor, h2: torch.Tensor,
     h1 = gru_step(model.rnn1, h1, x)
     h2 = gru_step(model.rnn2, h2, h1)
     return _head(model, h2), h1, h2
+
+
+def decode_frame(model: FramePredictor, h1: torch.Tensor, h2: torch.Tensor,
+                 prev: torch.Tensor, pitch: torch.Tensor, r: torch.Tensor):
+    """One frame of the closed-loop decode: the prediction from the last
+    coded cepstra prev (B, 18) and this frame's pitch (B, 2), plus its
+    dequantised residual r (B, 18) -> (coded cepstra (B, 18), h1, h2).
+    The frame of `decoder`'s eager loop, of `DecodeChunks` and of the
+    streaming decoder's tick."""
+    f_out, h1, h2 = step(model, h1, h2, torch.cat([prev, pitch], dim=-1))
+    return f_out + r, h1, h2
 
 
 def mask_forward(model: FramePredictor, feat: torch.Tensor,
@@ -244,16 +255,14 @@ class DecodeChunks:
     [residual | lagged pitch], the carried `h1`, `h2` and `prev`, and the
     chunk's coded cepstra `out` (B, K, 18).
 
-    On the card the chunk is run once eagerly on a side stream (a
-    warm-up: cuBLAS's handle and workspace), then captured once as a
-    `torch.cuda.CUDAGraph` under `no_tf32` (the flags are read when a
-    product is captured, not when it is replayed), as
-    codec/ticks.py::TickRunner captures a tick; the capture is the span
-    `predictor.capture` [batch, chunk], and one that fails raises.  The
-    graph reads the parameters at the addresses they had at the capture
-    (an edit in place is followed; `decoder` captures anew for
-    parameters that moved).  On the CPU the chunk runs eagerly, with
-    the same function.  It builds no autograd graph."""
+    On the card the chunk is captured once (`utils.device.captured`: an
+    eager warm-up, then the capture, under `no_tf32`) as a CUDA graph;
+    the capture is the span `predictor.capture` [batch, chunk], and one
+    that fails raises.  The graph reads the parameters at the addresses
+    they had at the capture (an edit in place is followed; `decoder`
+    captures anew for parameters that moved).  On the CPU, and inside
+    `utils.device.eager()`, the chunk runs eagerly, with the same
+    function.  It builds no autograd graph."""
 
     def __init__(self, model: FramePredictor, batch: int,
                  like: torch.Tensor):
@@ -268,8 +277,9 @@ class DecodeChunks:
         self.out = zeros(batch, chunk, NB_CEPS)
         self.graph = None
         if like.is_cuda:
-            with span("predictor.capture", batch=batch, chunk=chunk):
-                self._capture(model)
+            self.graph = captured(
+                lambda: self._chunk(model), like.device,
+                span("predictor.capture", batch=batch, chunk=chunk))
 
     def _chunk(self, model: FramePredictor) -> None:
         """`decoder`'s loop over the chunk in `x` from the carried
@@ -277,28 +287,13 @@ class DecodeChunks:
         h1, h2, prev = self.h1, self.h2, self.prev
         coded = []
         for k in range(self.chunk):
-            f_out, h1, h2 = step(model, h1, h2, torch.cat(
-                [prev, self.x[:, k, NB_CEPS:]], dim=-1))
-            prev = f_out + self.x[:, k, :NB_CEPS]
+            prev, h1, h2 = decode_frame(model, h1, h2, prev,
+                                        self.x[:, k, NB_CEPS:],
+                                        self.x[:, k, :NB_CEPS])
             coded.append(prev)
         torch.stack(coded, dim=1, out=self.out)
         for s, new in ((self.h1, h1), (self.h2, h2), (self.prev, prev)):
             s.copy_(new)
-
-    @torch.no_grad()
-    def _capture(self, model: FramePredictor) -> None:
-        dev = self.x.device
-        side = capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with no_tf32():
-            with torch.cuda.stream(side):
-                self._chunk(model)              # warm-up, results dropped
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                self._chunk(model)
-        torch.cuda.synchronize(dev)
-        self.graph = graph
 
     @torch.no_grad()
     def run(self, model: FramePredictor, x: torch.Tensor) -> torch.Tensor:
@@ -373,9 +368,8 @@ def decoder(model: FramePredictor, pitch: torch.Tensor, r: torch.Tensor,
             prev = r.new_zeros((b, NB_CEPS))
             frames = []
             for t in range(length):
-                f_out, h1, h2 = step(model, h1, h2,
-                                     torch.cat([prev, pit[:, t]], dim=-1))
-                prev = f_out + r[:, t]
+                prev, h1, h2 = decode_frame(model, h1, h2, prev, pit[:, t],
+                                            r[:, t])
                 frames.append(prev)
             coded = torch.stack(frames, dim=1)
             s.attrs.update(graph=False, chunk=0, replays=0, padded=0)

@@ -49,7 +49,7 @@ from fpsc_tpu_torch.dsp import constants as C
 from fpsc_tpu_torch.dsp.emphasis import PREEMPH
 from fpsc_tpu_torch.models.common import Dense, Embedding
 from fpsc_tpu_torch.ops import wavenet_step
-from fpsc_tpu_torch.utils.device import capture_stream, no_tf32, replays
+from fpsc_tpu_torch.utils.device import captured, eager, no_tf32, replays
 from fpsc_tpu_torch.utils.logging import span
 
 SQRT_HALF = math.sqrt(0.5)
@@ -375,16 +375,15 @@ class GenerateChunks:
     of the kernel (`kernel` names its launch counter), which refuses
     widths its tiling does not divide; on the CPU `_plain_chunk`, the
     same steps in PyTorch (`kernel` is "").  On the card the chunk is
-    run once eagerly on a side stream (a warm-up), then captured once as
-    a `torch.cuda.CUDAGraph` under `no_tf32`, as
-    models/frame_predictor.py::DecodeChunks captures its chunk; the
-    capture is the span `wavenet.capture` [batch, chunk], and one that
-    fails raises.  Without `capture` the chunk runs eagerly, on the card
-    the same kernel.  `run` copies the WaveNet's step weights into the
-    static buffers first, so an edited or moved module is followed."""
+    captured once (`utils.device.captured`: an eager warm-up, then the
+    capture, under `no_tf32`) as a CUDA graph; the capture is the span
+    `wavenet.capture` [batch, chunk], and one that fails raises.  Inside
+    `utils.device.eager()` the chunk runs eagerly, on the card the same
+    kernel.  `run` copies the WaveNet's step weights into the static
+    buffers first, so an edited or moved module is followed."""
 
     def __init__(self, model: Wavenet, rows: int, device: torch.device,
-                 deemphasis: float = PREEMPH, capture: bool = True):
+                 deemphasis: float = PREEMPH):
         cfg = model.cfg
         _check_generation(cfg)
         chunk = WAVENET_CHUNK
@@ -439,9 +438,10 @@ class GenerateChunks:
             self.packed, *self.front, f1, f1_b, f2, f2_b, self.cond,
             self.eps, self.lpc, self.rings, self.x, self.y, self.pos)
         self.graph = None
-        if capture and dev.type == "cuda":
-            with span("wavenet.capture", batch=rows, chunk=chunk):
-                self._capture()
+        if dev.type == "cuda":
+            self.graph = captured(
+                self._chunk, dev,
+                span("wavenet.capture", batch=rows, chunk=chunk))
 
     @torch.no_grad()
     def load(self, model: Wavenet) -> None:
@@ -505,21 +505,6 @@ class GenerateChunks:
             self.pos += 1
         self.x[:lead].copy_(self.x[chunk:].clone())
         self.y[0].copy_(self.y[chunk])
-
-    @torch.no_grad()
-    def _capture(self) -> None:
-        dev = self.x.device
-        side = capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with no_tf32():
-            with torch.cuda.stream(side):
-                self._chunk()                   # warm-up, results dropped
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                self._chunk()
-        torch.cuda.synchronize(dev)
-        self.graph = graph
 
     def _project(self, cond: torch.Tensor) -> None:
         """Every layer's conditioning term of the samples `cond` (n, b,
@@ -598,8 +583,8 @@ def _generate_chunks(model: Wavenet, batch: int, device: torch.device,
     graphs kept.)  Elsewhere a GenerateChunks of this batch, run
     eagerly and not kept."""
     if not replays(device):
-        return GenerateChunks(model, batch, device, deemphasis,
-                              capture=False)
+        with eager():
+            return GenerateChunks(model, batch, device, deemphasis)
     kept = _CHUNKS.get(model)
     if (kept is None or kept.rows < batch or kept.device != device
             or kept.deemphasis != deemphasis):

@@ -87,7 +87,7 @@ from fpsc_tpu_torch.dsp.mulaw import l2u_index, u2l
 from fpsc_tpu_torch.models.gru import gate_update
 from fpsc_tpu_torch.models.lpcnet import excitation_cdf, frame_net, round_to
 from fpsc_tpu_torch.ops import build
-from fpsc_tpu_torch.utils.device import host_array, no_tf32
+from fpsc_tpu_torch.utils.device import captured, host_array, no_tf32
 from fpsc_tpu_torch.utils.logging import span
 
 SOURCE = "lpcnet_sampler.cu"
@@ -618,16 +618,16 @@ class _ReplayCheck:
         return other
 
 
-def _run_frames(frame, frame_inputs, out, tr, frames: int, dev,
-                graph: bool = True) -> None:
+def _run_frames(frame, frame_inputs, out, tr, frames: int, dev) -> None:
     """frame(*frame_inputs(f), out[:, f], tr[:, f]) for every frame f.
 
-    On the card, with `graph`, frame 0 runs as it is (which also warms
-    the libraries up), and the later frames replay a CUDA graph of one
-    frame, their streams copied into its inputs and its outputs copied
-    out: the same kernels on the same values, launched once a frame in
-    place of some hundred times a step, which bound the plain loop by
-    the host."""
+    On the card, with more than one frame, frame 0 runs as the warm-up of
+    a capture of one frame (`utils.device.captured`), and the later
+    frames replay that graph, their streams copied into its inputs and
+    its outputs copied out: the same kernels on the same values,
+    launched once a frame in place of some hundred times a step, which
+    bound the plain loop by the host.  Elsewhere, and inside
+    `utils.device.eager()`, every frame runs op by op."""
     def outs(f):
         return [out[:, f], None if tr is None else tr[:, f]]
 
@@ -636,21 +636,17 @@ def _run_frames(frame, frame_inputs, out, tr, frames: int, dev,
             if d is not None:
                 d.copy_(s)
 
-    if dev.type != "cuda" or not graph or frames == 1:
+    g = None
+    if dev.type == "cuda" and frames > 1:
+        static_in = [None if x is None else x.clone()
+                     for x in frame_inputs(0)]
+        static_out = [None if x is None else x.clone() for x in outs(0)]
+        g = captured(lambda: frame(*static_in, *static_out), dev)
+    if g is None:
         for f in range(frames):
             frame(*frame_inputs(f), *outs(f))
         return
-    static_in = [None if x is None else x.clone() for x in frame_inputs(0)]
-    static_out = [None if x is None else x.clone() for x in outs(0)]
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        frame(*static_in, *static_out)
-    torch.cuda.current_stream(dev).wait_stream(side)
     copy(outs(0), static_out)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=side):
-        frame(*static_in, *static_out)
     for f in range(1, frames):
         copy(static_in, frame_inputs(f))
         g.replay()
@@ -659,7 +655,7 @@ def _run_frames(frame, frame_inputs, out, tr, frames: int, dev,
 
 @torch.no_grad()
 def _plain(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False,
-           replay=None, graph: bool = True):
+           replay=None):
     dt, b, bunch, lv = meta.dtype, meta.batch, meta.bunch, meta.levels
     n_emb, n_head = 2 * bunch + 1, HEAD_EMBEDS[bunch]
     steps = C.FRAME_SIZE // bunch
@@ -763,7 +759,7 @@ def _plain(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False,
         for old, new in zip(state, (h_a, h_b, hist, e_prev, prev_y)):
             old.copy_(new)
 
-    _run_frames(frame, frame_inputs, out, tr, meta.frames, dev, graph)
+    _run_frames(frame, frame_inputs, out, tr, meta.frames, dev)
     out = out.reshape(b, -1)
     if check is not None:
         return Replay(out=out, out_err=float((replay[0] - out).abs().max()),

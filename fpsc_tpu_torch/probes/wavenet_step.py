@@ -32,7 +32,7 @@ from fpsc_tpu_torch.models import wavenet as wn
 from fpsc_tpu_torch.ops import wavenet_step
 from fpsc_tpu_torch.probes import timing
 from fpsc_tpu_torch.probes.span_cost import where
-from fpsc_tpu_torch.utils.device import capture_stream, no_tf32, \
+from fpsc_tpu_torch.utils.device import captured, eager, no_tf32, \
     resolve_device
 
 # The card's published float32 rate and HBM bandwidth (an H100 SXM)
@@ -64,7 +64,8 @@ def carried(model: wn.Wavenet, rows: int, device, seed: int = 0,
                                    periods.to(device),
                                    wn.sample_lpc(lpc.to(device)))
     eps = eps.to(device)
-    chunks = wn.GenerateChunks(model, rows, device, capture=False)
+    with eager():
+        chunks = wn.GenerateChunks(model, rows, device)
     k = chunks.chunk
     with torch.no_grad(), no_tf32():
         chunks._project(cond[:wn.COND_BLOCK])
@@ -142,24 +143,8 @@ def least_step_us(cfg: wn.WavenetConfig, rows: int,
     return least_step(cfg, rows, projection)[0]
 
 
-def replayed(fn, device) -> torch.cuda.CUDAGraph:
-    """fn captured as a graph on the capture stream, after one warm-up
-    there, as GenerateChunks captures its chunk."""
-    side = capture_stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.no_grad(), no_tf32():
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            fn()
-    torch.cuda.synchronize(device)
-    return graph
-
-
 def step_us(chunks: wn.GenerateChunks, fn, reps: int) -> float:
-    graph = replayed(fn, chunks.device)
+    graph = captured(fn, chunks.device)
     return 1e3 * timing.median_ms(graph.replay, chunks.x, reps) / chunks.chunk
 
 

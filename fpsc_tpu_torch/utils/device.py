@@ -1,16 +1,23 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and the capture of its
+replayed loops.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, as the tests do).  Without a card and without that
 request they raise: nothing carries on silently on the CPU.
+
+Every loop the port replays as a CUDA graph on the card is captured by
+`captured`; inside `eager()` each runs its step eagerly instead.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Tuple, Union
+import threading
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from fpsc_tpu_torch.utils.logging import span
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -107,15 +114,37 @@ def no_cudnn():
 def replays(device: torch.device) -> bool:
     """Whether a model's chunked loop (frame_predictor.DecodeChunks,
     wavenet.GenerateChunks) replays a captured graph for operands on
-    `device`: on the card, with grad mode off and no stream capture
-    under way on the current stream."""
+    `device`: on the card, with grad mode off, outside `eager()` and
+    with no stream capture under way on the current stream."""
     return (device.type == "cuda" and not torch.is_grad_enabled()
+            and not _eager.depth
             and not torch.cuda.is_current_stream_capturing())
 
 
-# device -> the one side stream of every chunk capture on it: cuBLAS
-# keeps a workspace for each stream it has run on, so a new stream a
-# capture would hold one more workspace each time
+class _Eager(threading.local):
+    depth = 0           # the calling thread's open `eager()` blocks
+
+
+_eager = _Eager()
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside the block (of the calling thread; blocks nest) `captured`
+    captures nothing and `replays` is false, so every replayed loop of
+    the port runs its step eagerly on the card: the reference its graph
+    is held to."""
+    depth = _eager.depth
+    _eager.depth = depth + 1
+    try:
+        yield
+    finally:
+        _eager.depth = depth
+
+
+# device -> the one side stream of every capture on it: cuBLAS keeps a
+# workspace for each stream it has run on, so a new stream a capture
+# would hold one more workspace each time
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
@@ -123,3 +152,34 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     if device not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
     return _CAPTURE_STREAMS[device]
+
+
+def captured(step: Callable[[], object], device: torch.device,
+             within: Optional[span] = None
+             ) -> Optional["torch.cuda.CUDAGraph"]:
+    """`step`, a function of no arguments on static buffers of the card
+    `device`, as a CUDA graph with its own memory pool; inside `eager()`
+    None, nothing run.  On the device's one capture stream the step runs
+    once eagerly (the libraries' handles and workspaces and the constant
+    tables made, so that nothing is copied from the host during the
+    capture; its writes stay), then is captured, grad mode and TF32 off
+    (the flags are read at the capture, not at a replay).  A capture
+    that fails raises.  `within`, the owner's capture span, is open
+    around both."""
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph is captured on the card, not on "
+                         f"{device}")
+    if _eager.depth:
+        return None
+    with within if within is not None else contextlib.nullcontext():
+        side = capture_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), no_tf32():
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                step()
+        torch.cuda.synchronize(device)
+    return graph

@@ -36,6 +36,7 @@ from fpsc_tpu_torch.probes import (probe_draw_tail, probe_gates,
 from fpsc_tpu_torch.ops.sampler_faults import (
     drop_block, reverse_excitations, reverse_row_scales, scales_to_one,
     swap_head_positions, swap_head_samples)
+from fpsc_tpu_torch.utils import device as udev
 from fpsc_tpu_torch.utils.device import torch_threads
 
 SMALL = LPCNetConfig(gru_a_units=48, gru_b_units=16, embed_dim=16,
@@ -299,12 +300,15 @@ def test_plain_version_under_a_cuda_graph_is_the_op_by_op_one(cuda_device,
     are those of the same loop launched op by op."""
     ops, meta = _form_operands(form, dtype, frames=3, device=cuda_device)
     got, trace = ts.sample_plain(ops, meta, trace=True)
-    want, want_trace = ts._plain(ops, meta, trace=True, graph=False)
+    with udev.eager():
+        want, want_trace = ts._plain(ops, meta, trace=True)
     assert torch.equal(got, want) and torch.equal(trace, want_trace)
     wrong = reverse_excitations(ops, meta)
-    other = ts._plain(*wrong, trace=True, graph=False)
+    with udev.eager():
+        other = ts._plain(*wrong, trace=True)
     r = ts.replay_plain(ops, meta, *other)
-    r_ops = ts._plain(ops, meta, replay=other, graph=False)
+    with udev.eager():
+        r_ops = ts._plain(ops, meta, replay=other)
     assert torch.equal(r.out, r_ops.out)
     assert r._replace(out=None) == r_ops._replace(out=None)
     assert r.draw_mismatches > 0
@@ -763,10 +767,10 @@ def _stream_parts(device, full=False):
     return pred.to(device), books, fec, voc.to(device)
 
 
-def _stream_make(kind, parts, device, graph=True, b=STREAM_B):
+def _stream_make(kind, parts, device, b=STREAM_B):
     from fpsc_tpu_torch.codec import streaming as st
     pred, books, fec, voc = parts
-    kw = dict(batch=b, device=device, graph=graph)
+    kw = dict(batch=b, device=device)
     return {
         "frontend": lambda: st.StreamingFrontend(**kw),
         "encoder": lambda: st.StreamingEncoder(pred, books, **kw),
@@ -833,12 +837,13 @@ def _stream_tick(kind, obj, inputs, k):
 @pytest.mark.parametrize("kind", STREAM_KINDS)
 def test_streaming_graph_equals_eager(cuda_device, stream_inputs, kind):
     """Each class's replayed CUDA graph gives its eager tick on the card
-    (graph=False) bit for bit, tick after tick, the same uniforms in both
-    (one seed).  (chip_smoke.py holds the card to the CPU, knife edges
-    counted.)"""
+    (inside utils.device.eager()) bit for bit, tick after tick, the same
+    uniforms in both (one seed).  (chip_smoke.py holds the card to the
+    CPU, knife edges counted.)"""
     parts = _stream_parts(cuda_device)
     graph = _stream_make(kind, parts, cuda_device)
-    eager = _stream_make(kind, parts, cuda_device, graph=False)
+    with udev.eager():
+        eager = _stream_make(kind, parts, cuda_device)
     assert graph._tick.graph is not None and eager._tick.graph is None
     assert graph._tick.capture_s > 0
     for k in range(STREAM_TICKS):
@@ -888,12 +893,13 @@ def test_streaming_tf32_on_gives_the_f32_tick(cuda_device, stream_inputs):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             if tf32:
                 assert not torch.equal(x @ w.T, want)
+            objs = [_stream_make("codec_pcm", parts, cuda_device)]
+            with udev.eager():
+                objs.append(_stream_make("codec_pcm", parts, cuda_device))
             runs[tf32] = [
                 [_stream_tick("codec_pcm", obj, stream_inputs, k)
                  for k in range(3)]
-                for obj in (_stream_make("codec_pcm", parts, cuda_device),
-                            _stream_make("codec_pcm", parts, cuda_device,
-                                         graph=False))]
+                for obj in objs]
             assert torch.backends.cuda.matmul.allow_tf32 == tf32
     finally:
         torch.backends.cudnn.allow_tf32 = False
@@ -1682,7 +1688,8 @@ def test_wavenet_graph_equals_the_eager_steps(cuda_device, batch, frames):
     assert [(s.attrs["batch"], s.attrs["chunk"]) for s in captures] == [
         (batch, wn.WAVENET_CHUNK)]
     assert [s.attrs["graph"] for s in gens] == [True, True]
-    eager = wn.GenerateChunks(model, batch, cuda_device, capture=False)
+    with udev.eager():
+        eager = wn.GenerateChunks(model, batch, cuda_device)
     assert eager.graph is None
     want = eager.run(model, cond, lpc, eps)
     loop = wn.generate_lpc(model, model.cfg, feat, periods, lpc_sample,

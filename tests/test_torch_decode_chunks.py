@@ -9,12 +9,15 @@ dropped, at lengths around the chunk size, batch 1 and 3 and both pitch
 lags, with `torch.equal`.  `replays` keeps the CPU, grad mode and a
 caller inside a stream capture on the eager loop; the cache keeps at
 most DECODE_GRAPHS chunks a predictor and keys them by the parameters'
-addresses.  Nothing here loads JAX.
+addresses.  The one decode frame (`decode_frame`) is `decoder`'s and the
+streaming decoder's tick's.  Nothing here loads JAX.
 """
 import numpy as np
 import pytest
 import torch
 
+from fpsc_tpu_torch.codec import streaming
+from fpsc_tpu_torch.codec.codec import dequantize_residual
 from fpsc_tpu_torch.models import frame_predictor as fp
 from fpsc_tpu_torch.utils.device import torch_threads
 
@@ -149,3 +152,44 @@ def test_the_cache_is_bounded_and_keyed_by_the_parameters(monkeypatch):
     decode(1, seed=4)
     assert len(made) == 2 * fp.DECODE_GRAPHS + 2
     assert len(kept) == fp.DECODE_GRAPHS
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_one_decode_frame_is_the_decoders_and_the_streaming_ticks(model,
+                                                                  batch):
+    """`decode_frame` frame after frame gives `decoder`'s coded frames,
+    and the streaming decoder's tick on the same symbols gives them too,
+    with `torch.equal`."""
+    g = torch.Generator().manual_seed(batch)
+    books = fp.Codebooks(
+        scl=torch.randn(8, generator=g) * 0.05,
+        vq=(torch.randn(16, 17, generator=g) * 0.05,
+            torch.randn(8, 17, generator=g) * 0.02),
+        scl_bl=torch.randn(4, generator=g) * 0.02,
+        vq_bl=(torch.randn(8, 17, generator=g) * 0.02,))
+    length = 7
+    ind1 = torch.rand((batch, length), generator=g) > 0.5
+    ind2 = torch.rand((batch, length), generator=g) > 0.5
+    indices = {"scl": torch.randint(8, (batch, length), generator=g),
+               "scl_bl": torch.randint(4, (batch, length), generator=g),
+               "vq": torch.stack([torch.randint(16, (batch, length),
+                                                generator=g),
+                                  torch.randint(8, (batch, length),
+                                                generator=g)], -1),
+               "vq_bl": torch.randint(8, (batch, length, 1), generator=g)}
+    pitch, _ = _operands(batch, length, seed=batch)
+    r = dequantize_residual(books, ind1, ind2, indices)
+    tick = streaming._decoder_step(model, books)
+    state = tuple(torch.zeros((batch, n)) for n in (
+        model.rnn1.units, model.rnn2.units, fp.NB_CEPS))
+    with torch.no_grad():
+        want = fp.decoder(model, pitch, r)
+        h1, h2, prev = state
+        for t in range(length):
+            prev, h1, h2 = fp.decode_frame(model, h1, h2, prev, pitch[:, t],
+                                           r[:, t])
+            assert torch.equal(prev, want[:, t, :fp.NB_CEPS]), t
+            state, coded = tick(state, ind1[:, t], ind2[:, t],
+                                {k: v[:, t] for k, v in indices.items()},
+                                pitch[:, t])
+            assert torch.equal(coded, want[:, t]), t

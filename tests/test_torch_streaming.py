@@ -31,6 +31,8 @@ frontend features of it.  Tolerances:
 * a batch of N against N single streams: rtol 1e-4, atol 1e-5 (as
   JAX's own test); reset() then the same ticks: equal.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -404,3 +406,19 @@ def test_rows_refuse_a_wrong_shape():
         ts._rows(np.zeros((2, 20)), 3, 20)
     np.testing.assert_array_equal(ts._rows(np.ones(20), 1, 20),
                                   np.ones((1, 20), np.float32))
+
+
+@pytest.mark.parametrize("name", [
+    "StreamingFrontend", "StreamingEncoder", "StreamingDecoder",
+    "StreamingVocoder", "StreamingReceiver", "StreamingTransmitter",
+    "StreamingCodec"])
+def test_constructors_take_jaxs_parameters_and_a_device(name):
+    """Each class's parameters are its JAX twin's, in order and with its
+    defaults, and then `device`: whether a tick replays a graph is no
+    constructor's choice (utils.device.eager)."""
+    def params(cls):
+        return [(p.name, p.default) for p in
+                inspect.signature(cls.__init__).parameters.values()]
+
+    assert params(getattr(ts, name)) == params(getattr(js, name)) + [
+        ("device", None)]

@@ -22,7 +22,7 @@ from fpsc_tpu_torch.ops import build
 from fpsc_tpu_torch.ops import wavenet_step as ws
 from fpsc_tpu_torch.probes import wavenet_step as probe
 from fpsc_tpu_torch.utils import logging as log
-from fpsc_tpu_torch.utils.device import torch_threads
+from fpsc_tpu_torch.utils.device import eager, torch_threads
 
 SMALL = dict(num_blocks=2, num_layers=3, residual_channels=16,
              gate_channels=24, skip_channels=16, cout_channels=24,
@@ -264,8 +264,9 @@ def test_a_rows_samples_do_not_depend_on_the_rows_beside_it(cuda_device):
     cond, lpc_rev = wn.step_inputs(model, model.cfg, feat, periods, lpc)
 
     def run(rows):
-        chunks = wn.GenerateChunks(model, rows.stop - rows.start,
-                                   cuda_device, capture=False)
+        with eager():
+            chunks = wn.GenerateChunks(model, rows.stop - rows.start,
+                                       cuda_device)
         return chunks.run(model, cond[:, rows], lpc_rev[:, rows],
                           eps[:, rows])
 
