@@ -55,6 +55,7 @@ import os
 import sys
 import time
 import wave
+from itertools import islice
 from math import gcd
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -78,7 +79,8 @@ from fpsc_tpu_torch.ops import lpcnet_sampler
 from fpsc_tpu_torch.train import checkpoint as ckpt
 from fpsc_tpu_torch.train.train_frame import load_predictor
 from fpsc_tpu_torch.train.train_vocoder import model_config
-from fpsc_tpu_torch.utils.device import resolve_device, split_device_arg
+from fpsc_tpu_torch.utils.device import (resolve_device, side_streams,
+                                         split_device_arg)
 from fpsc_tpu_torch.utils.logging import span
 
 # (frames, batch) -> (frames, batch, 160) uniforms in [0, 1)
@@ -392,8 +394,16 @@ def decode_file(cfg: Config, in_path: str, out_dir: str,
     batch) come from `torch.randn` of a torch.Generator on the device
     seeded with 0 a bucket, so that a caller can draw them again.
 
-    The phases (unpack, then for each bucket feature_decode, ceps2lpc,
-    prologue and sampler, or with the WaveNet prologue and wavenet, then
+    The buckets of the LPCNet run in groups whose rows fit one wave of
+    the card's SMs (a wider bucket alone): each bucket of a group is
+    prepared in turn, then the group's sampler launches go out together,
+    each on its own CUDA stream, and are waited on once.  The WaveNet's
+    buckets run one after another.
+
+    The phases (unpack; then for each group, for each of its buckets
+    feature_decode, ceps2lpc and prologue, then one sampler [launches:
+    the group's sampler launches, made before its one wait]; or for each
+    WaveNet bucket feature_decode, ceps2lpc, prologue and wavenet; then
     write) are spans `decode.<phase>` under a span `decode`; `timings`,
     when given, collects their wall seconds, the device synchronised at
     each boundary.
@@ -469,8 +479,9 @@ def _decode_file(cfg: Config, in_path: str, out_dir: str, artifacts,
     phases.root.attrs.update(utterances=len(order), buckets=len(buckets))
     phases.begin("feature_decode" if buckets else "write")
 
-    out = {}
-    for b, (n_frames, names) in enumerate(buckets.items()):
+    def features(n_frames: int, names: List[str]):
+        """The bucket's coded features (phase feature_decode), then its
+        raw-scale features, periods and LPC (phase ceps2lpc)."""
         phases.note(batch=len(names), frames=n_frames)
 
         def stack(f):
@@ -498,27 +509,47 @@ def _decode_file(cfg: Config, in_path: str, out_dir: str, artifacts,
         coded_un = coded * scale
         periods = (0.1 + 50.0 * coded_un[..., 18] + 100.0).to(torch.int32)
         _, lpc, _ = ceps2lpc(coded_un.reshape(-1, 20)[:, :18])
-        lpc = lpc.reshape(coded_un.shape[0], -1, 16)
-        phases.begin("prologue")
-        if cfg.codec.vocoder == "wavenet":
-            y = _synthesize_wavenet(vocoder, coded, periods, lpc, phases)
-        else:
-            if uniforms is None:
-                gen = torch.Generator(device=dev).manual_seed(0)
-                u = torch.rand((n_frames, len(names), C.FRAME_SIZE),
-                               generator=gen, device=dev)
-            else:
-                u = torch.as_tensor(
-                    np.asarray(uniforms(n_frames, len(names))),
-                    dtype=torch.float32, device=dev)
-            y = _synthesize(vocoder, coded, periods, lpc, coded_un[..., 19],
-                            u, sampler_dtype, phases)
-        # this bucket's copies to the host count to the phase after
-        phases.begin("feature_decode" if b + 1 < len(buckets) else "write")
+        return coded, coded_un, periods, lpc.reshape(coded_un.shape[0], -1, 16)
+
+    out = {}
+
+    def keep(names: List[str], coded, lpc, y) -> None:
         coded, lpc, y = (x.cpu().numpy() for x in (coded, lpc, y))
         for i, name in enumerate(names):
             out[name] = {"name": name, "coded": coded[i], "lpc": lpc[i],
                          "wav": y[i]}
+
+    if cfg.codec.vocoder == "wavenet":
+        # every bucket replays the WaveNet's one graph on its static
+        # buffers (wavenet.GenerateChunks): one bucket after another
+        for b, (n_frames, names) in enumerate(buckets.items()):
+            coded, _, periods, lpc = features(n_frames, names)
+            phases.begin("prologue")
+            y = _synthesize_wavenet(vocoder, coded, periods, lpc, phases)
+            # this bucket's copies to the host count to the phase after
+            phases.begin("feature_decode" if b + 1 < len(buckets)
+                         else "write")
+            keep(names, coded, lpc, y)
+    else:
+        items = iter(buckets.items())
+        groups = _groups([len(names) for names in buckets.values()],
+                         _wave(dev))
+        for g, size in enumerate(groups):
+            held = []       # alive until the group's launches are waited on
+            for i, (n_frames, names) in enumerate(islice(items, size)):
+                if i:
+                    phases.begin("feature_decode")
+                coded, coded_un, periods, lpc = features(n_frames, names)
+                phases.begin("prologue")
+                held.append((names, coded, lpc, _prologue(
+                    vocoder, coded, periods, lpc, coded_un[..., 19],
+                    uniforms, sampler_dtype)))
+            phases.begin("sampler", launches=size)
+            ys = _sample_together([p for *_, p in held], dev)
+            # the group's copies to the host count to the phase after
+            phases.begin("feature_decode" if g + 1 < len(groups) else "write")
+            for (names, coded, lpc, _), y in zip(held, ys):
+                keep(names, coded, lpc, y)
 
     results = []
     for name in order:
@@ -532,18 +563,74 @@ def _decode_file(cfg: Config, in_path: str, out_dir: str, artifacts,
     return results
 
 
-def _synthesize(vocoder, coded, periods, lpc, corr, u,
-                dtype: torch.dtype, phases: _Phases) -> torch.Tensor:
-    """Vocoder on the NORMALISED coded features, with the raw-scale
-    correlation, unclipped.  A vocoder whose GRU_A recurrent weights
-    are block-sparse runs the kernel's sparse form (auto_block_pattern),
-    and a bucket of more than 128 utterances its cdf product (prepare's
-    default), as the JAX decoder does."""
-    ops, meta = lpcnet_sampler.prepare(
+def _prologue(vocoder, coded, periods, lpc, corr,
+              uniforms: Optional[UniformSource], dtype: torch.dtype):
+    """The sampler's operands and meta for a bucket: its uniforms (from
+    a torch.Generator on the device seeded with 0, or `uniforms`), then
+    lpcnet_sampler.prepare on the NORMALISED coded features, with the
+    raw-scale correlation, unclipped.  A vocoder whose GRU_A recurrent
+    weights are block-sparse runs the kernel's sparse form
+    (auto_block_pattern), and a bucket of more than 128 utterances its
+    cdf product (prepare's default), as the JAX decoder does."""
+    batch, n_frames, _ = coded.shape
+    dev = coded.device
+    if uniforms is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        u = torch.rand((n_frames, batch, C.FRAME_SIZE), generator=gen,
+                       device=dev)
+    else:
+        u = torch.as_tensor(np.asarray(uniforms(n_frames, batch)),
+                            dtype=torch.float32, device=dev)
+    return lpcnet_sampler.prepare(
         vocoder, coded, periods, lpc, u, corr=corr, dtype=dtype,
         gru_a_pattern=lpcnet_sampler.auto_block_pattern(vocoder))
-    phases.begin("sampler")
-    return lpcnet_sampler.sample(ops, meta)
+
+
+def _wave(dev: torch.device) -> float:
+    """The rows a group of buckets may hold: one wave of the card's SMs
+    (the sampler kernel runs one thread block a row); on the CPU, whose
+    plain sampler runs one bucket after another, no bound."""
+    if dev.type != "cuda":
+        return float("inf")
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _groups(rows: Sequence[int], limit: float) -> List[int]:
+    """The sizes of the consecutive groups that buckets of these row
+    counts form, in turn: a group takes the next bucket while their rows
+    fit `limit`; a bucket wider than that is a group of its own."""
+    sizes, held = [], 0
+    for r in rows:
+        if not sizes or held + r > limit:
+            sizes.append(0)
+            held = 0
+        sizes[-1] += 1
+        held += r
+    return sizes
+
+
+def _sample_together(prepared, dev: torch.device) -> List[torch.Tensor]:
+    """The sampler of every (operands, meta) of `prepared` -> each one's
+    (B, L*160) audio.  On the card the launches go out together, each on
+    its own stream of the device's pool (utils/device.py::side_streams)
+    after the work that made its operands, and the current stream then
+    waits for all of them; the caller holds the operands until that
+    wait, so that none returns to the allocator while a launch still
+    reads it.  On the CPU the plain sampler runs them one after
+    another.  The audio is each launch's own, as one launch at a time
+    gives it."""
+    if dev.type != "cuda":
+        return [lpcnet_sampler.sample(ops, meta) for ops, meta in prepared]
+    cur = torch.cuda.current_stream(dev)
+    streams = side_streams(dev, len(prepared))
+    ys = []
+    for s, (ops, meta) in zip(streams, prepared):
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            ys.append(lpcnet_sampler.sample(ops, meta))
+    for s in streams:
+        cur.wait_stream(s)
+    return ys
 
 
 def _synthesize_wavenet(vocoder: wn.Wavenet, coded, periods, lpc,

@@ -87,7 +87,8 @@ from fpsc_tpu_torch.dsp.mulaw import l2u_index, u2l
 from fpsc_tpu_torch.models.gru import gate_update
 from fpsc_tpu_torch.models.lpcnet import excitation_cdf, frame_net, round_to
 from fpsc_tpu_torch.ops import build
-from fpsc_tpu_torch.utils.device import captured, host_array, no_tf32
+from fpsc_tpu_torch.utils.device import (captured, host_array, no_tf32,
+                                         side_stream_index)
 from fpsc_tpu_torch.utils.logging import span
 
 SOURCE = "lpcnet_sampler.cu"
@@ -949,13 +950,17 @@ def sample(ops: SamplerOperands, meta: SamplerMeta, trace: bool = False):
     span `sampler.launch` (utils/logging.py), with its kernel (its
     launch counter's name, or sample_plain on the CPU), batch, frames,
     bunch and GRU steps; on the card both hold the host's time to
-    launch, not the kernel's."""
+    launch, not the kernel's; its stream is the index of the stream it
+    went out on in the device's pool of side streams
+    (utils/device.py::side_streams), None on another stream or the
+    CPU."""
     _check(ops, meta)
     dev = ops.u.device
     launch = span("sampler.launch", kernel=(
         "sample_plain" if dev.type == "cpu" else kernel_name(meta)),
         batch=meta.batch, frames=meta.frames, bunch=meta.bunch,
-        steps=meta.frames * C.FRAME_SIZE // meta.bunch)
+        steps=meta.frames * C.FRAME_SIZE // meta.bunch,
+        stream=side_stream_index(dev))
     if dev.type == "cpu":
         with launch:
             return sample_plain(ops, meta, trace=trace)

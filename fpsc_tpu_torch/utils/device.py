@@ -7,6 +7,8 @@ request they raise: nothing carries on silently on the CPU.
 
 Every loop the port replays as a CUDA graph on the card is captured by
 `captured`; inside `eager()` each runs its step eagerly instead.
+Launches that run together, each on its own stream, take their streams
+from `side_streams`.
 """
 from __future__ import annotations
 
@@ -152,6 +154,36 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     if device not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
     return _CAPTURE_STREAMS[device]
+
+
+# device -> the side streams on which launches that run together go out
+# (codec/cli.py's sampler launches of a group of buckets), made at first
+# use and kept: the pool grows to the widest group a process has run
+_SIDE_STREAMS: Dict[torch.device, List["torch.cuda.Stream"]] = {}
+
+
+def _card(device: torch.device) -> torch.device:
+    """The card `device` names, with its index."""
+    device = torch.device(device)
+    return (device if device.index is not None
+            else torch.device("cuda", torch.cuda.current_device()))
+
+
+def side_streams(device: torch.device, n: int) -> List["torch.cuda.Stream"]:
+    """The first n streams of the card's pool of side streams."""
+    pool = _SIDE_STREAMS.setdefault(_card(device), [])
+    pool.extend(torch.cuda.Stream(device) for _ in range(n - len(pool)))
+    return pool[:n]
+
+
+def side_stream_index(device: torch.device) -> Optional[int]:
+    """The index in the card's pool of side streams of the current
+    stream; None for another stream, or off the card."""
+    if device.type != "cuda":
+        return None
+    current = torch.cuda.current_stream(device)
+    pool = _SIDE_STREAMS.get(_card(device), [])
+    return next((i for i, s in enumerate(pool) if s == current), None)
 
 
 def captured(step: Callable[[], object], device: torch.device,

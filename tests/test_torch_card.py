@@ -1809,3 +1809,63 @@ def test_wavenet_decode_file_replays_its_generation(cuda_device, tmp_path):
     for a, b in zip(*runs):
         assert np.isfinite(a["wav"]).all()
         np.testing.assert_array_equal(a["wav"], b["wav"])
+
+
+@pytest.mark.cuda
+def test_flagship_decode_launches_its_buckets_together(cuda_device,
+                                                       tmp_path):
+    """decode_file at the flagship's widths (bunch=2, GRU_B 32, GRU_A
+    block-sparse, range-coded) on a container of 4 utterances of
+    distinct lengths, so 4 buckets of one row: one sampler phase with
+    launches 4, each launch on its own stream of the device's pool, the
+    same streams on every call; one sampler launch and one fold a
+    bucket; the coded frames, LPC and audio bit for bit those of each
+    utterance decoded alone, in a container of its own."""
+    import chip_smoke as cs
+    from fpsc_tpu_torch.codec import cli
+    from fpsc_tpu_torch.utils import logging as log
+    rng = np.random.RandomState(7)
+    cb_path, books, sizes, priors = cs._books(
+        str(tmp_path), cs._config(cs.FLAGSHIP, ""), "together", rng)
+    cfg = cs._config(cs.FLAGSHIP, cb_path)
+    orders = cs.rc.scalar_orders(books)
+    utts = []
+    for i, frames in enumerate((23, 9, 41, 16)):
+        ind1, ind2, idx = cs._symbols(rng, sizes, frames)
+        utts.append((f"u{i}", cs.rc.pack_utterance_rc(
+            ind1, ind2, idx, cs.bs.quantize_pitch(cs._pitch(rng, frames)),
+            sizes, priors=priors, orders=orders)))
+    artifacts, vocoder = cs._artifacts(cfg, cuda_device, sparse=True)
+
+    def run(name, items):
+        path = str(tmp_path / f"{name}.fpsc")
+        cs.container.write_fpsc(path, items, sizes, entropy=True)
+        return cli.decode_file(cfg, path, str(tmp_path / name),
+                               artifacts=artifacts, vocoder=vocoder,
+                               device=cuda_device)
+
+    run("warm", utts)                    # the build and the captures
+    pool = udev.side_streams(cuda_device, 4)
+    before = dict(build.launch_counts)
+    log.clear_spans()
+    together = run("together", utts)
+    counts = {k: n - before.get(k, 0) for k, n in build.launch_counts.items()}
+    by = {}
+    for s in log.spans():
+        by.setdefault(s.name, []).append(s)
+    (phase,) = by["decode.sampler"]
+    assert phase.attrs == {"launches": 4}
+    launches = by["sampler.launch"]
+    assert [s.parent for s in launches] == [phase.id] * 4
+    assert [s.attrs["stream"] for s in launches] == [0, 1, 2, 3]
+    assert [s.attrs["batch"] for s in launches] == [1] * 4
+    (kernel,) = {s.attrs["kernel"] for s in launches}
+    assert counts[kernel] == 4 and counts[ts.FOLD_KERNEL] == 4
+    assert all(a is b for a, b in zip(pool, udev.side_streams(cuda_device,
+                                                              4)))
+    alone = [run(name, [(name, payload)])[0] for name, payload in utts]
+    for a, b in zip(together, alone):
+        assert a["name"] == b["name"]
+        assert np.isfinite(a["wav"]).all()
+        for k in ("coded", "lpc", "wav"):
+            np.testing.assert_array_equal(a[k], b[k])

@@ -5,8 +5,10 @@ The recorder: ids and parents, attributes, the ring's bound and its
 count of the spans pushed out, `record_spans(False)`; under a CPU
 torch.profiler each span is one annotation "fpsc.<name>", nested as
 recorded, and with no profiler none is made.  The program: a decode of
-a two-bucket container on the CPU records its phases under one root and
-one sampler launch a bucket, with the bucket's batch and frames, and
+a two-bucket container on the CPU records its phases under one root,
+its buckets prepared in turn and then one sampler phase holding one
+launch a bucket, with the bucket's batch and frames (one group of
+buckets while their rows fit a wave, as `cli._groups` forms them), and
 `timings=` keeps its keys and adds the phases' own seconds; the phases
 synchronise the card only where the caller asked for timings; each
 bucket's feature decode records one `predictor.decoder` with its batch,
@@ -260,9 +262,10 @@ def test_decode_file_records_its_phases_under_one_root(two_buckets):
     assert root.parent == 0
     assert root.attrs == {"utterances": 3, "buckets": 2}
     phases = [s for s in got if s.parent == root.id]
+    # each bucket prepared in turn, then one sampler phase for both
     assert [s.name for s in phases] == ["decode.unpack"] + [
-        "decode.feature_decode", "decode.ceps2lpc", "decode.prologue",
-        "decode.sampler"] * 2 + ["decode.write"]
+        "decode.feature_decode", "decode.ceps2lpc", "decode.prologue"] * 2 + [
+        "decode.sampler", "decode.write"]
     for before, after in zip(phases, phases[1:]):
         assert before.t1 == after.t0
     assert root.t0 <= phases[0].t0 and phases[-1].t1 <= root.t1
@@ -278,12 +281,64 @@ def test_decode_file_records_one_sampler_launch_a_bucket(two_buckets):
     launches = by["sampler.launch"]
     assert [(s.attrs["batch"], s.attrs["frames"]) for s in launches] == [
         (2, 3), (1, 4)]
-    for s, phase in zip(launches, by["decode.sampler"]):
+    (phase,) = by["decode.sampler"]           # both launches, one wait
+    assert phase.attrs == {"launches": 2}
+    for s in launches:
         assert s.parent == phase.id
         assert s.attrs["kernel"] == "sample_plain"
         assert s.attrs["bunch"] == 1
         assert s.attrs["steps"] == s.attrs["frames"] * 160
+        assert s.attrs["stream"] is None      # the CPU has no side stream
     assert "sampler.fold" not in by          # the CPU runs no fold
+
+
+def test_a_container_of_one_bucket_makes_one_launch_a_wait(two_buckets,
+                                                           tmp_path):
+    cfg, _, _, artifacts, vocoder = two_buckets
+    rng = np.random.RandomState(6)
+    path = str(tmp_path / "one.fpsc")
+    container.write_fpsc(path, [(n, _payload(rng, 5)) for n in "xy"], SIZES)
+    log.clear_spans()
+    cli.decode_file(cfg, path, str(tmp_path / "wav"), artifacts=artifacts,
+                    vocoder=vocoder, device="cpu")
+    by = _by_name(log.spans())
+    (phase,) = by["decode.sampler"]
+    assert phase.attrs == {"launches": 1}
+    (launch,) = by["sampler.launch"]
+    assert launch.parent == phase.id and launch.attrs["batch"] == 2
+
+
+@pytest.mark.parametrize("rows, limit, sizes", [
+    ([1, 1, 1, 1], 132, [4]),           # the mixed cell: one group
+    ([64], 132, [1]),                   # the bulk cells: one bucket
+    ([200, 1, 1], 132, [1, 2]),         # wider than a wave: alone
+    ([100, 40, 1, 30], 132, [1, 3]),    # a group ends where rows overflow
+    ([2, 1], 2, [1, 1]),
+    ([3, 1, 2], float("inf"), [3]),     # the CPU: no bound
+    ([], 132, [])])
+def test_buckets_group_while_their_rows_fit_one_wave(rows, limit, sizes):
+    assert cli._groups(rows, limit) == sizes
+
+
+def test_groups_split_by_the_wave_decode_the_same_audio(two_buckets,
+                                                        monkeypatch):
+    """A wave of 2 rows puts the buckets (2 and 1 rows) in two groups,
+    each prepared, launched and waited on in turn; each bucket's coded
+    frames, LPC and audio are those of the one group."""
+    one, _ = _decode(two_buckets)
+    monkeypatch.setattr(cli, "_wave", lambda dev: 2)
+    two, got = _decode(two_buckets)
+    by = _by_name(got)
+    (root,) = by["decode"]
+    assert [s.name for s in got if s.parent == root.id] == [
+        "decode.unpack"] + ["decode.feature_decode", "decode.ceps2lpc",
+                            "decode.prologue", "decode.sampler"] * 2 + [
+        "decode.write"]
+    assert [s.attrs for s in by["decode.sampler"]] == [{"launches": 1}] * 2
+    for a, b in zip(one, two):
+        assert a["name"] == b["name"]
+        for k in ("coded", "lpc", "wav"):
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_decode_timings_keep_their_keys_and_read_the_spans(two_buckets):
